@@ -6,28 +6,39 @@
 Phases, each printing one JSON line:
 
 1. device  — the card (nvidia-smi name and power limit, torch's name).
-2. build   — nvcc builds every CUDA kernel of the serving path from
-             rbg_tpu_torch/csrc.
+2. build   — nvcc builds every CUDA kernel of the serving paths from
+             rbg_tpu_torch/csrc (A-F, one library each, all at once).
 3. kernels — each kernel against its plain PyTorch version on the card, in
-             bfloat16, at llama3-8b and qwen2-0.5b shapes: error, kernel
-             time, plain time, one PyTorch library call on the same inputs
-             (SDPA on the gathered view, a yardstick the port never calls)
-             and the least time the card could take (bound).
-4. engine  — Engine(llama3-8b) at full width and depth, random weights
-             from a seed: a request steps into decode, a second joins so
-             one ragged step holds a decode row and a prefill chunk, both
-             run to completion (multi_step 1 and 4); greedy is repeatable.
-   then      one forward_ragged with kernels against the plain version
-             on the same pool, in float32 (tight) and in bfloat16 (against
-             a float32 control).
-5. server  — the port's engine server in this process on a free port,
+             bfloat16: A-D at llama3-8b and qwen2-0.5b shapes (C and D on
+             int8 pools made by the port's quantize_kv), E and F at
+             deepseek-v2-lite (H=16) and deepseek-v3 (H=128) shapes: error,
+             kernel time, plain time, one PyTorch library call on the same
+             inputs (SDPA on the gathered view, a yardstick the port never
+             calls) and the least time the card could take (bound).
+4. llama3-8b at full width and depth, random weights from a seed:
+   engine  — Engine (bf16 pools; kernels A, B): a request steps into
+             decode, a second joins so one ragged step holds a decode row
+             and a prefill chunk, both run to completion (multi_step 1
+             and 4); greedy is repeatable.
+   witness — one forward_ragged with kernels against the plain version on
+             the same pool, in float32 (tight) and in bfloat16 (against a
+             float32 control).
+   server  — the port's engine server in this process on a free port,
              answering 4 concurrent generate requests (one streamed).
+   int8    — the same engine script with kv_dtype="int8" (kernels C, D),
+             multi_step 4, and its witness on an int8 pool.
+5. deepseek-v2-lite (MLA + MoE) at full width and depth, random weights
+   from a seed, after llama3-8b is freed: engine (kernels E, F; multi_step
+   1 and 4), witness and server, as for llama3-8b.
 
-Then a line {"kernels": [...]} (launches counted over the server phase,
-the main path) and, last, {"ok": true, "device": {...}}. Any failure exits
-non-zero before the last line; without a CUDA device nothing runs.
+Then a line {"kernels": [...]} (launches counted over the phase that drives
+each kernel's path: the llama3-8b server for A and B, the int8 engine for
+C and D, the deepseek-v2-lite server for E and F) and, last,
+{"ok": true, "device": {...}}. Any failure exits non-zero before the last
+line; without a CUDA device nothing runs.
 """
 
+import gc
 import json
 import statistics
 import subprocess
@@ -47,6 +58,23 @@ F32_LOGIT_ATOL = 1e-3
 # In bfloat16 the kernel path must stray from the float32 logits no more
 # than the plain bfloat16 path does, up to this factor on the mean.
 BF16_VS_CONTROL = 1.25
+# MoE models: the router keeps an expert when its probability is >= the
+# k-th largest, so a float32 ulp can swap one expert of one token, which
+# moves that token's logits by far more than 1e-3. There the float32 half
+# holds at least MOE_F32_SHARE of the tokens to F32_LOGIT_ATOL and every
+# token to MOE_F32_STD_FRAC x the logits' std (a wrong mask, page or head
+# mapping moves every token by the order of the std).
+MOE_F32_SHARE, MOE_F32_STD_FRAC = 0.9, 0.25
+# int8 pools: each path writes the step's own K/V from its own hidden
+# states, so a last-ulp difference upstream can round a quantized value to
+# the neighbouring integer. Both halves are therefore control ratios: the
+# int8 kernel path's mean distance from the float32 logits of a model-dtype
+# pool must be at most this factor times the int8 plain path's.
+INT8_VS_CONTROL = 1.25
+
+LLAMA_KERNELS = ("paged_decode", "ragged_paged")
+INT8_KERNELS = ("paged_decode_q", "ragged_paged_q")
+MLA_KERNELS = ("paged_mla_decode", "ragged_paged_mla")
 
 
 def emit(phase, **kw):
@@ -85,7 +113,18 @@ def max_err_checked(torch, name, got, ref):
     return float(err.max())
 
 
+def pages_of(lens, page=16):
+    return sum(-(-n // page) for n in lens)
+
+
 # ---- phase 3: kernels against their plain versions ----
+
+DECODE_LENS = [2048, 1900, 1536, 1200, 1024, 700, 333, 65]
+# Mixed pack: 64-token prefill chunks and decode tokens; the decode token
+# first puts every chunk across a tile boundary.
+RAGGED_SPEC = [(1, 2048), (64, 64), (1, 1500), (64, 512), (1, 800), (64, 1024),
+               (1, 100), (64, 2000)]
+
 
 def decode_case(torch, np, KV, G, hd, lens, page=16):
     dev = "cuda"
@@ -102,9 +141,25 @@ def decode_case(torch, np, KV, G, hd, lens, page=16):
     return q, k, v, table, (kv_lens - 1)[:, None], kv_lens
 
 
-def ragged_case(torch, np, KV, G, hd, rows_spec, page=16):
+def pack_rows(torch, rows_spec, dev="cuda"):
     """rows_spec: (q_len, kv_len) per row, packed in order, then pads to the
-    engine's power-of-two token bucket (row 0, position -1)."""
+    engine's power-of-two token bucket (row 0, position -1). Returns
+    (q_positions [1, T], kv_lens [R], row_ids [T])."""
+    rows, pos = [], []
+    for r, (ql, kv) in enumerate(rows_spec):
+        rows += [r] * ql
+        pos += list(range(kv - ql, kv))
+    T = 8
+    while T < len(rows):
+        T *= 2
+    rows += [0] * (T - len(rows))
+    pos += [-1] * (T - len(pos))
+    return (torch.tensor([pos], dtype=torch.int32, device=dev),
+            torch.tensor([kv for _, kv in rows_spec], dtype=torch.int32, device=dev),
+            torch.tensor(rows, dtype=torch.int32, device=dev))
+
+
+def ragged_case(torch, np, KV, G, hd, rows_spec, page=16):
     dev = "cuda"
     R = len(rows_spec)
     P = max(-(-kv // page) for _, kv in rows_spec)
@@ -115,103 +170,226 @@ def ragged_case(torch, np, KV, G, hd, rows_spec, page=16):
     v = torch.randn(NP, page, KV, hd, generator=g, device=dev).to(torch.bfloat16)
     table = torch.from_numpy((rng.permutation(NP - 1)[:R * P] + 1)
                              .reshape(R, P).astype(np.int32)).to(dev)
-    rows, pos = [], []
-    for r, (ql, kv) in enumerate(rows_spec):
-        rows += [r] * ql
-        pos += list(range(kv - ql, kv))
-    T = 8
-    while T < len(rows):
-        T *= 2
-    rows += [0] * (T - len(rows))
-    pos += [-1] * (T - len(pos))
-    q = torch.randn(1, T, KV * G, hd, generator=g, device=dev).to(torch.bfloat16)
-    return (q, k, v, table,
-            torch.tensor([pos], dtype=torch.int32, device=dev),
-            torch.tensor([kv for _, kv in rows_spec], dtype=torch.int32, device=dev),
-            torch.tensor(rows, dtype=torch.int32, device=dev))
+    qpos, kv_lens, rows = pack_rows(torch, rows_spec)
+    q = torch.randn(1, rows.numel(), KV * G, hd, generator=g, device=dev).to(torch.bfloat16)
+    return q, k, v, table, qpos, kv_lens, rows
 
 
-def kernels_phase(torch, np):
+def padded_queries(torch, q, qpos, rows, R, Tm=64):
+    """The pack scattered into a padded [R, Tm] batch (the plain version's
+    layout) for the SDPA yardstick: (queries, positions)."""
+    from rbg_tpu_torch.ops.ragged_paged_attention import _unpack_offsets
+    real = qpos[0] >= 0
+    idx = _unpack_offsets(rows, real).clamp(max=Tm - 1)
+    qp = torch.zeros(R, Tm, *q.shape[2:], dtype=q.dtype, device="cuda")
+    pp = torch.full((R, Tm), -1, dtype=torch.int32, device="cuda")
+    qp[rows[real].long(), idx[real]] = q[0, real]
+    pp[rows[real].long(), idx[real]] = qpos[0, real]
+    return qp, pp
+
+
+def gqa_kernel_cases(torch, np, flush, out):
+    """Kernels A-D at the llama3-8b and qwen2-0.5b shapes."""
     import torch.nn.functional as F
 
     from rbg_tpu_torch.ops.kernels.paged_decode import paged_decode_attention
+    from rbg_tpu_torch.ops.kernels.paged_decode_q import paged_decode_attention_q
     from rbg_tpu_torch.ops.kernels.ragged_paged import ragged_paged_attention_cuda
-    from rbg_tpu_torch.ops.paged_attention import gather_kv, paged_attention_plain
-    from rbg_tpu_torch.ops.ragged_paged_attention import (
-        _unpack_offsets, ragged_paged_attention_plain)
+    from rbg_tpu_torch.ops.kernels.ragged_paged_q import ragged_paged_attention_q_cuda
+    from rbg_tpu_torch.ops.paged_attention import (gather_kv, paged_attention_plain,
+                                                   quantize_kv)
+    from rbg_tpu_torch.ops.ragged_paged_attention import ragged_paged_attention_plain
 
-    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
-    out = {"paged_decode": [], "ragged_paged": []}
     shapes = {"llama3-8b": (8, 4, 128), "qwen2-0.5b": (2, 7, 64)}
     for model, (KV, G, hd) in shapes.items():
-        # -- A: decode, B=8, kv_len up to 2048 --
-        lens = [2048, 1900, 1536, 1200, 1024, 700, 333, 65]
+        # -- A and C: decode, B=8, kv_len up to 2048 --
+        lens = DECODE_LENS
         q, k, v, table, pos, kv_lens = decode_case(torch, np, KV, G, hd, lens)
-        got = paged_decode_attention(q, k, v, table, kv_lens)
-        ref = paged_attention_plain(q, k, v, table, pos, kv_lens)
-        err = max_err_checked(torch, f"paged_decode {model}", got, ref)
-        ms = cuda_ms(torch, lambda: paged_decode_attention(q, k, v, table, kv_lens), flush)
-        plain_ms = cuda_ms(torch, lambda: paged_attention_plain(
-            q, k, v, table, pos, kv_lens), flush, iters=5)
-        B, S = len(lens), table.shape[1] * 16
-        kg = gather_kv(k, table).permute(0, 2, 1, 3).contiguous()   # [B,KV,S,hd]
-        vg = gather_kv(v, table).permute(0, 2, 1, 3).contiguous()
+        (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+        B, S, tokens = len(lens), table.shape[1] * 16, sum(lens)
         qh = q.permute(0, 2, 1, 3)                                   # [B,H,1,hd]
         mask = (torch.arange(S, device="cuda")[None, :] < kv_lens[:, None])[:, None, None]
-        lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            qh, kg, vg, attn_mask=mask, enable_gqa=True), flush)
-        tokens = sum(lens)
-        elem = 2
-        nbytes = (2 * tokens * KV * hd * elem + 2 * q.numel() * elem
-                  + sum(-(-n // 16) for n in lens) * 4 + B * 4)
-        b_ms, b_by = bound(nbytes, 4 * tokens * KV * G * hd)
-        out["paged_decode"].append(dict(
-            model=model, KV=KV, G=G, hd=hd, B=B, kv_lens=lens, max_abs_err=err,
-            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-            bound_by=b_by))
-        del kg, vg
+        meta = pages_of(lens) * 4 + B * 4
+        flops = 4 * tokens * KV * G * hd
+        for name, elem, fn, plain, kv_pair in (
+                ("paged_decode", 2,
+                 lambda: paged_decode_attention(q, k, v, table, kv_lens),
+                 lambda: paged_attention_plain(q, k, v, table, pos, kv_lens), (k, v)),
+                ("paged_decode_q", 1,
+                 lambda: paged_decode_attention_q(q, k8, v8, ks, vs, table, kv_lens),
+                 lambda: paged_attention_plain(q, k8, v8, table, pos, kv_lens, ks, vs),
+                 None)):
+            err = max_err_checked(torch, f"{name} {model}", fn(), plain())
+            if kv_pair is None:     # SDPA on the pre-dequantized bf16 view
+                kv_pair = ((k8.float() * ks).to(torch.bfloat16),
+                           (v8.float() * vs).to(torch.bfloat16))
+            kg = gather_kv(kv_pair[0], table).permute(0, 2, 1, 3).contiguous()
+            vg = gather_kv(kv_pair[1], table).permute(0, 2, 1, 3).contiguous()
+            nbytes = (2 * tokens * KV * hd * elem + 2 * q.numel() * 2 + meta
+                      + (2 * tokens * KV * 4 if elem == 1 else 0))
+            b_ms, b_by = bound(nbytes, flops)
+            out[name].append(dict(
+                model=model, KV=KV, G=G, hd=hd, B=B, kv_lens=lens, max_abs_err=err,
+                ms=cuda_ms(torch, fn, flush), plain_ms=cuda_ms(torch, plain, flush, iters=5),
+                library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qh, kg, vg, attn_mask=mask, enable_gqa=True), flush),
+                library="sdpa, gathered bf16 view" + (
+                    " dequantized beforehand" if elem == 1 else ""),
+                bound_ms=b_ms, bound_by=b_by))
+            del kg, vg
 
-        # -- B: mixed pack, 64-token prefill chunks and decode tokens; the
-        # decode token first puts every chunk across a tile boundary --
-        spec = [(1, 2048), (64, 64), (1, 1500), (64, 512), (1, 800), (64, 1024),
-                (1, 100), (64, 2000)]
+        # -- B and D: the mixed pack --
+        spec = RAGGED_SPEC
         q, k, v, table, qpos, kv_lens, rows = ragged_case(torch, np, KV, G, hd, spec)
-        got = ragged_paged_attention_cuda(q, k, v, table, qpos, kv_lens, rows)
-        ref = ragged_paged_attention_plain(q, k, v, table, qpos, kv_lens, rows, 64)
-        err = max_err_checked(torch, f"ragged_paged {model}", got, ref)
-        ms = cuda_ms(torch, lambda: ragged_paged_attention_cuda(
-            q, k, v, table, qpos, kv_lens, rows), flush)
-        plain_ms = cuda_ms(torch, lambda: ragged_paged_attention_plain(
-            q, k, v, table, qpos, kv_lens, rows, 64), flush, iters=5)
-        # Library yardstick: SDPA over the padded [R, 64] batch on the
-        # gathered per-row view (what the plain version feeds its einsum).
-        R, S, Tm = len(spec), table.shape[1] * 16, 64
-        real = qpos[0] >= 0
-        idx = _unpack_offsets(rows, real).clamp(max=Tm - 1)
-        qp = torch.zeros(R, Tm, KV * G, hd, dtype=q.dtype, device="cuda")
-        pp = torch.full((R, Tm), -1, dtype=torch.int32, device="cuda")
-        qp[rows[real].long(), idx[real]] = q[0, real]
-        pp[rows[real].long(), idx[real]] = qpos[0, real]
-        kg = gather_kv(k, table).permute(0, 2, 1, 3).contiguous()
-        vg = gather_kv(v, table).permute(0, 2, 1, 3).contiguous()
+        (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+        R, S = len(spec), table.shape[1] * 16
+        qp, pp = padded_queries(torch, q, qpos, rows, R)
         slot = torch.arange(S, device="cuda")
         mask = ((slot[None, None] <= pp[:, :, None])
                 & (slot[None, None] < kv_lens[:, None, None]))[:, None]
         qh = qp.permute(0, 2, 1, 3)
-        lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            qh, kg, vg, attn_mask=mask, enable_gqa=True), flush)
         lim = torch.minimum(kv_lens[rows.long()], qpos[0] + 1).clamp(min=0)
         flops = 4 * int(lim.sum()) * KV * G * hd
         row_extent = sum(kv for _, kv in spec)          # each row's pages once
-        nbytes = (2 * row_extent * KV * hd * 2 + 2 * q.numel() * 2
-                  + sum(-(-kv // 16) for _, kv in spec) * 4
-                  + rows.numel() * 8 + R * 4)
-        b_ms, b_by = bound(nbytes, flops)
-        out["ragged_paged"].append(dict(
-            model=model, KV=KV, G=G, hd=hd, T=int(q.shape[1]), rows=spec,
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        meta = pages_of([kv for _, kv in spec]) * 4 + rows.numel() * 8 + R * 4
+        for name, elem, fn, plain, kv_pair in (
+                ("ragged_paged", 2,
+                 lambda: ragged_paged_attention_cuda(q, k, v, table, qpos, kv_lens, rows),
+                 lambda: ragged_paged_attention_plain(q, k, v, table, qpos, kv_lens,
+                                                      rows, 64), (k, v)),
+                ("ragged_paged_q", 1,
+                 lambda: ragged_paged_attention_q_cuda(q, k8, v8, ks, vs, table, qpos,
+                                                       kv_lens, rows),
+                 lambda: ragged_paged_attention_plain(q, k8, v8, table, qpos, kv_lens,
+                                                      rows, 64, ks, vs), None)):
+            err = max_err_checked(torch, f"{name} {model}", fn(), plain())
+            if kv_pair is None:
+                kv_pair = ((k8.float() * ks).to(torch.bfloat16),
+                           (v8.float() * vs).to(torch.bfloat16))
+            kg = gather_kv(kv_pair[0], table).permute(0, 2, 1, 3).contiguous()
+            vg = gather_kv(kv_pair[1], table).permute(0, 2, 1, 3).contiguous()
+            nbytes = (2 * row_extent * KV * hd * elem + 2 * q.numel() * 2 + meta
+                      + (2 * row_extent * KV * 4 if elem == 1 else 0))
+            b_ms, b_by = bound(nbytes, flops)
+            out[name].append(dict(
+                model=model, KV=KV, G=G, hd=hd, T=int(q.shape[1]), rows=spec,
+                max_abs_err=err, ms=cuda_ms(torch, fn, flush),
+                plain_ms=cuda_ms(torch, plain, flush, iters=5),
+                library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qh, kg, vg, attn_mask=mask, enable_gqa=True), flush),
+                library="sdpa, padded [R, 64] batch on the gathered bf16 view" + (
+                    " dequantized beforehand" if elem == 1 else ""),
+                bound_ms=b_ms, bound_by=b_by))
+            del kg, vg
+        del qp
+
+
+def latent_pools(torch, NP, dc, dr, seed, page=16):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c = torch.randn(NP, page, 1, dc, generator=g, device="cuda").to(torch.bfloat16)
+    pe = torch.randn(NP, page, 1, dr, generator=g, device="cuda").to(torch.bfloat16)
+    return c, pe, g
+
+
+def mla_kernel_cases(torch, np, flush, out):
+    """Kernels E and F at the deepseek-v2-lite and deepseek-v3 shapes."""
+    import torch.nn.functional as F
+
+    from rbg_tpu_torch.ops.kernels.paged_mla_decode import paged_mla_decode_attention
+    from rbg_tpu_torch.ops.kernels.ragged_paged_mla import ragged_paged_mla_attention_cuda
+    from rbg_tpu_torch.ops.mla_attention import (_gather, paged_mla_attention_plain,
+                                                 ragged_paged_mla_attention_plain)
+
+    dc, dr, dn = 512, 64, 128
+    scale = (dn + dr) ** -0.5
+    for model, H in (("deepseek-v2-lite", 16), ("deepseek-v3", 128)):
+        # -- E: decode, B=8 --
+        lens = DECODE_LENS
+        B, P = len(lens), max(-(-n // 16) for n in lens)
+        NP = B * P + 1
+        c, pe, g = latent_pools(torch, NP, dc, dr, H)
+        rng = np.random.RandomState(H)
+        table = torch.from_numpy((rng.permutation(NP - 1)[:B * P] + 1)
+                                 .reshape(B, P).astype(np.int32)).to("cuda")
+        kv_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        pos = (kv_lens - 1)[:, None]
+        q_lat = torch.randn(B, 1, H, dc, generator=g, device="cuda").to(torch.bfloat16)
+        q_pe = torch.randn(B, 1, H, dr, generator=g, device="cuda").to(torch.bfloat16)
+
+        def fn():
+            return paged_mla_decode_attention(q_lat, q_pe, c, pe, table, kv_lens, scale)
+
+        def plain():
+            return paged_mla_attention_plain(q_lat, q_pe, c, pe, table, pos, kv_lens,
+                                             scale)
+
+        err = max_err_checked(torch, f"paged_mla_decode {model}", fn(), plain())
+        S, tokens = P * 16, sum(lens)
+        qh = torch.cat([q_lat, q_pe], -1).permute(0, 2, 1, 3)        # [B,H,1,576]
+        kg = torch.cat([_gather(c, table), _gather(pe, table)], -1)[:, None]
+        vg = _gather(c, table)[:, None]                              # [B,1,S,dc]
+        mask = (torch.arange(S, device="cuda")[None, :] < kv_lens[:, None])[:, None, None]
+        nbytes = (tokens * (dc + dr) * 2 + B * H * (2 * dc + dr) * 2
+                  + pages_of(lens) * 4 + B * 4)
+        b_ms, b_by = bound(nbytes, tokens * H * (4 * dc + 2 * dr))
+        out["paged_mla_decode"].append(dict(
+            model=model, H=H, dc=dc, dr=dr, B=B, kv_lens=lens, max_abs_err=err,
+            ms=cuda_ms(torch, fn, flush), plain_ms=cuda_ms(torch, plain, flush, iters=5),
+            library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                qh, kg, vg, attn_mask=mask, scale=scale, enable_gqa=True), flush),
+            library="sdpa, q=[q_lat|q_pe], k=[c|pe], v=c on the gathered view",
+            bound_ms=b_ms, bound_by=b_by))
+        del kg, vg
+
+        # -- F: the mixed pack --
+        spec = RAGGED_SPEC
+        R, P = len(spec), max(-(-kv // 16) for _, kv in spec)
+        NP = R * P + 1
+        c, pe, g = latent_pools(torch, NP, dc, dr, 1000 + H)
+        table = torch.from_numpy((rng.permutation(NP - 1)[:R * P] + 1)
+                                 .reshape(R, P).astype(np.int32)).to("cuda")
+        qpos, kv_lens, rows = pack_rows(torch, spec)
+        T = rows.numel()
+        q_lat = torch.randn(1, T, H, dc, generator=g, device="cuda").to(torch.bfloat16)
+        q_pe = torch.randn(1, T, H, dr, generator=g, device="cuda").to(torch.bfloat16)
+
+        def fn():
+            return ragged_paged_mla_attention_cuda(q_lat, q_pe, c, pe, table, qpos,
+                                                   kv_lens, rows, scale)
+
+        def plain():
+            return ragged_paged_mla_attention_plain(q_lat, q_pe, c, pe, table, qpos,
+                                                    kv_lens, rows, scale, max_q_len=64)
+
+        err = max_err_checked(torch, f"ragged_paged_mla {model}", fn(), plain())
+        S = P * 16
+        qp, pp = padded_queries(torch, torch.cat([q_lat, q_pe], -1), qpos, rows, R)
+        slot = torch.arange(S, device="cuda")
+        mask = ((slot[None, None] <= pp[:, :, None])
+                & (slot[None, None] < kv_lens[:, None, None]))[:, None]
+        qh = qp.permute(0, 2, 1, 3)
+        kg = torch.cat([_gather(c, table), _gather(pe, table)], -1)[:, None]
+        vg = _gather(c, table)[:, None]
+        lim = torch.minimum(kv_lens[rows.long()], qpos[0] + 1).clamp(min=0)
+        row_extent = sum(kv for _, kv in spec)
+        nbytes = (row_extent * (dc + dr) * 2 + T * H * (2 * dc + dr) * 2
+                  + pages_of([kv for _, kv in spec]) * 4 + T * 8 + R * 4)
+        b_ms, b_by = bound(nbytes, int(lim.sum()) * H * (4 * dc + 2 * dr))
+        out["ragged_paged_mla"].append(dict(
+            model=model, H=H, dc=dc, dr=dr, T=T, rows=spec, max_abs_err=err,
+            ms=cuda_ms(torch, fn, flush), plain_ms=cuda_ms(torch, plain, flush, iters=5),
+            library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                qh, kg, vg, attn_mask=mask, scale=scale, enable_gqa=True), flush),
+            library="sdpa, padded [R, 64] batch, q=[q_lat|q_pe], k=[c|pe], v=c",
             bound_ms=b_ms, bound_by=b_by))
         del kg, vg, qp
+
+
+def kernels_phase(torch, np):
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    out = {k: [] for k in LLAMA_KERNELS + INT8_KERNELS + MLA_KERNELS}
+    gqa_kernel_cases(torch, np, flush, out)
+    mla_kernel_cases(torch, np, flush, out)
     torch.cuda.empty_cache()
     for name, rs in out.items():
         emit("kernels", kernel=name, tolerance=f"|d| <= {KERNEL_RTOL}*|ref| + "
@@ -220,20 +398,47 @@ def kernels_phase(torch, np):
     return out
 
 
-# ---- phase 4: the engine at full width and depth ----
+# ---- phases 4 and 5: the engines at full width and depth ----
 
-def ragged_compare(torch, np, params, model="llama3-8b", dev="cuda"):
+class _Float32Layers:
+    """A stacked weight whose layer ``l`` is cast to float32 when indexed:
+    a full-depth float32 forward holds one layer in float32 at a time."""
+
+    def __init__(self, w):
+        self.w = w
+
+    def __getitem__(self, l):
+        return self.w[l].float()
+
+
+def float32_params(params):
+    return {"blocks": {k: _Float32Layers(w) for k, w in params["blocks"].items()},
+            **{k: w.float() for k, w in params.items() if k != "blocks"}}
+
+
+def logit_stats(a, b):
+    d = (a - b).abs()
+    return {"max": float(d.max()), "mean": float(d.mean()),
+            "argmax_agree": float((a.argmax(-1) == b.argmax(-1)).float().mean())}
+
+
+def ragged_compare(torch, np, params, model, kv_dtype="model", dev="cuda"):
     """forward_ragged with kernels against use_kernels='never' on the same
     pool, at full width and depth: a decode row and a 64-token prefill chunk
-    over context that an earlier kernel call wrote.
+    over context that an earlier kernel call wrote. The float32 runs use
+    the same weights cast to float32 one layer at a time.
 
-    float32 witness: the same weights cast to float32 on a float32 pool.
-    There kernel and plain differ only in summation order, so their logits
-    must agree within F32_LOGIT_ATOL after 32 layers; a wrong mask, page or
-    head mapping moves them by the order of their spread.
-    bfloat16 (the served dtype): the kernel path must be as close to the
-    float32 plain logits as the bfloat16 plain path is (the control): mean
-    |bf16 - f32| of the kernel path <= BF16_VS_CONTROL x the plain path's."""
+    Model-dtype pools. float32: kernel and plain differ only in summation
+    order, so their logits must agree within F32_LOGIT_ATOL (MoE models:
+    see MOE_F32_SHARE); a wrong mask, page or head mapping moves them by
+    the order of their spread. bfloat16 (the served dtype): the kernel path
+    must be as close to the float32 plain logits as the bfloat16 plain path
+    is (the control): mean |bf16 - f32| of the kernel path <=
+    BF16_VS_CONTROL x the plain path's.
+    int8 pools: in float32 and in bfloat16, the int8 kernel path's mean
+    distance from the float32 plain logits on a model-dtype pool must be at
+    most INT8_VS_CONTROL x the int8 plain path's."""
+    from rbg_tpu_torch.engine.kvcache import PagedKVCache
     from rbg_tpu_torch.models.config import get_config
     from rbg_tpu_torch.models.llama import forward_ragged
 
@@ -260,57 +465,92 @@ def ragged_compare(torch, np, params, model="llama3-8b", dev="cuda"):
     step = pack([(64, 65), (100, 164)], 128)
     mask = step[2][0]
 
-    def run(p, cfg):
+    def run(p, cfg, quantize):
         """(kernel logits, plain logits) of the compared step, real tokens."""
-        shape = (cfg.num_layers, 17, 16, cfg.num_kv_heads, cfg.head_dim_)
-        kp = torch.zeros(shape, dtype=cfg.torch_dtype, device=dev)
-        vp = torch.zeros_like(kp)
-        forward_ragged(p, cfg, *context, table, kp, vp)
-        lk = forward_ragged(p, cfg, *step, table, kp, vp, max_q_len=64)
-        lp = forward_ragged(p, cfg, *step, table, kp, vp, use_kernels="never",
-                            max_q_len=64)
+        c = PagedKVCache.create(cfg, 17, 16, device=dev, quantize=quantize)
+        pools = (c.k_pages, c.v_pages)
+        kw = dict(k_scales=c.k_scales, v_scales=c.v_scales)
+        forward_ragged(p, cfg, *context, table, *pools, **kw)
+        lk = forward_ragged(p, cfg, *step, table, *pools, max_q_len=64, **kw)
+        lp = forward_ragged(p, cfg, *step, table, *pools, use_kernels="never",
+                            max_q_len=64, **kw)
         return lk[0][mask], lp[0][mask]
 
-    k16, p16 = run(params, cfg16)
-    p32 = {"blocks": {k: w.float() for k, w in params["blocks"].items()},
-           **{k: w.float() for k, w in params.items() if k != "blocks"}}
-    k32, r32 = run(p32, get_config(model, dtype="float32"))
+    p32, cfg32 = float32_params(params), get_config(model, dtype="float32")
+    res = {}
+    if kv_dtype == "model":
+        k16, p16 = run(params, cfg16, False)
+        k32, r32 = run(p32, cfg32, False)
+        res.update({"f32_kernel_vs_plain": logit_stats(k32, r32),
+                    "bf16_kernel_vs_plain": logit_stats(k16, p16),
+                    "bf16_kernel_vs_f32": logit_stats(k16, r32),
+                    "bf16_plain_vs_f32 (control)": logit_stats(p16, r32)})
+        ratio = res["bf16_kernel_vs_f32"]["mean"] / res["bf16_plain_vs_f32 (control)"]["mean"]
+        res["bf16_mean_ratio_to_control"] = ratio
+        tok_max = (k32 - r32).abs().amax(-1)
+        if cfg16.num_experts:
+            share = float((tok_max <= F32_LOGIT_ATOL).float().mean())
+            res["f32_share_within_atol"] = share
+            f32_ok = (share >= MOE_F32_SHARE and float(tok_max.max())
+                      <= MOE_F32_STD_FRAC * float(r32.std()))
+            limit = (f32_ok, f"f32: >= {MOE_F32_SHARE} of tokens max |d| <= "
+                     f"{F32_LOGIT_ATOL}, every token <= {MOE_F32_STD_FRAC} x logit std")
+        else:
+            f32_ok = float(tok_max.max()) <= F32_LOGIT_ATOL
+            limit = (f32_ok, f"f32 max |d| <= {F32_LOGIT_ATOL}")
+        ok = limit[0] and ratio <= BF16_VS_CONTROL
+        tol = f"{limit[1]}; bf16 mean |d vs f32| <= {BF16_VS_CONTROL} x control's"
+        tensors = (k16, p16, k32, r32)
+    else:
+        k8_16, p8_16 = run(params, cfg16, True)
+        k8_32, p8_32 = run(p32, cfg32, True)
+        _, r32 = run(p32, cfg32, False)
+        res.update({"f32_int8_kernel_vs_plain": logit_stats(k8_32, p8_32),
+                    "bf16_int8_kernel_vs_plain": logit_stats(k8_16, p8_16),
+                    "f32_int8_kernel_vs_f32": logit_stats(k8_32, r32),
+                    "f32_int8_plain_vs_f32 (control)": logit_stats(p8_32, r32),
+                    "bf16_int8_kernel_vs_f32": logit_stats(k8_16, r32),
+                    "bf16_int8_plain_vs_f32 (control)": logit_stats(p8_16, r32)})
+        r_32 = (res["f32_int8_kernel_vs_f32"]["mean"]
+                / res["f32_int8_plain_vs_f32 (control)"]["mean"])
+        r_16 = (res["bf16_int8_kernel_vs_f32"]["mean"]
+                / res["bf16_int8_plain_vs_f32 (control)"]["mean"])
+        res.update(f32_mean_ratio_to_control=r_32, bf16_mean_ratio_to_control=r_16)
+        ok = r_32 <= INT8_VS_CONTROL and r_16 <= INT8_VS_CONTROL
+        tol = (f"f32 and bf16: int8 kernel mean |d vs f32 model-dtype pool| <= "
+               f"{INT8_VS_CONTROL} x the int8 plain path's")
+        tensors = (k8_16, p8_16, k8_32, p8_32, r32)
     del p32
-    if dev == "cuda":
-        torch.cuda.empty_cache()
-
-    def stats(a, b):
-        d = (a - b).abs()
-        return {"max": float(d.max()), "mean": float(d.mean()),
-                "argmax_agree": float((a.argmax(-1) == b.argmax(-1)).float().mean())}
-
-    res = {"f32_kernel_vs_plain": stats(k32, r32),
-           "bf16_kernel_vs_plain": stats(k16, p16),
-           "bf16_kernel_vs_f32": stats(k16, r32),
-           "bf16_plain_vs_f32 (control)": stats(p16, r32),
-           "logit_std_f32": float(r32.std()), "logit_absmax_f32": float(r32.abs().max())}
-    finite = all(bool(torch.isfinite(t).all()) for t in (k16, p16, k32, r32))
-    ratio = res["bf16_kernel_vs_f32"]["mean"] / res["bf16_plain_vs_f32 (control)"]["mean"]
-    res["bf16_mean_ratio_to_control"] = ratio
-    emit("ragged_compare", model=model, layers=cfg16.num_layers, tokens=int(mask.sum()),
-         tolerance=f"f32 max |d| <= {F32_LOGIT_ATOL}; bf16 mean |d vs f32| <= "
-                   f"{BF16_VS_CONTROL} x control's", **res)
-    if not (finite and res["f32_kernel_vs_plain"]["max"] <= F32_LOGIT_ATOL
-            and ratio <= BF16_VS_CONTROL):
-        raise AssertionError(f"forward_ragged kernels vs plain: {res}")
+    torch.cuda.empty_cache()
+    finite = all(bool(torch.isfinite(t).all()) for t in tensors)
+    res.update(logit_std_f32=float(r32.std()), logit_absmax_f32=float(r32.abs().max()))
+    emit("ragged_compare", model=model, kv_dtype=kv_dtype, layers=cfg16.num_layers,
+         tokens=int(mask.sum()), tolerance=tol, **res)
+    if not (finite and ok):
+        raise AssertionError(f"forward_ragged kernels vs plain ({model}, "
+                             f"{kv_dtype}): {res}")
 
 
-def engine_phase(torch, np, params):
+def check_launches(launches, kernels):
+    if min(launches[k] for k in kernels) == 0:
+        raise AssertionError(f"a kernel of the path never launched: {launches}")
+
+
+def engine_phase(torch, np, params, model, kernels, kv_dtype="model",
+                 multi_steps=(1, 4)):
+    """The engine script: returns {multi_step: (tokens, launches)}."""
     from rbg_tpu_torch.engine.config import EngineConfig, SamplingParams
     from rbg_tpu_torch.engine.engine import Engine
     from rbg_tpu_torch.ops.kernels import LAUNCHES, reset_launches
 
     rng = np.random.RandomState(1)
-    V = 128256
+    eng = None
+    V = params["embed"].shape[0]
     pa, pb = rng.randint(0, V, 100).tolist(), rng.randint(0, V, 150).tolist()
-    for ms in (1, 4):
-        eng = Engine(EngineConfig(model="llama3-8b", num_pages=2048,
-                                  max_seq_len=2048, multi_step=ms), params=params)
+    runs = {}
+    for ms in multi_steps:
+        eng = Engine(EngineConfig(model=model, num_pages=2048, max_seq_len=2048,
+                                  multi_step=ms, kv_dtype=kv_dtype), params=params)
         reset_launches()
         t0 = time.perf_counter()
         a = eng.add_request(pa, SamplingParams(max_new_tokens=24))
@@ -338,8 +578,7 @@ def engine_phase(torch, np, params):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(LAUNCHES)
-        if min(launches.values()) == 0:
-            raise AssertionError(f"a kernel of the path never launched: {launches}")
+        check_launches(launches, kernels)
         if len(out[a]) != 24 or len(out[b]) != 16 or not all(
                 0 <= t < V for t in out[a] + out[b]):
             raise AssertionError(f"bad tokens {out}")
@@ -347,16 +586,17 @@ def engine_phase(torch, np, params):
         g2 = eng.generate([pa], SamplingParams(max_new_tokens=8))
         if g1 != g2:
             raise AssertionError(f"greedy not repeatable: {g1} vs {g2}")
-        emit("engine", model="llama3-8b", layers=32, multi_step=ms,
-             launches=launches, tokens={"a": out[a], "b": out[b]},
-             wall_s=wall, metrics=eng.metrics, greedy_repeat=g1[0])
+        tokens = {"a": out[a], "b": out[b]}
+        emit("engine", model=model, kv_dtype=kv_dtype, layers=eng.mcfg.num_layers,
+             multi_step=ms, launches=launches, tokens=tokens, wall_s=wall,
+             metrics=eng.metrics, greedy_repeat=g1[0])
+        runs[ms] = (tokens, launches)
         del eng
         torch.cuda.empty_cache()
+    return runs
 
 
-# ---- phase 5: the server ----
-
-def server_phase(torch, np, params, card):
+def server_phase(torch, np, params, model, kernels, card):
     from concurrent.futures import ThreadPoolExecutor
 
     from rbg_tpu_torch.engine.config import EngineConfig
@@ -365,7 +605,8 @@ def server_phase(torch, np, params, card):
     from rbg_tpu_torch.engine.service import EngineService
     from rbg_tpu_torch.ops.kernels import LAUNCHES, reset_launches
 
-    svc = EngineService(EngineConfig(model="llama3-8b", num_pages=2048,
+    V = params["embed"].shape[0]
+    svc = EngineService(EngineConfig(model=model, num_pages=2048,
                                      max_seq_len=2048, multi_step=4),
                         params=params)
     srv = start_server(svc)
@@ -381,7 +622,7 @@ def server_phase(torch, np, params, card):
 
         def call(spec):
             plen, n, stream = spec
-            msg = {"op": "generate", "prompt": rng.randint(0, 128256, plen).tolist(),
+            msg = {"op": "generate", "prompt": rng.randint(0, V, plen).tolist(),
                    "max_new_tokens": n}
             if stream:
                 frames, final = request_stream(srv.addr, {**msg, "stream": True},
@@ -399,22 +640,66 @@ def server_phase(torch, np, params, card):
         launches = dict(LAUNCHES)
         for (plen, n, _), r in zip(reqs, res):
             if r.get("error") or len(r["tokens"]) != n or not (r["ttft_s"] or 0) > 0 \
-                    or not all(0 <= t < 128256 for t in r["tokens"]):
+                    or not all(0 <= t < V for t in r["tokens"]):
                 raise AssertionError(f"request (prompt {plen}): {r}")
-        if min(launches.values()) == 0:
-            raise AssertionError(f"a kernel of the path never launched: {launches}")
+        check_launches(launches, kernels)
         m = request_once(srv.addr, {"op": "metrics"}, timeout=30)
         total = sum(n for _, n, _ in reqs)
-        emit("server", card=card, model="llama3-8b", layers=32, requests=len(reqs),
-             prompt_lens=[p for p, _, _ in reqs], new_tokens=total, wall_s=wall,
-             tokens_per_s=total / wall, ttft_s=[r["ttft_s"] for r in res],
-             stream_frames=res[1]["frames"], launches=launches,
-             warmup_s=w["elapsed_s"], metrics=m["metrics"])
+        emit("server", card=card, model=model, layers=svc.engine.mcfg.num_layers,
+             requests=len(reqs), prompt_lens=[p for p, _, _ in reqs],
+             new_tokens=total, wall_s=wall, tokens_per_s=total / wall,
+             ttft_s=[r["ttft_s"] for r in res], stream_frames=res[1]["frames"],
+             launches=launches, warmup_s=w["elapsed_s"], metrics=m["metrics"])
         return launches
     finally:
         srv.shutdown()
         srv.server_close()
         svc.stop()
+
+
+def init_phase(torch, model):
+    from rbg_tpu_torch.models.config import get_config
+    from rbg_tpu_torch.models.llama import init_params
+
+    t0 = time.perf_counter()
+    params = init_params(get_config(model), seed=0, device="cuda")
+    torch.cuda.synchronize()
+    emit("init", model=model, seconds=time.perf_counter() - t0,
+         param_bytes=sum(t.numel() * t.element_size() for t in
+                         [*params["blocks"].values(), *(
+                             w for k, w in params.items() if k != "blocks")]),
+         cuda_allocated_bytes=torch.cuda.memory_allocated())
+    return params
+
+
+def llama_phases(torch, np, card):
+    """llama3-8b: bf16 engine, witness and server (A, B), then the int8
+    engine and witness (C, D). Returns {kernel: launches on its path}."""
+    params = init_phase(torch, "llama3-8b")
+    bf16 = engine_phase(torch, np, params, "llama3-8b", LLAMA_KERNELS)
+    ragged_compare(torch, np, params, "llama3-8b")
+    launches = {k: v for k, v in server_phase(torch, np, params, "llama3-8b",
+                                              LLAMA_KERNELS, card).items()
+                if k in LLAMA_KERNELS}
+    int8 = engine_phase(torch, np, params, "llama3-8b", INT8_KERNELS,
+                        kv_dtype="int8", multi_steps=(4,))
+    (t8, l8), (t16, _) = int8[4], bf16[4]
+    same = [sum(x == y for x, y in zip(t8[r], t16[r])) for r in ("a", "b")]
+    emit("int8_vs_bf16_tokens", model="llama3-8b", multi_step=4,
+         same_position=same, of=[len(t16["a"]), len(t16["b"])],
+         note="a reading of the int8 pool's effect, not a check")
+    launches.update({k: l8[k] for k in INT8_KERNELS})
+    ragged_compare(torch, np, params, "llama3-8b", kv_dtype="int8")
+    return launches
+
+
+def deepseek_phases(torch, np, card):
+    """deepseek-v2-lite (MLA + MoE): engine, witness and server (E, F)."""
+    params = init_phase(torch, "deepseek-v2-lite")
+    engine_phase(torch, np, params, "deepseek-v2-lite", MLA_KERNELS)
+    ragged_compare(torch, np, params, "deepseek-v2-lite")
+    launches = server_phase(torch, np, params, "deepseek-v2-lite", MLA_KERNELS, card)
+    return {k: launches[k] for k in MLA_KERNELS}
 
 
 def main():
@@ -425,8 +710,6 @@ def main():
     import numpy as np
 
     import rbg_tpu_torch  # noqa: F401 — fail here, before any result, without the repo
-    from rbg_tpu_torch.models.config import get_config
-    from rbg_tpu_torch.models.llama import init_params
     from rbg_tpu_torch.ops.kernels.build import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -450,27 +733,26 @@ def main():
          ptxas=regs)
 
     kern = kernels_phase(torch, np)
+    launches = llama_phases(torch, np, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(deepseek_phases(torch, np, card))
 
-    t0 = time.perf_counter()
-    params = init_params(get_config("llama3-8b"), seed=0, device="cuda")
-    torch.cuda.synchronize()
-    emit("init", model="llama3-8b", seconds=time.perf_counter() - t0,
-         param_bytes=sum(t.numel() * t.element_size() for t in
-                         [*params["blocks"].values(), params["embed"],
-                          params["lm_head"], params["final_norm"]]))
-    engine_phase(torch, np, params)
-    ragged_compare(torch, np, params)
-    launches = server_phase(torch, np, params, card)
-
-    src = {"paged_decode": ("rbg_tpu_torch/csrc/paged_decode.cu",
-                            "rbg_tpu/ops/pallas/paged_attention_kernel.py:165"),
-           "ragged_paged": ("rbg_tpu_torch/csrc/ragged_paged.cu",
-                            "rbg_tpu/ops/pallas/ragged_attention_kernel.py:281")}
+    src = {
+        "paged_decode": ("paged_decode.cu", "paged_attention_kernel.py:165"),
+        "ragged_paged": ("ragged_paged.cu", "ragged_attention_kernel.py:281"),
+        "paged_decode_q": ("paged_decode_q.cu", "paged_attention_kernel.py:260"),
+        "ragged_paged_q": ("ragged_paged_q.cu", "ragged_attention_kernel.py:368"),
+        "paged_mla_decode": ("paged_mla_decode.cu", "paged_attention_kernel.py:412"),
+        "ragged_paged_mla": ("ragged_paged_mla.cu", "ragged_attention_kernel.py:579"),
+    }
     rows = []
     for name_, (source, replaces) in src.items():
-        r = kern[name_][0]                      # the llama3-8b shape
-        rows.append({"name": name_, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[name_],
+        r = kern[name_][0]                      # the served model's shape
+        rows.append({"name": name_, "route": "cuda",
+                     "source": f"rbg_tpu_torch/csrc/{source}",
+                     "replaces": f"rbg_tpu/ops/pallas/{replaces}",
+                     "launches": launches[name_],
                      "max_abs_err": max(x["max_abs_err"] for x in kern[name_]),
                      "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -1,10 +1,11 @@
 """Engine configuration (``rbg_tpu/engine/config.py``) plus the device.
 
 The fields are the reference's serving knobs this port runs. Features the
-reference has and this port does not yet (int8 KV, speculative decoding,
-the host KV tier, PD modes, the split non-ragged paths, grammar and LoRA)
-are refused in ``validate`` / at admission with ``NotImplementedError``
-naming the ROADMAP item, never ignored.
+reference has and this port does not yet (int8 latent pools for MLA
+models, speculative decoding, the host KV tier, PD modes, the split
+non-ragged paths, grammar and LoRA) are refused in ``validate`` / at
+admission with ``NotImplementedError`` naming the ROADMAP item, never
+ignored.
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ class EngineConfig:
     speculative: str = "off"                # only "off" is ported
     ragged: str = "auto"                    # only "auto" is ported
     mode: str = "unified"                   # only "unified" is ported
-    kv_dtype: str = "model"                 # only "model" is ported
+    kv_dtype: str = "model"                 # model | int8 (quantized KV pool)
     vocab_size: int = 0                     # override preset vocab (0 = keep)
     seed: int = 0
     device: Optional[str] = None            # None = cuda (raises without a card)
@@ -73,9 +74,7 @@ class EngineConfig:
             raise ValueError("num_pages must be >= 2 (page 0 is reserved)")
         if self.multi_step < 1:
             raise ValueError("multi_step must be >= 1")
-        if self.kv_dtype == "int8":
-            raise _todo("kv_dtype='int8'", "kernels C, D and the int8 pool")
-        if self.kv_dtype != "model":
+        if self.kv_dtype not in ("model", "int8"):
             raise ValueError(f"kv_dtype {self.kv_dtype!r} not in (model, int8)")
         if self.speculative != "off":
             raise _todo(f"speculative={self.speculative!r}",
@@ -83,12 +82,14 @@ class EngineConfig:
         if self.host_tier_bytes:
             raise _todo("host_tier_bytes", "host KV tier")
         if self.mode != "unified":
+            # The reference refuses int8 KV outside unified mode too.
             raise _todo(f"mode={self.mode!r}", "PD prefill/decode modes")
         if self.ragged != "auto":
             raise _todo(f"ragged={self.ragged!r}",
                         "split prefill path (_prefill_step)")
-        from rbg_tpu_torch.models.llama import check_supported
-        check_supported(self.model_config)
+        if self.kv_dtype == "int8" and self.model_config.mla:
+            raise _todo("kv_dtype='int8' with an MLA model (int8 latent pools)",
+                        "kernels G and H")
 
 
 @dataclasses.dataclass

@@ -6,12 +6,13 @@ prefix matching), then either
 
 * runs ONE ragged forward for the whole batch while any row is still
   prefilling (``_unified_step``: prefill chunks and decode tokens packed
-  on one token axis → the ragged CUDA kernel), or
+  on one token axis → a ragged CUDA kernel: B, D on an int8 pool, F for
+  an MLA model), or
 * runs the fused decode window on a pure-decode batch
   (``_fused_decode_step``: K decode steps with the sampled token fed back
-  on the device → the paged decode CUDA kernel; the window's tokens reach
-  the host in one fetch, one window late, so host bookkeeping overlaps the
-  device).
+  on the device → a paged decode CUDA kernel: A, C on an int8 pool, E for
+  an MLA model; the window's tokens reach the host in one fetch, one
+  window late, so host bookkeeping overlaps the device).
 
 Page exhaustion preempts the youngest request back to the queue.
 """
@@ -82,7 +83,8 @@ class Engine:
         # Row keys of requests without a seed hash this with the request id.
         self._sample_base = cfg.seed + 1
         self.cache = PagedKVCache.create(self.mcfg, cfg.num_pages,
-                                         cfg.page_size, device=self.device)
+                                         cfg.page_size, device=self.device,
+                                         quantize=(cfg.kv_dtype == "int8"))
         self.allocator = PageAllocator(cfg.num_pages)
         self.radix = (RadixCache(self.allocator, cfg.page_size)
                       if cfg.enable_radix_cache else None)
@@ -274,7 +276,8 @@ class Engine:
             torch.from_numpy(pos).to(dev), torch.from_numpy(tmask).to(dev),
             torch.from_numpy(row_ids).to(dev), torch.from_numpy(kvl).to(dev),
             torch.from_numpy(table).to(dev), self.cache.k_pages,
-            self.cache.v_pages, max_q_len=self.cfg.prefill_chunk)
+            self.cache.v_pages, max_q_len=self.cfg.prefill_chunk,
+            k_scales=self.cache.k_scales, v_scales=self.cache.v_scales)
 
         for req, start, end in entries:
             if end > start:
@@ -474,7 +477,8 @@ class Engine:
             write_ok = st["mask"] & (pos < st["limit"])[:, None]     # [B, 1]
             logits = forward_paged(
                 self.params, self.mcfg, tok[:, None], pos[:, None], write_ok,
-                kvl, st["table"], self.cache.k_pages, self.cache.v_pages)
+                kvl, st["table"], self.cache.k_pages, self.cache.v_pages,
+                k_scales=self.cache.k_scales, v_scales=self.cache.v_scales)
             toks, lps = self._sample(logits[:, 0], rows, pos + 1,
                                      st.get("ocounts"))
             active = write_ok[:, 0]

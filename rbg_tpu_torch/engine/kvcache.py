@@ -1,8 +1,12 @@
 """Paged KV cache: device page pool + host page allocator
-(``rbg_tpu/engine/kvcache.py``, model-dtype pools).
+(``rbg_tpu/engine/kvcache.py``).
 
 * Device: ``k_pages/v_pages [L, num_pages, page_size, KV, hd]`` — one pool
-  shared by every sequence; the model writes it in place.
+  shared by every sequence; the model writes it in place. An int8 pool
+  keeps per-(slot, head) absmax scales beside it (``[L, NP, page, KV, 1]``
+  float32). An MLA model's pool is latent: the "k" pool holds the latent
+  ``c`` (``[L, NP, page, 1, kv_lora_rank]``), the "v" pool the shared RoPE
+  key (``[L, NP, page, 1, qk_rope_head_dim]``).
 * Host: ``PageAllocator`` free list with reference counts (radix-shared
   prefix pages hold more than one), and per-sequence page tables as plain
   ints.
@@ -23,15 +27,43 @@ from rbg_tpu_torch.models.config import ModelConfig
 class PagedKVCache:
     k_pages: torch.Tensor
     v_pages: torch.Tensor
+    k_scales: Optional[torch.Tensor] = None
+    v_scales: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scales is not None
 
     @staticmethod
     def create(cfg: ModelConfig, num_pages: int, page_size: int = 16,
-               device=None) -> "PagedKVCache":
-        shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
-                 cfg.head_dim_)
-        return PagedKVCache(
-            k_pages=torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
-            v_pages=torch.zeros(shape, dtype=cfg.torch_dtype, device=device))
+               device=None, quantize: bool = False) -> "PagedKVCache":
+        """Zeroed pools of the four kinds: GQA or MLA, each in the model's
+        dtype or int8 with float32 scales."""
+        if cfg.mla:
+            kshape = (cfg.num_layers, num_pages, page_size, 1, cfg.kv_lora_rank)
+            vshape = kshape[:-1] + (cfg.qk_rope_head_dim,)
+        else:
+            kshape = vshape = (cfg.num_layers, num_pages, page_size,
+                               cfg.num_kv_heads, cfg.head_dim_)
+        dt = torch.int8 if quantize else cfg.torch_dtype
+        cache = PagedKVCache(k_pages=torch.zeros(kshape, dtype=dt, device=device),
+                             v_pages=torch.zeros(vshape, dtype=dt, device=device))
+        if quantize:
+            sshape = kshape[:-1] + (1,)
+            cache.k_scales = torch.zeros(sshape, dtype=torch.float32, device=device)
+            cache.v_scales = torch.zeros(sshape, dtype=torch.float32, device=device)
+        return cache
+
+    @staticmethod
+    def hbm_bytes(cfg: ModelConfig, num_pages: int, page_size: int = 16,
+                  dtype_bytes: int = 2) -> int:
+        """Device bytes of the pages (scales not counted), as the reference
+        counts them."""
+        if cfg.mla:
+            per_tok = cfg.kv_lora_rank + cfg.qk_rope_head_dim
+            return cfg.num_layers * num_pages * page_size * per_tok * dtype_bytes
+        return (2 * cfg.num_layers * num_pages * page_size
+                * cfg.num_kv_heads * cfg.head_dim_ * dtype_bytes)
 
 
 class PageAllocator:

@@ -3,6 +3,8 @@
 in front of an ``EngineService``.
 
     python -m rbg_tpu_torch.engine.server --model llama3-8b --port 9000
+    python -m rbg_tpu_torch.engine.server --model llama3-8b --kv-dtype int8
+    python -m rbg_tpu_torch.engine.server --model deepseek-v2-lite --port 9000
     python -m rbg_tpu_torch.engine.server --device cpu --model tiny --port 0
 
 The server binds first (readiness probes connect), then builds the engine
@@ -178,8 +180,9 @@ def build_config(args) -> EngineConfig:
     return EngineConfig(
         model=args.model, page_size=args.page_size, num_pages=args.num_pages,
         max_batch=args.max_batch, max_seq_len=args.max_seq_len,
-        prefill_chunk=args.prefill_chunk, multi_step=args.multi_step, vocab_size=args.vocab_size,
-        seed=args.seed, device=args.device)
+        prefill_chunk=args.prefill_chunk, multi_step=args.multi_step,
+        kv_dtype=args.kv_dtype, vocab_size=args.vocab_size, seed=args.seed,
+        device=args.device)
 
 
 def serve(args) -> None:
@@ -205,7 +208,7 @@ def serve(args) -> None:
     server.serve_forever()
 
 
-def main(argv=None) -> int:
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(prog="rbg-tpu-torch-engine")
     ap.add_argument("--model", default="tiny")
     ap.add_argument("--device", default=None,
@@ -218,6 +221,9 @@ def main(argv=None) -> int:
     ap.add_argument("--prefill-chunk", type=int, default=64)
     ap.add_argument("--multi-step", type=int, default=1,
                     help="decode steps per window before tokens reach the host")
+    ap.add_argument("--kv-dtype", default="model", choices=("model", "int8"),
+                    help="KV pool element type: the model's, or int8 with "
+                         "per-(slot, head) scales")
     ap.add_argument("--vocab-size", type=int, default=0,
                     help="override the preset's vocab size (0 = keep)")
     ap.add_argument("--seed", type=int, default=0,
@@ -225,7 +231,11 @@ def main(argv=None) -> int:
     ap.add_argument("--max-queue", type=int, default=256,
                     help="service queue bound; submissions past it are shed "
                          "with code 'overloaded' (0 = unbounded)")
-    serve(ap.parse_args(argv))
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    serve(parse_args(argv))
     return 0
 
 

@@ -1,9 +1,8 @@
 """Model configurations for the llama-family decoder (a copy of
 ``rbg_tpu/models/config.py`` with ``torch_dtype`` in place of ``jax_dtype``).
 
-The serving path of this package runs the dense GQA presets; the MoE and
-MLA presets are listed so that ``get_config`` names the same models, and
-the engine refuses them.
+The serving path of this package runs every preset: dense GQA, MoE and
+MLA (deepseek-v2-lite is the MLA + MoE preset that fits on one card).
 """
 
 from __future__ import annotations

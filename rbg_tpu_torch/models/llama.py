@@ -1,12 +1,15 @@
-"""Llama-family decoder (pre-norm, RoPE, GQA, SwiGLU) over a paged KV pool
-(``rbg_tpu/models/llama.py``, dense serving forwards).
+"""Llama-family decoder (pre-norm, RoPE, GQA or MLA attention, SwiGLU or
+MoE MLP) over a paged KV pool (``rbg_tpu/models/llama.py``, serving
+forwards).
 
 Parameters are a plain dict of tensors in the reference's layout: stacked
 ``[num_layers, ...]`` block weights, ``[in, out]`` matrices used as
 ``x @ w``, so the weight bridge (``models/convert.py``) is a copy. The
 reference's ``lax.scan`` over layers is a Python loop here, and the
-``[L, NP, page, KV, hd]`` pools are written IN PLACE, one layer view
-``k_pages[l]`` at a time.
+``[L, NP, page, KV, hd]`` pools (and an int8 pool's scales) are written IN
+PLACE, one layer view ``k_pages[l]`` at a time. An MLA model's pools are
+latent: the latent ``c`` goes to the "k" pool as one head, the RoPE key to
+the "v" pool.
 """
 
 from __future__ import annotations
@@ -18,21 +21,13 @@ import torch
 import torch.nn.functional as F
 
 from rbg_tpu_torch.models.config import ModelConfig
+from rbg_tpu_torch.ops.mla_attention import (paged_mla_attention,
+                                             ragged_paged_mla_attention)
 from rbg_tpu_torch.ops.norms import rms_norm
 from rbg_tpu_torch.ops.paged_attention import paged_attention, write_kv_pages
 from rbg_tpu_torch.ops.ragged_paged_attention import (ragged_paged_attention,
                                                       write_kv_pages_ragged)
 from rbg_tpu_torch.ops.rope import apply_rope
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """The port serves dense GQA models only."""
-    if cfg.mla:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA models are not ported yet (ROADMAP queue 1: MLA)")
-    if cfg.num_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE models are not ported yet (ROADMAP queue 1: MoE)")
 
 
 @torch.no_grad()
@@ -43,7 +38,6 @@ def init_params(cfg: ModelConfig, seed: int, device) -> dict:
     The numbers differ from JAX's; parity tests convert JAX's own weights
     (``convert.params_from_numpy``). Layers are drawn one at a time so the
     float32 draw never holds a whole stacked weight."""
-    check_supported(cfg)
     d, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     hd, h, kv, L = cfg.head_dim_, cfg.num_heads, cfg.num_kv_heads, cfg.num_layers
     dt = cfg.torch_dtype
@@ -62,14 +56,38 @@ def init_params(cfg: ModelConfig, seed: int, device) -> dict:
     blocks = {
         "attn_norm": torch.ones((L, d), dtype=dt, device=device),
         "mlp_norm": torch.ones((L, d), dtype=dt, device=device),
-        "wq": nrm((L, d, h * hd), s_in),
-        "wk": nrm((L, d, kv * hd), s_in),
-        "wv": nrm((L, d, kv * hd), s_in),
-        "wo": nrm((L, h * hd, d), s_out),
-        "w_gate": nrm((L, d, f), s_in),
-        "w_up": nrm((L, d, f), s_in),
-        "w_down": nrm((L, f, d), s_out),
     }
+    if cfg.mla:
+        dc, dn = cfg.kv_lora_rank, cfg.qk_nope_head_dim
+        dr, dv = cfg.qk_rope_head_dim, cfg.v_head_dim
+        blocks.update({
+            "wq": nrm((L, d, h * (dn + dr)), s_in),
+            "w_dkv": nrm((L, d, dc + dr), s_in),
+            "kv_norm": torch.ones((L, dc), dtype=dt, device=device),
+            "w_uk": nrm((L, dc, h * dn), s_in),
+            "w_uv": nrm((L, dc, h * dv), s_in),
+            "wo": nrm((L, h * dv, d), s_out),
+        })
+    else:
+        blocks.update({
+            "wq": nrm((L, d, h * hd), s_in),
+            "wk": nrm((L, d, kv * hd), s_in),
+            "wv": nrm((L, d, kv * hd), s_in),
+            "wo": nrm((L, h * hd, d), s_out),
+        })
+    if cfg.num_experts == 0 or cfg.moe_shared_expert:
+        # The shared expert (DeepSeek-style) may be narrower than the dense
+        # FFN (moe_shared_expert_size); plain dense models use f.
+        fs = cfg.moe_shared_f if cfg.num_experts else f
+        blocks["w_gate"] = nrm((L, d, fs), s_in)
+        blocks["w_up"] = nrm((L, d, fs), s_in)
+        blocks["w_down"] = nrm((L, fs, d), s_out)
+    if cfg.num_experts:
+        E, mf = cfg.num_experts, cfg.moe_f
+        blocks["router"] = nrm((L, d, E), s_in)
+        blocks["moe_gate"] = nrm((L, E, d, mf), s_in)
+        blocks["moe_up"] = nrm((L, E, d, mf), s_in)
+        blocks["moe_down"] = nrm((L, E, mf, d), s_out)
     params = {
         "embed": nrm((v, d), s_in, stacked=False),
         "blocks": blocks,
@@ -96,16 +114,73 @@ def _qkv(cfg: ModelConfig, blk: dict, x: torch.Tensor, positions: torch.Tensor):
             apply_rope(k, positions, cfg.rope_theta), v)
 
 
-def _mlp(blk: dict, xm: torch.Tensor) -> torch.Tensor:
+def _mla_qkv(cfg: ModelConfig, blk: dict, x: torch.Tensor,
+             positions: torch.Tensor):
+    """MLA pre-attention math in the absorbed form: norm → q projection
+    (split nope/rope, W_uk absorbed into q) → latent down-projection
+    (+ kv norm) and the shared RoPE key. Returns (q_lat [B,T,H,dc],
+    q_pe [B,T,H,dr], c [B,T,dc], k_pe [B,T,dr])."""
+    B, T, _ = x.shape
+    h = cfg.num_heads
+    dc, dn, dr = cfg.kv_lora_rank, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    xa = rms_norm(x, blk["attn_norm"], cfg.rms_norm_eps)
+    q = (xa @ blk["wq"]).reshape(B, T, h, dn + dr)
+    q_pe = apply_rope(q[..., dn:], positions, cfg.rope_theta)
+    # Absorb: q_lat·c == q_nope·(c @ W_uk); per-head K never materialises.
+    q_lat = torch.einsum("bthn,chn->bthc", q[..., :dn],
+                         blk["w_uk"].reshape(dc, h, dn)).contiguous()
+    kv = xa @ blk["w_dkv"]                                   # [B, T, dc + dr]
+    c = rms_norm(kv[..., :dc], blk["kv_norm"], cfg.rms_norm_eps)
+    # RoPE on a singleton head axis, as the reference does.
+    k_pe = apply_rope(kv[..., None, dc:], positions, cfg.rope_theta)[:, :, 0]
+    return q_lat, q_pe, c, k_pe
+
+
+def _mla_out(cfg: ModelConfig, blk: dict, attn_lat: torch.Tensor) -> torch.Tensor:
+    """Latent attention output [B,T,H,dc] → per-head values [B,T,H,dv]
+    through W_uv."""
+    dc, h, dv = cfg.kv_lora_rank, cfg.num_heads, cfg.v_head_dim
+    return torch.einsum("bthc,chv->bthv", attn_lat, blk["w_uv"].reshape(dc, h, dv))
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    return (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
+
+
+def _mlp(cfg: ModelConfig, blk: dict, xm: torch.Tensor) -> torch.Tensor:
+    if cfg.num_experts:
+        return _moe_mlp(cfg, blk, xm)
     return (F.silu(xm @ blk["w_gate"]) * (xm @ blk["w_up"])) @ blk["w_down"]
+
+
+def _moe_mlp(cfg: ModelConfig, blk: dict, xm: torch.Tensor) -> torch.Tensor:
+    """Top-k MoE in the reference's dense-dispatch form: every expert runs
+    and is combined with its (mostly zero) routing weight. An expert is
+    kept when its probability is >= the k-th largest, so ties may keep
+    more than k, as in the reference. The combine is one
+    [B·T, E·F] @ [E·F, D] product, never a [B, T, E, F, D] tensor."""
+    B, T, D = xm.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    probs = torch.softmax((xm @ blk["router"]).float(), dim=-1)      # [B, T, E]
+    threshold = torch.topk(probs, K, dim=-1).values[..., -1:]        # k-th largest
+    weights = torch.where(probs >= threshold, probs, 0.0)
+    weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
+    weights = weights.to(xm.dtype).reshape(B * T, E)
+    x2 = xm.reshape(B * T, D)
+    h = F.silu(torch.matmul(x2, blk["moe_gate"])) * torch.matmul(x2, blk["moe_up"])
+    hw = (weights.T[:, :, None] * h).transpose(0, 1).reshape(B * T, -1)  # [BT, E·F]
+    out = (hw @ blk["moe_down"].reshape(-1, D)).reshape(B, T, D)
+    if cfg.moe_shared_expert:
+        out = out + (F.silu(xm @ blk["w_gate"]) * (xm @ blk["w_up"])) @ blk["w_down"]
+    return out
 
 
 def _post_attention(cfg: ModelConfig, blk: dict, x: torch.Tensor,
                     attn: torch.Tensor) -> torch.Tensor:
-    """residual → norm → MLP → residual."""
+    """residual → norm → MLP (or MoE) → residual."""
     B, T, _ = x.shape
     x = x + attn.reshape(B, T, -1) @ blk["wo"]
-    return x + _mlp(blk, rms_norm(x, blk["mlp_norm"], cfg.rms_norm_eps))
+    return x + _mlp(cfg, blk, rms_norm(x, blk["mlp_norm"], cfg.rms_norm_eps))
 
 
 def _head(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -115,6 +190,10 @@ def _head(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     if head is None:
         head = params["embed"].T
     return (x @ head.to(cfg.torch_dtype)).float()
+
+
+def _layer_view(pool: Optional[torch.Tensor], l: int) -> Optional[torch.Tensor]:
+    return None if pool is None else pool[l]
 
 
 @torch.no_grad()
@@ -127,20 +206,34 @@ def forward_paged(
     kv_lens: torch.Tensor,      # [B] int32, cache length AFTER this step
     page_table: torch.Tensor,   # [B, P] int32 physical page ids
     k_pages: torch.Tensor,      # [L, NP, page, KV, hd], written in place
-    v_pages: torch.Tensor,
+    v_pages: torch.Tensor,      #   (int8 when quantized; MLA: latent pools)
     use_kernels: str = "auto",
+    k_scales: Optional[torch.Tensor] = None,  # [L, NP, page, KV, 1] (int8 pools)
+    v_scales: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Serving forward over the paged pool. On CUDA its attention is the
-    decode kernel, which takes T == 1 (the fused decode window). Writes
-    this step's K/V into the pools in place; returns logits [B, T, V] f32."""
+    """Serving forward over the paged pool. On CUDA its attention is a
+    decode kernel (A, C for int8 pools, E for MLA), which takes T == 1 (the
+    fused decode window). Writes this step's K/V into the pools in place;
+    returns logits [B, T, V] f32."""
     x = params["embed"][tokens.long()].to(cfg.torch_dtype)
     for l in range(cfg.num_layers):
         blk = layer_params(params, l)
-        q, k, v = _qkv(cfg, blk, x, positions)
-        write_kv_pages(k_pages[l], v_pages[l], k, v, page_table, positions,
-                       token_mask)
-        attn = paged_attention(q, k_pages[l], v_pages[l], page_table,
-                               positions, kv_lens, use_kernels=use_kernels)
+        ks, vs = _layer_view(k_scales, l), _layer_view(v_scales, l)
+        if cfg.mla:
+            q_lat, q_pe, c, k_pe = _mla_qkv(cfg, blk, x, positions)
+            write_kv_pages(k_pages[l], v_pages[l], c[:, :, None], k_pe[:, :, None],
+                           page_table, positions, token_mask, ks, vs)
+            attn = _mla_out(cfg, blk, paged_mla_attention(
+                q_lat, q_pe, k_pages[l], v_pages[l], page_table, positions,
+                kv_lens, _mla_scale(cfg), use_kernels=use_kernels, c_scales=ks,
+                pe_scales=vs))
+        else:
+            q, k, v = _qkv(cfg, blk, x, positions)
+            write_kv_pages(k_pages[l], v_pages[l], k, v, page_table, positions,
+                           token_mask, ks, vs)
+            attn = paged_attention(q, k_pages[l], v_pages[l], page_table,
+                                   positions, kv_lens, use_kernels=use_kernels,
+                                   k_scales=ks, v_scales=vs)
         x = _post_attention(cfg, blk, x, attn)
     return _head(params, cfg, x)
 
@@ -156,23 +249,38 @@ def forward_ragged(
     kv_lens: torch.Tensor,      # [R] int32 per-row cache length AFTER step
     page_table: torch.Tensor,   # [R, P] int32
     k_pages: torch.Tensor,      # [L, NP, page, KV, hd], written in place
-    v_pages: torch.Tensor,
+    v_pages: torch.Tensor,      #   (int8 when quantized; MLA: latent pools)
     use_kernels: str = "auto",
     max_q_len: Optional[int] = None,  # bound on a row's query count
                                       # (the engine's prefill_chunk)
+    k_scales: Optional[torch.Tensor] = None,  # [L, NP, page, KV, 1] (int8 pools)
+    v_scales: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Serving forward over a ragged pack of prefill chunks and decode
-    steps in one dispatch. Writes K/V into the pools in place; returns
-    logits [1, T, V] f32."""
+    steps in one dispatch (on CUDA: kernel B, D for int8 pools, F for
+    MLA). Writes K/V into the pools in place; returns logits [1, T, V]
+    f32."""
     x = params["embed"][tokens.long()].to(cfg.torch_dtype)
     for l in range(cfg.num_layers):
         blk = layer_params(params, l)
-        q, k, v = _qkv(cfg, blk, x, positions)
-        write_kv_pages_ragged(k_pages[l], v_pages[l], k, v, page_table,
-                              row_ids, positions, token_mask)
-        attn = ragged_paged_attention(q, k_pages[l], v_pages[l], page_table,
-                                      positions, kv_lens, row_ids,
-                                      use_kernels=use_kernels,
-                                      max_q_len=max_q_len)
+        ks, vs = _layer_view(k_scales, l), _layer_view(v_scales, l)
+        if cfg.mla:
+            q_lat, q_pe, c, k_pe = _mla_qkv(cfg, blk, x, positions)
+            write_kv_pages_ragged(k_pages[l], v_pages[l], c[:, :, None],
+                                  k_pe[:, :, None], page_table, row_ids,
+                                  positions, token_mask, ks, vs)
+            attn = _mla_out(cfg, blk, ragged_paged_mla_attention(
+                q_lat, q_pe, k_pages[l], v_pages[l], page_table, positions,
+                kv_lens, row_ids, _mla_scale(cfg), use_kernels=use_kernels,
+                c_scales=ks, pe_scales=vs, max_q_len=max_q_len))
+        else:
+            q, k, v = _qkv(cfg, blk, x, positions)
+            write_kv_pages_ragged(k_pages[l], v_pages[l], k, v, page_table,
+                                  row_ids, positions, token_mask, ks, vs)
+            attn = ragged_paged_attention(q, k_pages[l], v_pages[l], page_table,
+                                          positions, kv_lens, row_ids,
+                                          use_kernels=use_kernels,
+                                          max_q_len=max_q_len, k_scales=ks,
+                                          v_scales=vs)
         x = _post_attention(cfg, blk, x, attn)
     return _head(params, cfg, x)

@@ -7,11 +7,13 @@ with ``reset_launches()`` and reads them afterwards.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
-LAUNCHES: Dict[str, int] = {"paged_decode": 0, "ragged_paged": 0}
+LAUNCHES: Dict[str, int] = {"paged_decode": 0, "ragged_paged": 0,
+                            "paged_decode_q": 0, "ragged_paged_q": 0,
+                            "paged_mla_decode": 0, "ragged_paged_mla": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -21,22 +23,24 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def dtype_code(*tensors: torch.Tensor) -> int:
-    """The kernels' dtype code; every tensor must share one dtype."""
-    dt = tensors[0].dtype
-    if any(t.dtype != dt for t in tensors) or dt not in _DTYPE_CODES:
-        raise TypeError("kernel takes q and both pools in one dtype of "
-                        f"{sorted(map(str, _DTYPE_CODES))}; got "
-                        f"{[str(t.dtype) for t in tensors]}")
-    return _DTYPE_CODES[dt]
+def dtype_code(q: torch.Tensor, *pools: torch.Tensor,
+               pool_dtype: Optional[torch.dtype] = None) -> int:
+    """The kernels' dtype code of q (and of the output). The pools share
+    q's dtype, or are all ``pool_dtype`` when one is given (int8 pools)."""
+    want = q.dtype if pool_dtype is None else pool_dtype
+    if q.dtype not in _DTYPE_CODES or any(t.dtype != want for t in pools):
+        raise TypeError(f"kernel takes q in one of {sorted(map(str, _DTYPE_CODES))} "
+                        f"and pools in {'q' if pool_dtype is None else pool_dtype}'s "
+                        f"dtype; got q {q.dtype}, pools {[str(t.dtype) for t in pools]}")
+    return _DTYPE_CODES[q.dtype]
 
 
-def check_tensors(q: torch.Tensor, pools=(), int32=()) -> None:
+def check_tensors(q: torch.Tensor, pools=(), int32=(), others=()) -> None:
     """Every tensor on q's CUDA device and contiguous; ``int32`` ones int32;
     the pools 16-byte aligned for the kernels' vector loads."""
     if not q.is_cuda:
         raise ValueError(f"CUDA kernel needs CUDA tensors; got {q.device}")
-    for t in (q, *pools, *int32):
+    for t in (q, *pools, *int32, *others):
         if t.device != q.device:
             raise ValueError(f"kernel inputs must share {q.device}; got {t.device}")
         if not t.is_contiguous():
@@ -47,3 +51,13 @@ def check_tensors(q: torch.Tensor, pools=(), int32=()) -> None:
     for t in pools:
         if t.data_ptr() % 16:
             raise ValueError("KV pools must be 16-byte aligned")
+
+
+def check_scales(k_pages: torch.Tensor, k_scales: torch.Tensor,
+                 v_scales: torch.Tensor) -> None:
+    """int8 pools' scales: float32 [NP, page, KV, 1], one per (slot, kv head)."""
+    want = tuple(k_pages.shape[:-1]) + (1,)
+    for s in (k_scales, v_scales):
+        if s.dtype != torch.float32 or tuple(s.shape) != want:
+            raise ValueError(f"scales must be float32 {want}; got {s.dtype} "
+                             f"{tuple(s.shape)}")

@@ -1,0 +1,170 @@
+"""Multi-head latent attention (DeepSeek-V2/V3) in the absorbed inference
+form over the paged latent pools (``rbg_tpu/ops/mla_attention.py``).
+
+The pool stores one latent ``c [dc]`` (the "k" pool, ``[NP, page, 1, dc]``)
+and one shared RoPE key ``pe [dr]`` (the "v" pool, ``[NP, page, 1, dr]``)
+per slot. With ``q_nope`` absorbed through ``W_uk`` into ``q_lat [.., H, dc]``,
+head h scores slot i as ``(q_lat[h]·c[i] + q_pe[h]·pe[i])·scale`` and the
+values are the latents, so the output stays in latent space ``[.., H, dc]``;
+the model applies ``W_uv`` after.
+
+* ``mla_attention`` — the shared dense float32 math over a gathered view;
+* ``paged_mla_attention_plain`` / ``ragged_paged_mla_attention_plain`` —
+  gather the rows' pages (dequantizing an int8 pool's view), then
+  ``mla_attention``; they run for CPU tensors and ``use_kernels="never"``.
+  A query that sees no slot gives 0, as the kernels do (the reference's
+  XLA functions give an average there). The ragged one takes packs whose
+  rows are not contiguous runs;
+* the CUDA kernels ``ops/kernels/paged_mla_decode.py`` (kernel E, decode)
+  and ``ops/kernels/ragged_paged_mla.py`` (kernel F, ragged packs), which
+  the dispatchers ``paged_mla_attention`` / ``ragged_paged_mla_attention``
+  launch for CUDA tensors. int8 latent pools on CUDA need kernels G and H,
+  not ported yet: the dispatchers raise there.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from rbg_tpu_torch.ops.paged_attention import _NEG_INF, dispatch
+from rbg_tpu_torch.ops.ragged_paged_attention import unpack_to_rows
+
+
+def mla_attention(
+    q_lat: torch.Tensor,       # [B, T, H, dc]  q_nope absorbed through W_uk
+    q_pe: torch.Tensor,        # [B, T, H, dr]  RoPE'd query part
+    c_cache: torch.Tensor,     # [B, S, dc]     latent cache (post-norm)
+    pe_cache: torch.Tensor,    # [B, S, dr]     shared RoPE key cache
+    q_positions: torch.Tensor,  # [B, T] int32 absolute positions
+    kv_valid: torch.Tensor,    # [B, S] bool, slot holds a real token
+    scale: float,              # (qk_nope_head_dim + qk_rope_head_dim) ** -0.5
+) -> torch.Tensor:
+    """Causal MLA over a contiguous latent view (slot index == position).
+    Returns the latent output [B, T, H, dc] in q_lat's dtype; a query that
+    sees no slot gives 0."""
+    S = c_cache.shape[1]
+    cf, ef = c_cache.float(), pe_cache.float()
+    scores = (torch.einsum("bthc,bsc->bhts", q_lat.float(), cf)
+              + torch.einsum("bthr,bsr->bhts", q_pe.float(), ef)) * scale
+    slot = torch.arange(S, dtype=torch.int32, device=q_lat.device)
+    ok = ((slot[None, None, :] <= q_positions.to(torch.int32)[:, :, None])
+          & kv_valid[:, None, :])                                   # [B, T, S]
+    scores = torch.where(ok[:, None], scores,
+                         torch.tensor(_NEG_INF, device=q_lat.device))
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhts,bsc->bthc", w, cf)
+    seen = ok.any(dim=-1)                                           # [B, T]
+    return torch.where(seen[:, :, None, None], out, 0.0).to(q_lat.dtype)
+
+
+def _gather(pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
+    """pages [NP, page, 1, d] + table [B, P] -> [B, P*page, d]."""
+    B, P = page_table.shape
+    return pages[page_table.long()][:, :, :, 0].reshape(B, P * pages.shape[1], -1)
+
+
+def paged_mla_attention_plain(
+    q_lat: torch.Tensor,       # [B, T, H, dc]
+    q_pe: torch.Tensor,        # [B, T, H, dr]
+    c_pages: torch.Tensor,     # [NP, page, 1, dc] (one layer)
+    pe_pages: torch.Tensor,    # [NP, page, 1, dr]
+    page_table: torch.Tensor,  # [B, P] int32
+    q_positions: torch.Tensor,  # [B, T] int32
+    kv_lens: torch.Tensor,     # [B] int32, valid tokens after the write
+    scale: float,
+    c_scales: Optional[torch.Tensor] = None,   # [NP, page, 1, 1] (int8 pools)
+    pe_scales: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Gather the rows' pages into [B, S, d] views (dequantized for an int8
+    pool), then ``mla_attention``."""
+    c = _gather(c_pages, page_table)
+    pe = _gather(pe_pages, page_table)
+    if c_scales is not None:
+        c = c.float() * _gather(c_scales, page_table)
+        pe = pe.float() * _gather(pe_scales, page_table)
+    S = c.shape[1]
+    valid = (torch.arange(S, dtype=torch.int32, device=c.device)[None, :]
+             < kv_lens.to(torch.int32)[:, None])
+    return mla_attention(q_lat, q_pe, c, pe, q_positions, valid, scale)
+
+
+def ragged_paged_mla_attention_plain(
+    q_lat: torch.Tensor,       # [1, T, H, dc] packed tokens
+    q_pe: torch.Tensor,        # [1, T, H, dr]
+    c_pages: torch.Tensor,     # [NP, page, 1, dc]
+    pe_pages: torch.Tensor,    # [NP, page, 1, dr]
+    page_table: torch.Tensor,  # [R, P] int32, per row
+    q_positions: torch.Tensor,  # [1, T] int32; -1 = pad
+    kv_lens: torch.Tensor,     # [R] int32
+    row_ids: torch.Tensor,     # [T] int32
+    scale: float,
+    c_scales: Optional[torch.Tensor] = None,
+    pe_scales: Optional[torch.Tensor] = None,
+    max_q_len: Optional[int] = None,
+) -> torch.Tensor:
+    """Unpack → padded batch MLA → repack (as
+    ``ragged_paged_attention_plain``); pads give 0."""
+    _, T, H, dc = q_lat.shape
+    R = page_table.shape[0]
+    pad, rows, scatter_row, idx, Tmax = unpack_to_rows(row_ids, q_positions, R,
+                                                       T, max_q_len)
+    dev = q_lat.device
+    qlp = torch.zeros((R + 1, Tmax, H, dc), dtype=q_lat.dtype, device=dev)
+    qlp[scatter_row, idx] = q_lat[0]
+    qpp = torch.zeros((R + 1, Tmax, H, q_pe.shape[-1]), dtype=q_pe.dtype, device=dev)
+    qpp[scatter_row, idx] = q_pe[0]
+    pp = torch.zeros((R + 1, Tmax), dtype=torch.int32, device=dev)
+    pp[scatter_row, idx] = q_positions[0].to(torch.int32)
+    out = paged_mla_attention_plain(qlp[:R], qpp[:R], c_pages, pe_pages,
+                                    page_table, pp[:R], kv_lens, scale,
+                                    c_scales, pe_scales)
+    res = out[rows, idx]                                   # [T, H, dc]
+    return torch.where(pad[:, None, None], 0.0, res.float()).to(q_lat.dtype)[None]
+
+
+def _int8_on_cuda(kernel: str, reference: str):
+    return NotImplementedError(
+        f"int8 latent pools on CUDA need kernel {kernel} (the port of "
+        f"{reference}), not ported yet (ROADMAP queue 2)")
+
+
+def paged_mla_attention(q_lat, q_pe, c_pages, pe_pages, page_table,
+                        q_positions, kv_lens, scale, *, use_kernels: str = "auto",
+                        c_scales=None, pe_scales=None):
+    """MLA decode through kernel E for CUDA tensors, or the plain version
+    (see ``dispatch``)."""
+    def kernel():
+        if c_scales is not None:
+            raise _int8_on_cuda("G", "paged_mla_attention_pallas_q")
+        from rbg_tpu_torch.ops.kernels.paged_mla_decode import (
+            paged_mla_decode_attention)
+        return paged_mla_decode_attention(q_lat, q_pe, c_pages, pe_pages,
+                                          page_table, kv_lens, scale)
+
+    return dispatch(use_kernels, q_lat, kernel, lambda: paged_mla_attention_plain(
+        q_lat, q_pe, c_pages, pe_pages, page_table, q_positions, kv_lens, scale,
+        c_scales, pe_scales))
+
+
+def ragged_paged_mla_attention(q_lat, q_pe, c_pages, pe_pages, page_table,
+                               q_positions, kv_lens, row_ids, scale, *,
+                               use_kernels: str = "auto", c_scales=None,
+                               pe_scales=None, max_q_len: Optional[int] = None):
+    """Ragged MLA through kernel F for CUDA tensors, or the plain version
+    (see ``dispatch``). ``max_q_len`` only shapes the plain version's padded
+    batch."""
+    def kernel():
+        if c_scales is not None:
+            raise _int8_on_cuda("H", "ragged_paged_mla_attention_pallas_q")
+        from rbg_tpu_torch.ops.kernels.ragged_paged_mla import (
+            ragged_paged_mla_attention_cuda)
+        return ragged_paged_mla_attention_cuda(q_lat, q_pe, c_pages, pe_pages,
+                                               page_table, q_positions, kv_lens,
+                                               row_ids, scale)
+
+    return dispatch(use_kernels, q_lat, kernel,
+                    lambda: ragged_paged_mla_attention_plain(
+                        q_lat, q_pe, c_pages, pe_pages, page_table, q_positions,
+                        kv_lens, row_ids, scale, c_scales, pe_scales, max_q_len))

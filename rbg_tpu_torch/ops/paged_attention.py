@@ -7,14 +7,17 @@ Two implementations behind one signature:
   view, then dense float32 softmax attention (the XLA function of the
   reference). It runs for CPU tensors, and wherever a caller asks for
   ``use_kernels="never"``.
-* the CUDA kernel ``ops/kernels/paged_decode.py`` — decode (T == 1)
-  attention that walks each row's pages in shared memory and never
-  materialises the gathered view.
+* the CUDA kernels ``ops/kernels/paged_decode.py`` (model-dtype pools)
+  and ``ops/kernels/paged_decode_q.py`` (int8 pools with per-(slot, kv
+  head) scales) — decode (T == 1) attention that walks each row's pages
+  in shared memory and never materialises the gathered view.
 
 ``dispatch`` is the one kernel-versus-plain policy of the package.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -55,15 +58,21 @@ def paged_attention_plain(
     page_table: torch.Tensor,   # [B, P] int32
     q_positions: torch.Tensor,  # [B, T] int32 absolute positions
     kv_lens: torch.Tensor,      # [B] int32, valid cache tokens after the write
+    k_scales: Optional[torch.Tensor] = None,  # [NP, page, KV, 1] f32 (int8 pools)
+    v_scales: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Gather, then dense float32 attention. A query that sees no cache slot
-    (``kv_len == 0`` or a negative position) gives 0, as the kernels do."""
+    """Gather (dequantizing an int8 pool's view), then dense float32
+    attention. A query that sees no cache slot (``kv_len == 0`` or a
+    negative position) gives 0, as the kernels do."""
     B, T, H, hd = q.shape
     KV = k_pages.shape[2]
     G = H // KV
     S = page_table.shape[1] * k_pages.shape[1]
     k = gather_kv(k_pages, page_table).float()        # [B, S, KV, hd]
     v = gather_kv(v_pages, page_table).float()
+    if k_scales is not None:
+        k = k * gather_kv(k_scales, page_table)
+        v = v * gather_kv(v_scales, page_table)
     qg = q.reshape(B, T, KV, G, hd).float()
     scores = torch.einsum("btkgh,bskh->bkgts", qg, k) / torch.sqrt(
         torch.tensor(float(hd)))
@@ -80,8 +89,19 @@ def paged_attention_plain(
     return torch.where(seen[:, :, None, None], out, 0.0).to(q.dtype)
 
 
-def _write_slots(k_pages, v_pages, k_new, v_new, phys, slot, token_mask):
-    """Write [N, KV, hd] rows into the pool IN PLACE at (phys, slot).
+def quantize_kv(x: torch.Tensor):
+    """Per-(token, head) absmax int8 quantization (``rbg_tpu``'s
+    ``quantize_kv``, bit for bit: ``torch.round`` rounds half to even like
+    ``jnp.round``). x: [..., hd] -> (int8 values, f32 scales [..., 1])."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1, keepdim=True) / 127.0
+    q = torch.round(xf / torch.clamp(scale, min=1e-10))
+    return q.clamp(-127, 127).to(torch.int8), scale
+
+
+def _write_slots(pools, news, phys, slot, token_mask):
+    """Write ``news[i]`` ([N, ...] rows) into ``pools[i]`` IN PLACE at
+    (phys, slot), every pair alike (K and V, and an int8 pool's scales).
 
     Pad tokens (``token_mask`` False) are sent to slot 0 of page 0 — the
     null page the allocator never hands out — carrying that slot's own
@@ -89,43 +109,63 @@ def _write_slots(k_pages, v_pages, k_new, v_new, phys, slot, token_mask):
     host syncs (a boolean filter would wait for the device on every layer)
     and matches the reference's dropped out-of-range writes."""
     keep = token_mask.reshape(-1)
-    zero = torch.zeros((), dtype=torch.long, device=k_pages.device)
+    zero = torch.zeros((), dtype=torch.long, device=pools[0].device)
     phys = torch.where(keep, phys.reshape(-1).long(), zero)
     slot = torch.where(keep, slot.reshape(-1).long(), zero)
     m = keep[:, None, None]
-    kn = torch.where(m, k_new.to(k_pages.dtype), k_pages[0, 0])
-    vn = torch.where(m, v_new.to(v_pages.dtype), v_pages[0, 0])
-    k_pages.index_put_((phys, slot), kn)
-    v_pages.index_put_((phys, slot), vn)
+    for pool, new in zip(pools, news):
+        pool.index_put_((phys, slot), torch.where(m, new.to(pool.dtype), pool[0, 0]))
+
+
+def write_slots(k_pages, v_pages, k_new, v_new, phys, slot, token_mask,
+                k_scales=None, v_scales=None):
+    """K/V rows [N, KV, d] (MLA: the latent c and the RoPE key, each one
+    "head" of its own width) into the pools at (phys, slot), quantized
+    when the pools are int8 (``k_scales`` given)."""
+    if k_scales is None:
+        _write_slots((k_pages, v_pages), (k_new, v_new), phys, slot, token_mask)
+        return
+    k_q, k_s = quantize_kv(k_new)
+    v_q, v_s = quantize_kv(v_new)
+    _write_slots((k_pages, v_pages, k_scales, v_scales), (k_q, v_q, k_s, v_s),
+                 phys, slot, token_mask)
 
 
 def write_kv_pages(k_pages, v_pages, k_new, v_new, page_table, positions,
-                   token_mask):
-    """Scatter new K/V into a model-dtype pool, in place.
+                   token_mask, k_scales=None, v_scales=None):
+    """Scatter new K/V into the pool, in place (quantizing into an int8
+    pool and its scales when ``k_scales`` is given).
 
-    k_new/v_new: [B, T, KV, hd]; positions: [B, T] absolute; pad tokens
+    k_new/v_new: [B, T, KV, d]; positions: [B, T] absolute; pad tokens
     (token_mask False) write nothing. Returns nothing: the pool tensors
     themselves change."""
-    B, T, KV, hd = k_new.shape
+    B, T = k_new.shape[:2]
     page_size = k_pages.shape[1]
     pos = positions.long()
     # Clamped so a pad token's position (-1, or a finished row's limit)
     # still indexes the table; its write is discarded below.
     page_idx = torch.clamp(pos // page_size, 0, page_table.shape[1] - 1)
     phys = torch.gather(page_table.long(), 1, page_idx)
-    _write_slots(k_pages, v_pages, k_new.reshape(B * T, KV, hd),
-                 v_new.reshape(B * T, KV, hd), phys, pos % page_size,
-                 token_mask)
+    write_slots(k_pages, v_pages, k_new.reshape(B * T, *k_new.shape[2:]),
+                v_new.reshape(B * T, *v_new.shape[2:]), phys, pos % page_size,
+                token_mask, k_scales, v_scales)
 
 
 def paged_attention(q, k_pages, v_pages, page_table, q_positions, kv_lens,
-                    *, use_kernels: str = "auto"):
-    """Decode attention through the CUDA kernel for CUDA tensors, or the
-    plain version (see ``dispatch``)."""
+                    *, use_kernels: str = "auto", k_scales=None, v_scales=None):
+    """Decode attention through a CUDA kernel for CUDA tensors (kernel C
+    for an int8 pool with scales, else kernel A), or the plain version (see
+    ``dispatch``)."""
     def kernel():
+        if k_scales is not None:
+            from rbg_tpu_torch.ops.kernels.paged_decode_q import (
+                paged_decode_attention_q)
+            return paged_decode_attention_q(q, k_pages, v_pages, k_scales,
+                                            v_scales, page_table, kv_lens)
         from rbg_tpu_torch.ops.kernels.paged_decode import paged_decode_attention
         return paged_decode_attention(q, k_pages, v_pages, page_table,
                                       kv_lens)
 
     return dispatch(use_kernels, q, kernel, lambda: paged_attention_plain(
-        q, k_pages, v_pages, page_table, q_positions, kv_lens))
+        q, k_pages, v_pages, page_table, q_positions, kv_lens, k_scales,
+        v_scales))

@@ -18,8 +18,10 @@ Token ``t`` attends slots ``< min(kv_lens[row_ids[t]], q_positions[t] + 1)``.
   tokens back (the reference's XLA detour). A token's slot in its row is
   its rank among the row's real tokens, so the pack need not hold each row
   as one contiguous run.
-* the CUDA kernel ``ops/kernels/ragged_paged.py`` — query tiles that may
-  span rows, each distinct row of a tile walking its pages once.
+* the CUDA kernels ``ops/kernels/ragged_paged.py`` (model-dtype pools)
+  and ``ops/kernels/ragged_paged_q.py`` (int8 pools with scales) — query
+  tiles that may span rows, each distinct row of a tile walking its pages
+  once.
 """
 
 from __future__ import annotations
@@ -28,8 +30,21 @@ from typing import Optional
 
 import torch
 
-from rbg_tpu_torch.ops.paged_attention import (_write_slots, dispatch,
-                                               paged_attention_plain)
+from rbg_tpu_torch.ops.paged_attention import (dispatch, paged_attention_plain,
+                                               write_slots)
+
+
+def unpack_to_rows(row_ids: torch.Tensor, q_positions: torch.Tensor, R: int,
+                   T: int, max_q_len: Optional[int]):
+    """Where each packed token goes in a padded ``[R, Tmax]`` batch: its
+    (scatter row, index in row). Pads (``q_positions < 0``) scatter into a
+    spare row ``R``, dropped before attention. Returns (pad mask, rows,
+    scatter rows, idx, Tmax)."""
+    Tmax = T if max_q_len is None else min(max_q_len, T)
+    pad = q_positions[0] < 0
+    idx = torch.clamp(_unpack_offsets(row_ids, ~pad), max=Tmax - 1)
+    rows = row_ids.long()
+    return pad, rows, torch.where(pad, torch.full_like(rows, R), rows), idx, Tmax
 
 
 def _unpack_offsets(row_ids: torch.Tensor,
@@ -63,50 +78,58 @@ def ragged_paged_attention_plain(
     row_ids: torch.Tensor,      # [T] int32
     max_q_len: Optional[int] = None,  # bound on any row's query count
                                       # (the engine's prefill_chunk); None = T
+    k_scales: Optional[torch.Tensor] = None,  # [NP, page, KV, 1] (int8 pools)
+    v_scales: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Unpack → padded batch attention → repack."""
     _, T, H, hd = q.shape
     R = page_table.shape[0]
-    Tmax = T if max_q_len is None else min(max_q_len, T)
-    pad = q_positions[0] < 0
-    idx = torch.clamp(_unpack_offsets(row_ids, ~pad), max=Tmax - 1)
-    rows = row_ids.long()
-    # Pads scatter into a spare row R, which is dropped before attention.
-    scatter_row = torch.where(pad, torch.full_like(rows, R), rows)
+    pad, rows, scatter_row, idx, Tmax = unpack_to_rows(row_ids, q_positions, R,
+                                                       T, max_q_len)
     qp = torch.zeros((R + 1, Tmax, H, hd), dtype=q.dtype, device=q.device)
     qp[scatter_row, idx] = q[0]
     pp = torch.zeros((R + 1, Tmax), dtype=torch.int32, device=q.device)
     pp[scatter_row, idx] = q_positions[0].to(torch.int32)
     out = paged_attention_plain(qp[:R], k_pages, v_pages, page_table, pp[:R],
-                                kv_lens)
+                                kv_lens, k_scales, v_scales)
     res = out[rows, idx]                                   # [T, H, hd]
     return torch.where(pad[:, None, None], 0.0, res.float()).to(q.dtype)[None]
 
 
 def write_kv_pages_ragged(k_pages, v_pages, k_new, v_new, page_table,
-                          row_ids, positions, token_mask):
-    """Scatter packed new K/V (``[1, T, KV, hd]``) into a model-dtype pool,
-    in place. Each token's page comes from ITS row's table line; pad tokens
+                          row_ids, positions, token_mask, k_scales=None,
+                          v_scales=None):
+    """Scatter packed new K/V (``[1, T, KV, d]``) into the pool, in place
+    (quantizing into an int8 pool and its scales when ``k_scales`` is
+    given). Each token's page comes from ITS row's table line; pad tokens
     (token_mask False) write nothing."""
     page_size = k_pages.shape[1]
     pos = positions[0].long()
     page_idx = torch.clamp(pos // page_size, 0, page_table.shape[1] - 1)
     phys = page_table.long()[row_ids.long(), page_idx]
-    _write_slots(k_pages, v_pages, k_new[0], v_new[0], phys, pos % page_size,
-                 token_mask[0])
+    write_slots(k_pages, v_pages, k_new[0], v_new[0], phys, pos % page_size,
+                token_mask[0], k_scales, v_scales)
 
 
 def ragged_paged_attention(q, k_pages, v_pages, page_table, q_positions,
                            kv_lens, row_ids, *, use_kernels: str = "auto",
-                           max_q_len: Optional[int] = None):
-    """The ragged CUDA kernel for CUDA tensors, or the plain version (see
-    ``dispatch``). ``max_q_len`` only shapes the plain version's padded
-    batch; the kernel needs no padding."""
+                           max_q_len: Optional[int] = None, k_scales=None,
+                           v_scales=None):
+    """A ragged CUDA kernel for CUDA tensors (kernel D for an int8 pool with
+    scales, else kernel B), or the plain version (see ``dispatch``).
+    ``max_q_len`` only shapes the plain version's padded batch; the kernels
+    need no padding."""
     def kernel():
+        if k_scales is not None:
+            from rbg_tpu_torch.ops.kernels.ragged_paged_q import (
+                ragged_paged_attention_q_cuda)
+            return ragged_paged_attention_q_cuda(q, k_pages, v_pages, k_scales,
+                                                 v_scales, page_table,
+                                                 q_positions, kv_lens, row_ids)
         from rbg_tpu_torch.ops.kernels.ragged_paged import ragged_paged_attention_cuda
         return ragged_paged_attention_cuda(q, k_pages, v_pages, page_table,
                                            q_positions, kv_lens, row_ids)
 
     return dispatch(use_kernels, q, kernel, lambda: ragged_paged_attention_plain(
         q, k_pages, v_pages, page_table, q_positions, kv_lens, row_ids,
-        max_q_len))
+        max_q_len, k_scales, v_scales))

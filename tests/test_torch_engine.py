@@ -46,9 +46,9 @@ def _drive(engine, sampling_cls, schedule):
     return [out[i] for i in range(len(schedule))]
 
 
-def _top2_gap(tp, seq):
-    """Top-2 logit gap of the next token after ``seq`` (port, one pack)."""
-    cfg = get_config("tiny")
+def _top2_gap(tp, cfg, seq):
+    """Top-2 logit gap of the next token after ``seq`` (port, one pack on
+    a model-dtype pool)."""
     n = len(seq)
     P = -(-n // 8)
     cache = PagedKVCache.create(cfg, P + 1, 8)
@@ -64,14 +64,15 @@ def _top2_gap(tp, seq):
 
 def _compare(weights, schedule, **cfg):
     jp, tp = weights
-    je = JEngine(JConfig(use_pallas="never", **BASE, **cfg), params=jp)
-    te = Engine(EngineConfig(**BASE, **cfg), params=tp, device="cpu")
+    cfg = {**BASE, **cfg}
+    je = JEngine(JConfig(use_pallas="never", **cfg), params=jp)
+    te = Engine(EngineConfig(**cfg), params=tp, device="cpu")
     want = _drive(je, JSampling, schedule)
     got = _drive(te, SamplingParams, schedule)
     for i, (w, g) in enumerate(zip(want, got)):
         if w != g:
             j = next(k for k in range(len(w)) if k >= len(g) or w[k] != g[k])
-            gap = _top2_gap(tp, schedule[i][1] + w[:j])
+            gap = _top2_gap(tp, te.mcfg, schedule[i][1] + w[:j])
             pytest.fail(f"request {i}: token {j} differs (jax {w[j]}, torch "
                         f"{g[j:j + 1]}); top-2 logit gap there {gap:.3g}")
     return je, te
@@ -125,9 +126,8 @@ def test_sampled_streams_are_reproducible(weights):
 
 
 @pytest.mark.parametrize("bad", [
-    dict(kv_dtype="int8"), dict(speculative="ngram"), dict(mode="prefill"),
-    dict(ragged="off"), dict(host_tier_bytes=1 << 20), dict(model="tiny-mla"),
-    dict(model="tiny-moe")])
+    dict(speculative="ngram"), dict(mode="prefill"), dict(ragged="off"),
+    dict(host_tier_bytes=1 << 20), dict(model="tiny-mla", kv_dtype="int8")])
 def test_unsupported_configs_raise(bad):
     with pytest.raises(NotImplementedError):
         Engine(EngineConfig(**{**BASE, **bad}), device="cpu")

@@ -5,9 +5,13 @@ imports neither JAX nor rbg_tpu, so it also runs where JAX is absent:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels.py
 
 Tolerances: float32 inputs compare at 1e-5 (the same math, summed in
-another order). bfloat16 inputs: both sides accumulate in float32 and round
-the output to bfloat16 once, so they may differ by one bfloat16 rounding
-step of the output, |d| <= 2^-7 |ref| (+1e-3 for values near 0).
+another order); the MLA kernels' scores are 576-term dot products at
+deepseek-v2-lite widths, so there float32 compares at 5e-5. bfloat16
+inputs: both sides accumulate in float32 and round the output to bfloat16
+once, so they may differ by one bfloat16 rounding step of the output,
+|d| <= 2^-7 |ref| (+1e-3 for values near 0). int8 pools hold the same
+quantized values on both sides (the kernel folds the scales, the plain
+version dequantizes), so they keep the tolerance of q's dtype.
 """
 
 import numpy as np
@@ -15,8 +19,12 @@ import pytest
 import torch
 
 from rbg_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+from rbg_tpu_torch.ops.mla_attention import (
+    paged_mla_attention, paged_mla_attention_plain, ragged_paged_mla_attention,
+    ragged_paged_mla_attention_plain)
 from rbg_tpu_torch.ops.paged_attention import (paged_attention,
-                                               paged_attention_plain)
+                                               paged_attention_plain,
+                                               quantize_kv)
 from rbg_tpu_torch.ops.ragged_paged_attention import (
     ragged_paged_attention, ragged_paged_attention_plain)
 
@@ -136,3 +144,174 @@ def test_dispatch_never_and_decode_shape_check(dev):
     with pytest.raises(ValueError):
         paged_attention(q.expand(2, 2, 4, 64).contiguous(), k, v, table,
                         torch.stack([lens - 2, lens - 1], 1), lens)
+
+
+def _quantized(k, v):
+    (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+    return kq, vq, ks, vs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("KV,G,hd", [(8, 4, 128), (2, 7, 64), (2, 2, 32)])
+def test_paged_decode_q_matches_plain(dev, dtype, KV, G, hd):
+    """Kernel C against the plain version on the same int8 pool."""
+    rng = np.random.RandomState(3)
+    page, P = 16, 12
+    kv_lens_l = [1, 15, 16, 17, 100, P * page, 33, 0]
+    B = len(kv_lens_l)
+    NP = B * P + 1
+    kq, vq, ks, vs = _quantized(*_pool(rng, dev, dtype, NP, page, KV, hd))
+    table = torch.from_numpy((rng.permutation(NP - 1)[:B * P] + 1)
+                             .reshape(B, P).astype(np.int32)).to(dev)
+    kv_lens = torch.tensor(kv_lens_l, dtype=torch.int32, device=dev)
+    q = torch.from_numpy(rng.randn(B, 1, KV * G, hd).astype(np.float32)).to(dev, dtype)
+    pos = (kv_lens - 1).clamp(min=0)[:, None]
+    reset_launches()
+    got = paged_attention(q, kq, vq, table, pos, kv_lens, use_kernels="always",
+                          k_scales=ks, v_scales=vs)
+    torch.cuda.synchronize()
+    assert LAUNCHES["paged_decode_q"] == 1 and LAUNCHES["paged_decode"] == 0
+    ref = paged_attention_plain(q, kq, vq, table, pos, kv_lens, ks, vs)
+    torch.testing.assert_close(got.float(), ref.float(), **_tol(dtype))
+    assert torch.all(got[-1] == 0)      # kv_len 0 gives 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("KV,G,hd", [(8, 4, 128), (2, 7, 64)])
+@pytest.mark.parametrize("layout", ["straddle", "shuffled", "empty_row"])
+def test_ragged_q_matches_plain(dev, dtype, KV, G, hd, layout):
+    """Kernel D against the plain version on the same int8 pool."""
+    rng = np.random.RandomState(4)
+    kw = {}
+    if layout == "straddle":
+        specs, kw = [(12, 12), (1, 9), (20, 100)], dict(pads=5)
+    elif layout == "shuffled":
+        specs = [(5, 15), (1, 21), (1, 4), (3, 40)]
+        kw = dict(order=lambda n: np.random.RandomState(7).permutation(n))
+    else:
+        specs = [(3, 30), (1, 5), (0, 0)]
+    q, k, v, table, qpos, lens, rows = _ragged_case(rng, dev, dtype, specs,
+                                                    KV, G, hd, **kw)
+    kq, vq, ks, vs = _quantized(k, v)
+    reset_launches()
+    got = ragged_paged_attention(q, kq, vq, table, qpos, lens, rows,
+                                 use_kernels="always", k_scales=ks, v_scales=vs)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ragged_paged_q"] == 1 and LAUNCHES["ragged_paged"] == 0
+    ref = ragged_paged_attention_plain(q, kq, vq, table, qpos, lens, rows,
+                                       k_scales=ks, v_scales=vs)
+    torch.testing.assert_close(got.float(), ref.float(), **_tol(dtype))
+    assert torch.all(got[0, qpos[0] < 0] == 0)
+
+
+def _mla_tol(dtype):
+    return (dict(rtol=5e-5, atol=5e-5) if dtype == torch.float32 else _tol(dtype))
+
+
+# (H, dc, dr): deepseek-v2-lite, deepseek-v3's head count, tiny-mla.
+MLA_SHAPES = [(16, 512, 64), (128, 512, 64), (4, 64, 16)]
+
+
+def _latent_pools(rng, dev, dtype, NP, page, dc, dr):
+    c = torch.from_numpy(rng.randn(NP, page, 1, dc).astype(np.float32))
+    pe = torch.from_numpy(rng.randn(NP, page, 1, dr).astype(np.float32))
+    return c.to(dev, dtype), pe.to(dev, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,dc,dr", MLA_SHAPES)
+def test_paged_mla_decode_matches_plain(dev, dtype, H, dc, dr):
+    """Kernel E against the plain version: edge lengths 0, 1 and around a
+    page boundary, and a full table."""
+    rng = np.random.RandomState(5)
+    page, P = 16, 8
+    kv_lens_l = [1, 15, 16, 17, 100, P * page, 33, 0]
+    B = len(kv_lens_l)
+    NP = B * P + 1
+    c, pe = _latent_pools(rng, dev, dtype, NP, page, dc, dr)
+    table = torch.from_numpy((rng.permutation(NP - 1)[:B * P] + 1)
+                             .reshape(B, P).astype(np.int32)).to(dev)
+    kv_lens = torch.tensor(kv_lens_l, dtype=torch.int32, device=dev)
+    q_lat = torch.from_numpy(rng.randn(B, 1, H, dc).astype(np.float32)).to(dev, dtype)
+    q_pe = torch.from_numpy(rng.randn(B, 1, H, dr).astype(np.float32)).to(dev, dtype)
+    pos = (kv_lens - 1).clamp(min=0)[:, None]
+    scale = (128 + dr) ** -0.5
+    reset_launches()
+    got = paged_mla_attention(q_lat, q_pe, c, pe, table, pos, kv_lens, scale,
+                              use_kernels="always")
+    torch.cuda.synchronize()
+    assert LAUNCHES["paged_mla_decode"] == 1
+    ref = paged_mla_attention_plain(q_lat, q_pe, c, pe, table, pos, kv_lens, scale)
+    torch.testing.assert_close(got.float(), ref.float(), **_mla_tol(dtype))
+    assert torch.all(got[-1] == 0)      # kv_len 0 gives 0
+
+
+def _mla_ragged_case(rng, dev, dtype, specs, H, dc, dr, page=16, P=8, pads=0,
+                     order=None):
+    R = len(specs)
+    NP = R * P + 1
+    c, pe = _latent_pools(rng, dev, dtype, NP, page, dc, dr)
+    table = torch.from_numpy((rng.permutation(NP - 1)[:R * P] + 1)
+                             .reshape(R, P).astype(np.int32)).to(dev)
+    rows, qpos = [], []
+    for r, (ql, kvl) in enumerate(specs):
+        rows += [r] * ql
+        qpos += list(range(kvl - ql, kvl))
+    rows = np.asarray(rows + [0] * pads, np.int32)
+    qpos = np.asarray(qpos + [-1] * pads, np.int32)
+    if order is not None:
+        perm = order(len(rows))
+        rows, qpos = rows[perm], qpos[perm]
+    T = len(rows)
+    q_lat = torch.from_numpy(rng.randn(1, T, H, dc).astype(np.float32)).to(dev, dtype)
+    q_pe = torch.from_numpy(rng.randn(1, T, H, dr).astype(np.float32)).to(dev, dtype)
+    return (q_lat, q_pe, c, pe, table, torch.from_numpy(qpos[None]).to(dev),
+            torch.tensor([kv for _, kv in specs], dtype=torch.int32, device=dev),
+            torch.from_numpy(rows).to(dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,dc,dr", [(16, 512, 64), (4, 64, 16)])
+@pytest.mark.parametrize("layout", ["straddle", "three_in_tile", "pads",
+                                    "shuffled", "empty_row"])
+def test_ragged_mla_matches_plain(dev, dtype, H, dc, dr, layout):
+    """Kernel F against the plain version on B's layouts."""
+    rng = np.random.RandomState(6)
+    kw = {}
+    if layout == "straddle":
+        specs = [(12, 12), (1, 9), (20, 100)]
+    elif layout == "three_in_tile":
+        specs = [(1, 9), (1, 21), (1, 33), (2, 6), (3, 7)]
+    elif layout == "pads":
+        specs, kw = [(2, 9), (1, 13)], dict(pads=13)
+    elif layout == "shuffled":
+        specs = [(5, 15), (1, 21), (1, 4), (3, 40)]
+        kw = dict(order=lambda n: np.random.RandomState(7).permutation(n))
+    else:
+        specs = [(3, 30), (1, 5), (0, 0)]
+    case = _mla_ragged_case(rng, dev, dtype, specs, H, dc, dr, **kw)
+    scale = (128 + dr) ** -0.5
+    reset_launches()
+    got = ragged_paged_mla_attention(*case, scale, use_kernels="always")
+    torch.cuda.synchronize()
+    assert LAUNCHES["ragged_paged_mla"] == 1
+    ref = ragged_paged_mla_attention_plain(*case, scale)
+    torch.testing.assert_close(got.float(), ref.float(), **_mla_tol(dtype))
+    qpos = case[5]
+    assert torch.all(got[0, qpos[0] < 0] == 0)
+
+
+def test_mla_int8_pools_raise_on_cuda(dev):
+    """int8 latent pools need kernels G and H: the dispatchers raise on the
+    card instead of falling back to the plain version."""
+    rng = np.random.RandomState(8)
+    case = list(_mla_ragged_case(rng, dev, torch.bfloat16, [(3, 9)], 4, 64, 16))
+    (cq, cs), (pq, ps) = quantize_kv(case[2]), quantize_kv(case[3])
+    case[2], case[3] = cq, pq
+    with pytest.raises(NotImplementedError, match="kernel H"):
+        ragged_paged_mla_attention(*case, 0.1, c_scales=cs, pe_scales=ps)
+    lens = torch.tensor([9], dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError, match="kernel G"):
+        paged_mla_attention(case[0][:, :1], case[1][:, :1], cq, pq, case[4],
+                            (lens - 1)[:, None], lens, 0.1, c_scales=cs,
+                            pe_scales=ps)

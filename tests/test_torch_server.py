@@ -12,6 +12,9 @@ import time
 import pytest
 
 from rbg_tpu.engine.protocol import recv_msg, request_once, send_msg
+from rbg_tpu_torch.engine.config import SamplingParams
+from rbg_tpu_torch.engine.server import build_config, parse_args
+from rbg_tpu_torch.engine.service import EngineService
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -90,3 +93,24 @@ def test_bad_requests_get_error_replies(server):
     r, _, _ = request_once(server, {"op": "generate", "prompt": [1, 2],
                                     "top_p": 0.0}, timeout=30)
     assert "bad sampling params" in r["error"]
+
+
+def test_kv_dtype_and_model_flags():
+    """--kv-dtype int8 builds an int8 pool that serves; an MLA model with
+    int8 pools (kernels G, H) is refused before the port binds."""
+    base = ["--device", "cpu", "--num-pages", "32", "--max-seq-len", "64",
+            "--prefill-chunk", "8"]
+    cfg = build_config(parse_args(base + ["--model", "tiny", "--kv-dtype", "int8"]))
+    assert cfg.kv_dtype == "int8"
+    svc = EngineService(cfg)
+    try:
+        assert svc.engine.cache.quantized
+        p = svc.submit_wait([5, 9, 13, 2], SamplingParams(max_new_tokens=4))
+        assert len(p.tokens) == 4
+    finally:
+        svc.stop()
+    with pytest.raises(NotImplementedError, match="kernels G and H"):
+        build_config(parse_args(base + ["--model", "tiny-mla", "--kv-dtype",
+                                        "int8"])).validate()
+    assert build_config(parse_args(base + ["--model", "deepseek-v2-lite"])
+                        ).model_config.mla
