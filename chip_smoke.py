@@ -6,20 +6,22 @@
 Phases, each printing one JSON line:
 
 1. device  — the card (nvidia-smi name and power limit, torch's name).
-2. build   — nvcc builds every CUDA kernel of the serving paths from
-             rbg_tpu_torch/csrc (A-F, one library each, all at once).
+2. build   — nvcc builds every CUDA kernel from rbg_tpu_torch/csrc (A-I,
+             one library each, all at once).
 3. kernels — each kernel against its plain PyTorch version on the card, in
-             bfloat16: A-D at llama3-8b and qwen2-0.5b shapes (C and D on
-             int8 pools made by the port's quantize_kv), E and F at
-             deepseek-v2-lite (H=16) and deepseek-v3 (H=128) shapes: error,
-             kernel time, plain time, one PyTorch library call on the same
-             inputs (SDPA on the gathered view, a yardstick the port never
-             calls) and the least time the card could take (bound).
+             bfloat16: A-D and I at llama3-8b and qwen2-0.5b shapes (C and D
+             on int8 pools made by the port's quantize_kv; I on B's pack),
+             E-H at deepseek-v2-lite (H=16) and deepseek-v3 (H=128) shapes
+             (G and H on the same latent pools quantized): error, kernel
+             time, plain time, one PyTorch library call on the same inputs
+             (SDPA on the gathered view, a yardstick the port never calls)
+             and the least time the card could take (bound).
 4. llama3-8b at full width and depth, random weights from a seed:
    engine  — Engine (bf16 pools; kernels A, B): a request steps into
              decode, a second joins so one ragged step holds a decode row
              and a prefill chunk, both run to completion (multi_step 1
-             and 4); greedy is repeatable.
+             and 4); greedy is repeatable; a seeded sampled request gives
+             the same stream twice, and the Gumbel noise is timed.
    witness — one forward_ragged with kernels against the plain version on
              the same pool, in float32 (tight) and in bfloat16 (against a
              float32 control).
@@ -29,13 +31,19 @@ Phases, each printing one JSON line:
              multi_step 4, and its witness on an int8 pool.
 5. deepseek-v2-lite (MLA + MoE) at full width and depth, random weights
    from a seed, after llama3-8b is freed: engine (kernels E, F; multi_step
-   1 and 4), witness and server, as for llama3-8b.
+   1 and 4), witness and server, as for llama3-8b; then on the same
+   weights over int8 latent pools (kernels G, H): engine (multi_step 4),
+   int8 witness and server.
+6. ragged_ab — rbg_tpu_torch.bench.block_ragged_probe: kernel I against
+   kernel B on a prefill-heavy pack, both checked against the plain
+   version, then interleaved timed reps.
 
 Then a line {"kernels": [...]} (launches counted over the phase that drives
 each kernel's path: the llama3-8b server for A and B, the int8 engine for
-C and D, the deepseek-v2-lite server for E and F) and, last,
-{"ok": true, "device": {...}}. Any failure exits non-zero before the last
-line; without a CUDA device nothing runs.
+C and D, the deepseek-v2-lite server for E and F, its int8 engine for G
+and H, the probe for I) and, last, {"ok": true, "device": {...}}. Any
+failure exits non-zero before the last line; without a CUDA device nothing
+runs.
 """
 
 import gc
@@ -75,6 +83,8 @@ INT8_VS_CONTROL = 1.25
 LLAMA_KERNELS = ("paged_decode", "ragged_paged")
 INT8_KERNELS = ("paged_decode_q", "ragged_paged_q")
 MLA_KERNELS = ("paged_mla_decode", "ragged_paged_mla")
+MLA_INT8_KERNELS = ("paged_mla_decode_q", "ragged_paged_mla_q")
+PROBE_KERNELS = ("ragged_paged_tokengrid",)
 
 
 def emit(phase, **kw):
@@ -82,10 +92,12 @@ def emit(phase, **kw):
 
 
 def cuda_ms(torch, fn, flush, iters=20, warm=3):
-    """Median device time of one call, L2 flushed before each launch."""
+    """Median device time of one call, L2 flushed before each launch (when
+    a flush buffer is given)."""
     times = []
     for i in range(warm + iters):
-        flush.zero_()
+        if flush is not None:
+            flush.zero_()
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -189,13 +201,15 @@ def padded_queries(torch, q, qpos, rows, R, Tm=64):
 
 
 def gqa_kernel_cases(torch, np, flush, out):
-    """Kernels A-D at the llama3-8b and qwen2-0.5b shapes."""
+    """Kernels A-D and I at the llama3-8b and qwen2-0.5b shapes."""
     import torch.nn.functional as F
 
     from rbg_tpu_torch.ops.kernels.paged_decode import paged_decode_attention
     from rbg_tpu_torch.ops.kernels.paged_decode_q import paged_decode_attention_q
     from rbg_tpu_torch.ops.kernels.ragged_paged import ragged_paged_attention_cuda
     from rbg_tpu_torch.ops.kernels.ragged_paged_q import ragged_paged_attention_q_cuda
+    from rbg_tpu_torch.ops.kernels.ragged_paged_tokengrid import (
+        ragged_paged_attention_tokengrid_cuda)
     from rbg_tpu_torch.ops.paged_attention import (gather_kv, paged_attention_plain,
                                                    quantize_kv)
     from rbg_tpu_torch.ops.ragged_paged_attention import ragged_paged_attention_plain
@@ -238,7 +252,7 @@ def gqa_kernel_cases(torch, np, flush, out):
                 bound_ms=b_ms, bound_by=b_by))
             del kg, vg
 
-        # -- B and D: the mixed pack --
+        # -- B, D and I (B's function on a token grid): the mixed pack --
         spec = RAGGED_SPEC
         q, k, v, table, qpos, kv_lens, rows = ragged_case(torch, np, KV, G, hd, spec)
         (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
@@ -261,7 +275,12 @@ def gqa_kernel_cases(torch, np, flush, out):
                  lambda: ragged_paged_attention_q_cuda(q, k8, v8, ks, vs, table, qpos,
                                                        kv_lens, rows),
                  lambda: ragged_paged_attention_plain(q, k8, v8, table, qpos, kv_lens,
-                                                      rows, 64, ks, vs), None)):
+                                                      rows, 64, ks, vs), None),
+                ("ragged_paged_tokengrid", 2,
+                 lambda: ragged_paged_attention_tokengrid_cuda(q, k, v, table, qpos,
+                                                               kv_lens, rows),
+                 lambda: ragged_paged_attention_plain(q, k, v, table, qpos, kv_lens,
+                                                      rows, 64), (k, v))):
             err = max_err_checked(torch, f"{name} {model}", fn(), plain())
             if kv_pair is None:
                 kv_pair = ((k8.float() * ks).to(torch.bfloat16),
@@ -292,13 +311,21 @@ def latent_pools(torch, NP, dc, dr, seed, page=16):
 
 
 def mla_kernel_cases(torch, np, flush, out):
-    """Kernels E and F at the deepseek-v2-lite and deepseek-v3 shapes."""
+    """Kernels E and F, and G and H on the same latent pools quantized, at
+    the deepseek-v2-lite and deepseek-v3 shapes."""
     import torch.nn.functional as F
 
     from rbg_tpu_torch.ops.kernels.paged_mla_decode import paged_mla_decode_attention
+    from rbg_tpu_torch.ops.kernels.paged_mla_decode_q import paged_mla_decode_attention_q
     from rbg_tpu_torch.ops.kernels.ragged_paged_mla import ragged_paged_mla_attention_cuda
+    from rbg_tpu_torch.ops.kernels.ragged_paged_mla_q import (
+        ragged_paged_mla_attention_q_cuda)
     from rbg_tpu_torch.ops.mla_attention import (_gather, paged_mla_attention_plain,
                                                  ragged_paged_mla_attention_plain)
+    from rbg_tpu_torch.ops.paged_attention import quantize_kv
+
+    def dequantized(x8, s):
+        return (x8.float() * s).to(torch.bfloat16)
 
     dc, dr, dn = 512, 64, 128
     scale = (dn + dr) ** -0.5
@@ -315,31 +342,40 @@ def mla_kernel_cases(torch, np, flush, out):
         pos = (kv_lens - 1)[:, None]
         q_lat = torch.randn(B, 1, H, dc, generator=g, device="cuda").to(torch.bfloat16)
         q_pe = torch.randn(B, 1, H, dr, generator=g, device="cuda").to(torch.bfloat16)
-
-        def fn():
-            return paged_mla_decode_attention(q_lat, q_pe, c, pe, table, kv_lens, scale)
-
-        def plain():
-            return paged_mla_attention_plain(q_lat, q_pe, c, pe, table, pos, kv_lens,
-                                             scale)
-
-        err = max_err_checked(torch, f"paged_mla_decode {model}", fn(), plain())
+        (c8, cs), (pe8, ps) = quantize_kv(c), quantize_kv(pe)
         S, tokens = P * 16, sum(lens)
         qh = torch.cat([q_lat, q_pe], -1).permute(0, 2, 1, 3)        # [B,H,1,576]
-        kg = torch.cat([_gather(c, table), _gather(pe, table)], -1)[:, None]
-        vg = _gather(c, table)[:, None]                              # [B,1,S,dc]
         mask = (torch.arange(S, device="cuda")[None, :] < kv_lens[:, None])[:, None, None]
-        nbytes = (tokens * (dc + dr) * 2 + B * H * (2 * dc + dr) * 2
-                  + pages_of(lens) * 4 + B * 4)
-        b_ms, b_by = bound(nbytes, tokens * H * (4 * dc + 2 * dr))
-        out["paged_mla_decode"].append(dict(
-            model=model, H=H, dc=dc, dr=dr, B=B, kv_lens=lens, max_abs_err=err,
-            ms=cuda_ms(torch, fn, flush), plain_ms=cuda_ms(torch, plain, flush, iters=5),
-            library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                qh, kg, vg, attn_mask=mask, scale=scale, enable_gqa=True), flush),
-            library="sdpa, q=[q_lat|q_pe], k=[c|pe], v=c on the gathered view",
-            bound_ms=b_ms, bound_by=b_by))
-        del kg, vg
+        # E on bf16 latent pools; G on the same pools quantized by quantize_kv.
+        for name, elem, fn, plain, view in (
+                ("paged_mla_decode", 2,
+                 lambda: paged_mla_decode_attention(q_lat, q_pe, c, pe, table, kv_lens,
+                                                    scale),
+                 lambda: paged_mla_attention_plain(q_lat, q_pe, c, pe, table, pos,
+                                                   kv_lens, scale), (c, pe)),
+                ("paged_mla_decode_q", 1,
+                 lambda: paged_mla_decode_attention_q(q_lat, q_pe, c8, pe8, cs, ps,
+                                                      table, kv_lens, scale),
+                 lambda: paged_mla_attention_plain(q_lat, q_pe, c8, pe8, table, pos,
+                                                   kv_lens, scale, cs, ps), None)):
+            err = max_err_checked(torch, f"{name} {model}", fn(), plain())
+            if view is None:        # SDPA on the view dequantized to bf16 beforehand
+                view = (dequantized(c8, cs), dequantized(pe8, ps))
+            kg = torch.cat([_gather(view[0], table), _gather(view[1], table)], -1)[:, None]
+            vg = _gather(view[0], table)[:, None]                    # [B,1,S,dc]
+            nbytes = (tokens * (dc + dr) * elem + B * H * (2 * dc + dr) * 2
+                      + pages_of(lens) * 4 + B * 4 + (tokens * 8 if elem == 1 else 0))
+            b_ms, b_by = bound(nbytes, tokens * H * (4 * dc + 2 * dr))
+            out[name].append(dict(
+                model=model, H=H, dc=dc, dr=dr, B=B, kv_lens=lens, max_abs_err=err,
+                ms=cuda_ms(torch, fn, flush),
+                plain_ms=cuda_ms(torch, plain, flush, iters=5),
+                library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qh, kg, vg, attn_mask=mask, scale=scale, enable_gqa=True), flush),
+                library="sdpa, q=[q_lat|q_pe], k=[c|pe], v=c on the gathered view" + (
+                    " dequantized to bf16 beforehand" if elem == 1 else ""),
+                bound_ms=b_ms, bound_by=b_by))
+            del kg, vg
 
         # -- F: the mixed pack --
         spec = RAGGED_SPEC
@@ -352,42 +388,56 @@ def mla_kernel_cases(torch, np, flush, out):
         T = rows.numel()
         q_lat = torch.randn(1, T, H, dc, generator=g, device="cuda").to(torch.bfloat16)
         q_pe = torch.randn(1, T, H, dr, generator=g, device="cuda").to(torch.bfloat16)
-
-        def fn():
-            return ragged_paged_mla_attention_cuda(q_lat, q_pe, c, pe, table, qpos,
-                                                   kv_lens, rows, scale)
-
-        def plain():
-            return ragged_paged_mla_attention_plain(q_lat, q_pe, c, pe, table, qpos,
-                                                    kv_lens, rows, scale, max_q_len=64)
-
-        err = max_err_checked(torch, f"ragged_paged_mla {model}", fn(), plain())
+        (c8, cs), (pe8, ps) = quantize_kv(c), quantize_kv(pe)
         S = P * 16
         qp, pp = padded_queries(torch, torch.cat([q_lat, q_pe], -1), qpos, rows, R)
         slot = torch.arange(S, device="cuda")
         mask = ((slot[None, None] <= pp[:, :, None])
                 & (slot[None, None] < kv_lens[:, None, None]))[:, None]
         qh = qp.permute(0, 2, 1, 3)
-        kg = torch.cat([_gather(c, table), _gather(pe, table)], -1)[:, None]
-        vg = _gather(c, table)[:, None]
         lim = torch.minimum(kv_lens[rows.long()], qpos[0] + 1).clamp(min=0)
         row_extent = sum(kv for _, kv in spec)
-        nbytes = (row_extent * (dc + dr) * 2 + T * H * (2 * dc + dr) * 2
-                  + pages_of([kv for _, kv in spec]) * 4 + T * 8 + R * 4)
-        b_ms, b_by = bound(nbytes, int(lim.sum()) * H * (4 * dc + 2 * dr))
-        out["ragged_paged_mla"].append(dict(
-            model=model, H=H, dc=dc, dr=dr, T=T, rows=spec, max_abs_err=err,
-            ms=cuda_ms(torch, fn, flush), plain_ms=cuda_ms(torch, plain, flush, iters=5),
-            library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                qh, kg, vg, attn_mask=mask, scale=scale, enable_gqa=True), flush),
-            library="sdpa, padded [R, 64] batch, q=[q_lat|q_pe], k=[c|pe], v=c",
-            bound_ms=b_ms, bound_by=b_by))
-        del kg, vg, qp
+        # F on bf16 latent pools; H on the same pools quantized by quantize_kv.
+        for name, elem, fn, plain, view in (
+                ("ragged_paged_mla", 2,
+                 lambda: ragged_paged_mla_attention_cuda(q_lat, q_pe, c, pe, table, qpos,
+                                                         kv_lens, rows, scale),
+                 lambda: ragged_paged_mla_attention_plain(q_lat, q_pe, c, pe, table,
+                                                          qpos, kv_lens, rows, scale,
+                                                          max_q_len=64), (c, pe)),
+                ("ragged_paged_mla_q", 1,
+                 lambda: ragged_paged_mla_attention_q_cuda(q_lat, q_pe, c8, pe8, cs, ps,
+                                                           table, qpos, kv_lens, rows,
+                                                           scale),
+                 lambda: ragged_paged_mla_attention_plain(q_lat, q_pe, c8, pe8, table,
+                                                          qpos, kv_lens, rows, scale, cs,
+                                                          ps, max_q_len=64), None)):
+            err = max_err_checked(torch, f"{name} {model}", fn(), plain())
+            if view is None:        # SDPA on the view dequantized to bf16 beforehand
+                view = (dequantized(c8, cs), dequantized(pe8, ps))
+            kg = torch.cat([_gather(view[0], table), _gather(view[1], table)], -1)[:, None]
+            vg = _gather(view[0], table)[:, None]
+            nbytes = (row_extent * (dc + dr) * elem + T * H * (2 * dc + dr) * 2
+                      + pages_of([kv for _, kv in spec]) * 4 + T * 8 + R * 4
+                      + (row_extent * 8 if elem == 1 else 0))
+            b_ms, b_by = bound(nbytes, int(lim.sum()) * H * (4 * dc + 2 * dr))
+            out[name].append(dict(
+                model=model, H=H, dc=dc, dr=dr, T=T, rows=spec, max_abs_err=err,
+                ms=cuda_ms(torch, fn, flush),
+                plain_ms=cuda_ms(torch, plain, flush, iters=5),
+                library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qh, kg, vg, attn_mask=mask, scale=scale, enable_gqa=True), flush),
+                library="sdpa, padded [R, 64] batch, q=[q_lat|q_pe], k=[c|pe], v=c" + (
+                    " dequantized to bf16 beforehand" if elem == 1 else ""),
+                bound_ms=b_ms, bound_by=b_by))
+            del kg, vg
+        del qp
 
 
 def kernels_phase(torch, np):
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
-    out = {k: [] for k in LLAMA_KERNELS + INT8_KERNELS + MLA_KERNELS}
+    out = {k: [] for k in (LLAMA_KERNELS + INT8_KERNELS + MLA_KERNELS
+                           + MLA_INT8_KERNELS + PROBE_KERNELS)}
     gqa_kernel_cases(torch, np, flush, out)
     mla_kernel_cases(torch, np, flush, out)
     torch.cuda.empty_cache()
@@ -536,9 +586,35 @@ def check_launches(launches, kernels):
         raise AssertionError(f"a kernel of the path never launched: {launches}")
 
 
+def sampled_check(torch, eng, prompt):
+    """One seeded sampled request (temperature 0.9, top_k 40, seed 5)
+    generated twice must give the same stream; also the Gumbel noise's
+    device time per sampled step at batch 1 and 8 (the port's threefry in
+    torch ops)."""
+    from rbg_tpu_torch.engine.config import SamplingParams
+    from rbg_tpu_torch.engine.sampler import gumbel_noise, row_keys
+
+    sp = SamplingParams(max_new_tokens=16, temperature=0.9, top_k=40, seed=5)
+    s1 = eng.generate([prompt], sp)[0]
+    s2 = eng.generate([prompt], sp)[0]
+    if s1 != s2 or len(s1) != 16:
+        raise AssertionError(f"seeded sampled stream not repeatable: {s1} vs {s2}")
+    V = eng.mcfg.vocab_size
+    noise_ms = {}
+    for B in (1, 8):
+        keys = row_keys([5] * B, 1, list(range(B)), "cuda")
+        pos = torch.arange(B, device="cuda") + 100
+        noise = gumbel_noise(keys, pos, V)
+        if noise.shape != (B, V) or not bool(torch.isfinite(noise).all()):
+            raise AssertionError("bad Gumbel noise")
+        noise_ms[f"B{B}"] = cuda_ms(torch, lambda: gumbel_noise(keys, pos, V), None)
+    return {"tokens": s1, "noise_ms_per_sampled_step": noise_ms, "vocab": V}
+
+
 def engine_phase(torch, np, params, model, kernels, kv_dtype="model",
-                 multi_steps=(1, 4)):
-    """The engine script: returns {multi_step: (tokens, launches)}."""
+                 multi_steps=(1, 4), sampled=False):
+    """The engine script: returns {multi_step: (tokens, launches)}. With
+    ``sampled`` it also runs ``sampled_check``."""
     from rbg_tpu_torch.engine.config import EngineConfig, SamplingParams
     from rbg_tpu_torch.engine.engine import Engine
     from rbg_tpu_torch.ops.kernels import LAUNCHES, reset_launches
@@ -587,16 +663,18 @@ def engine_phase(torch, np, params, model, kernels, kv_dtype="model",
         if g1 != g2:
             raise AssertionError(f"greedy not repeatable: {g1} vs {g2}")
         tokens = {"a": out[a], "b": out[b]}
+        metrics = dict(eng.metrics)
+        extra = {"seeded_sampled": sampled_check(torch, eng, pb)} if sampled else {}
         emit("engine", model=model, kv_dtype=kv_dtype, layers=eng.mcfg.num_layers,
              multi_step=ms, launches=launches, tokens=tokens, wall_s=wall,
-             metrics=eng.metrics, greedy_repeat=g1[0])
+             metrics=metrics, greedy_repeat=g1[0], **extra)
         runs[ms] = (tokens, launches)
         del eng
         torch.cuda.empty_cache()
     return runs
 
 
-def server_phase(torch, np, params, model, kernels, card):
+def server_phase(torch, np, params, model, kernels, card, kv_dtype="model"):
     from concurrent.futures import ThreadPoolExecutor
 
     from rbg_tpu_torch.engine.config import EngineConfig
@@ -607,7 +685,8 @@ def server_phase(torch, np, params, model, kernels, card):
 
     V = params["embed"].shape[0]
     svc = EngineService(EngineConfig(model=model, num_pages=2048,
-                                     max_seq_len=2048, multi_step=4),
+                                     max_seq_len=2048, multi_step=4,
+                                     kv_dtype=kv_dtype),
                         params=params)
     srv = start_server(svc)
     try:
@@ -645,7 +724,10 @@ def server_phase(torch, np, params, model, kernels, card):
         check_launches(launches, kernels)
         m = request_once(srv.addr, {"op": "metrics"}, timeout=30)
         total = sum(n for _, n, _ in reqs)
-        emit("server", card=card, model=model, layers=svc.engine.mcfg.num_layers,
+        if svc.engine.cache.quantized != (kv_dtype == "int8"):
+            raise AssertionError(f"server pool is not {kv_dtype}")
+        emit("server", card=card, model=model, kv_dtype=kv_dtype,
+             layers=svc.engine.mcfg.num_layers,
              requests=len(reqs), prompt_lens=[p for p, _, _ in reqs],
              new_tokens=total, wall_s=wall, tokens_per_s=total / wall,
              ttft_s=[r["ttft_s"] for r in res], stream_frames=res[1]["frames"],
@@ -676,7 +758,7 @@ def llama_phases(torch, np, card):
     """llama3-8b: bf16 engine, witness and server (A, B), then the int8
     engine and witness (C, D). Returns {kernel: launches on its path}."""
     params = init_phase(torch, "llama3-8b")
-    bf16 = engine_phase(torch, np, params, "llama3-8b", LLAMA_KERNELS)
+    bf16 = engine_phase(torch, np, params, "llama3-8b", LLAMA_KERNELS, sampled=True)
     ragged_compare(torch, np, params, "llama3-8b")
     launches = {k: v for k, v in server_phase(torch, np, params, "llama3-8b",
                                               LLAMA_KERNELS, card).items()
@@ -694,12 +776,38 @@ def llama_phases(torch, np, card):
 
 
 def deepseek_phases(torch, np, card):
-    """deepseek-v2-lite (MLA + MoE): engine, witness and server (E, F)."""
-    params = init_phase(torch, "deepseek-v2-lite")
-    engine_phase(torch, np, params, "deepseek-v2-lite", MLA_KERNELS)
-    ragged_compare(torch, np, params, "deepseek-v2-lite")
-    launches = server_phase(torch, np, params, "deepseek-v2-lite", MLA_KERNELS, card)
-    return {k: launches[k] for k in MLA_KERNELS}
+    """deepseek-v2-lite (MLA + MoE): engine, witness and server over bf16
+    latent pools (E, F), then over int8 latent pools on the same weights
+    (G, H). Returns {kernel: launches on its path}."""
+    model = "deepseek-v2-lite"
+    params = init_phase(torch, model)
+    engine_phase(torch, np, params, model, MLA_KERNELS)
+    ragged_compare(torch, np, params, model)
+    launches = server_phase(torch, np, params, model, MLA_KERNELS, card)
+    launches = {k: launches[k] for k in MLA_KERNELS}
+    int8 = engine_phase(torch, np, params, model, MLA_INT8_KERNELS, kv_dtype="int8",
+                        multi_steps=(4,))
+    launches.update({k: int8[4][1][k] for k in MLA_INT8_KERNELS})
+    ragged_compare(torch, np, params, model, kv_dtype="int8")
+    server_phase(torch, np, params, model, MLA_INT8_KERNELS, card, kv_dtype="int8")
+    return launches
+
+
+def probe_phase(torch):
+    """The block_ragged probe (kernel I against kernel B on a prefill-heavy
+    pack); its launches of kernel I are that path's. Returns them."""
+    from rbg_tpu_torch.bench import block_ragged_probe
+    from rbg_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    reset_launches()
+    out = block_ragged_probe()
+    launches = dict(LAUNCHES)
+    emit("ragged_ab", launches=launches, **out)
+    if not (out["measurable"] and out["bit_identical"]):
+        raise AssertionError(f"block_ragged probe: kernels disagree with the "
+                             f"plain version: {out}")
+    check_launches(launches, PROBE_KERNELS)
+    return {k: launches[k] for k in PROBE_KERNELS}
 
 
 def main():
@@ -737,6 +845,7 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     launches.update(deepseek_phases(torch, np, card))
+    launches.update(probe_phase(torch))
 
     src = {
         "paged_decode": ("paged_decode.cu", "paged_attention_kernel.py:165"),
@@ -745,6 +854,10 @@ def main():
         "ragged_paged_q": ("ragged_paged_q.cu", "ragged_attention_kernel.py:368"),
         "paged_mla_decode": ("paged_mla_decode.cu", "paged_attention_kernel.py:412"),
         "ragged_paged_mla": ("ragged_paged_mla.cu", "ragged_attention_kernel.py:579"),
+        "paged_mla_decode_q": ("paged_mla_decode_q.cu", "paged_attention_kernel.py:491"),
+        "ragged_paged_mla_q": ("ragged_paged_mla_q.cu", "ragged_attention_kernel.py:595"),
+        "ragged_paged_tokengrid": ("ragged_paged_tokengrid.cu",
+                                   "ragged_attention_kernel.py:741"),
     }
     rows = []
     for name_, (source, replaces) in src.items():

@@ -25,7 +25,13 @@
 //
 // MLA (latent) pools are MQA-shaped: one latent c [dc] and one RoPE key
 // pe [dr] per slot. The walk stages [c | pe] as one K row of width dc+dr,
-// and the values are the first dc columns of that same row.
+// and the values are the first dc columns of that same row. int8 latent
+// pools carry two scales per slot (f32 [NP, page, 1, 1] each): the c
+// scale multiplies the latent score term and the values, the pe scale the
+// RoPE term. One score scale per slot cannot express that, so the MLA
+// walk folds them while staging: the c part of slot i's row is converted
+// to f32 times cs[i] and the pe part times ps[i], and attend_page runs
+// unchanged. That is the reference's algebra up to f32 rounding order.
 
 #pragma once
 
@@ -103,20 +109,30 @@ __device__ inline Smem carve(float* base, const Plan& p) {
 
 // Copy the [page, width] slice of kv head `kv` in pool page `phys` into dst
 // (row stride ld). Pool layout [NP, page, KV, width]: consecutive slots are
-// KV*width apart. width must be a multiple of 16 bytes of P.
+// KV*width apart. width must be a multiple of 16 bytes of P. With
+// `scales` (f32 [NP, page, KV, 1]) each slot's row is staged times its
+// scale.
 template <typename P>
 __device__ void load_page(float* dst, int ld, const P* pages, long phys, int kv,
-                          int KV, int width, int page) {
+                          int KV, int width, int page,
+                          const float* scales = nullptr) {
   constexpr int VEC = 16 / sizeof(P);
   const int chunks = width / VEC;
   for (int i = threadIdx.x; i < page * chunks; i += blockDim.x) {
     const int t = i / chunks, c = i % chunks;
-    const P* src = pages + ((phys * page + t) * KV + kv) * (long)width + c * VEC;
+    const long slot = (phys * page + t) * KV + kv;
+    const P* src = pages + slot * width + c * VEC;
     const uint4 raw = *reinterpret_cast<const uint4*>(src);
     const P* vals = reinterpret_cast<const P*>(&raw);
     float* d = dst + t * ld + c * VEC;
+    if (scales) {
+      const float s = scales[slot];
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) d[j] = to_f32(vals[j]);
+      for (int j = 0; j < VEC; ++j) d[j] = to_f32(vals[j]) * s;
+    } else {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) d[j] = to_f32(vals[j]);
+    }
   }
 }
 
@@ -202,17 +218,20 @@ __device__ void attend_row(const Smem& sm, const Plan& pl, int nact, int row_lim
 
 // The MLA walk: pages of the latent pool c [NP, page, 1, dc] and the RoPE
 // key pool pe [NP, page, 1, dr] staged as one [page, dc + dr] K page whose
-// first dc columns are the values.
+// first dc columns are the values. c_scales / pe_scales (f32
+// [NP, page, 1, 1], int8 pools) scale the staged parts; nullptr for
+// model-dtype pools.
 template <typename P>
 __device__ void mla_attend_row(const Smem& sm, const Plan& pl, int nact, int row_limit,
                                const int* table_row, int max_pages, const P* c_pages,
-                               const P* pe_pages, float scale) {
+                               const P* pe_pages, const float* c_scales,
+                               const float* pe_scales, float scale) {
   const int page = pl.page, dc = pl.dv, dr = pl.dq - pl.dv;
   const int n_pages = min((row_limit + page - 1) / page, max_pages);
   for (int p = 0; p < n_pages; ++p) {
     const long phys = table_row[p];
-    load_page(sm.k, pl.ldk, c_pages, phys, 0, 1, dc, page);
-    load_page(sm.k + dc, pl.ldk, pe_pages, phys, 0, 1, dr, page);
+    load_page(sm.k, pl.ldk, c_pages, phys, 0, 1, dc, page, c_scales);
+    load_page(sm.k + dc, pl.ldk, pe_pages, phys, 0, 1, dr, page, pe_scales);
     __syncthreads();
     attend_page(sm, pl, nact, p, scale, nullptr, nullptr);
   }

@@ -1,11 +1,11 @@
 """Engine configuration (``rbg_tpu/engine/config.py``) plus the device.
 
 The fields are the reference's serving knobs this port runs. Features the
-reference has and this port does not yet (int8 latent pools for MLA
-models, speculative decoding, the host KV tier, PD modes, the split
-non-ragged paths, grammar and LoRA) are refused in ``validate`` / at
-admission with ``NotImplementedError`` naming the ROADMAP item, never
-ignored.
+reference has and this port does not yet (speculative decoding, the host
+KV tier, PD modes, the split non-ragged paths, grammar and LoRA) are
+refused in ``validate`` / at admission with ``NotImplementedError`` naming
+the ROADMAP item, never ignored. ``kv_dtype="int8"`` serves every model:
+GQA pools and MLA latent pools alike.
 """
 
 from __future__ import annotations
@@ -87,9 +87,6 @@ class EngineConfig:
         if self.ragged != "auto":
             raise _todo(f"ragged={self.ragged!r}",
                         "split prefill path (_prefill_step)")
-        if self.kv_dtype == "int8" and self.model_config.mla:
-            raise _todo("kv_dtype='int8' with an MLA model (int8 latent pools)",
-                        "kernels G and H")
 
 
 @dataclasses.dataclass

@@ -80,7 +80,8 @@ class Engine:
             raise ValueError(f"params live on {params['embed'].device}, the "
                              f"engine on {self.device}")
         self.params = params
-        # Row keys of requests without a seed hash this with the request id.
+        # A request without a seed samples with fold_in(key(this), its id),
+        # as the reference does.
         self._sample_base = cfg.seed + 1
         self.cache = PagedKVCache.create(self.mcfg, cfg.num_pages,
                                          cfg.page_size, device=self.device,

@@ -5,6 +5,7 @@ in front of an ``EngineService``.
     python -m rbg_tpu_torch.engine.server --model llama3-8b --port 9000
     python -m rbg_tpu_torch.engine.server --model llama3-8b --kv-dtype int8
     python -m rbg_tpu_torch.engine.server --model deepseek-v2-lite --port 9000
+    python -m rbg_tpu_torch.engine.server --model deepseek-v2-lite --kv-dtype int8
     python -m rbg_tpu_torch.engine.server --device cpu --model tiny --port 0
 
 The server binds first (readiness probes connect), then builds the engine

@@ -13,7 +13,9 @@ import torch
 
 LAUNCHES: Dict[str, int] = {"paged_decode": 0, "ragged_paged": 0,
                             "paged_decode_q": 0, "ragged_paged_q": 0,
-                            "paged_mla_decode": 0, "ragged_paged_mla": 0}
+                            "paged_mla_decode": 0, "ragged_paged_mla": 0,
+                            "paged_mla_decode_q": 0, "ragged_paged_mla_q": 0,
+                            "ragged_paged_tokengrid": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -55,7 +57,9 @@ def check_tensors(q: torch.Tensor, pools=(), int32=(), others=()) -> None:
 
 def check_scales(k_pages: torch.Tensor, k_scales: torch.Tensor,
                  v_scales: torch.Tensor) -> None:
-    """int8 pools' scales: float32 [NP, page, KV, 1], one per (slot, kv head)."""
+    """int8 pools' scales: float32 [NP, page, KV, 1], one per (slot, kv
+    head). For MLA latent pools ``k_pages`` is the latent pool c
+    [NP, page, 1, dc], and c and pe each have float32 [NP, page, 1, 1]."""
     want = tuple(k_pages.shape[:-1]) + (1,)
     for s in (k_scales, v_scales):
         if s.dtype != torch.float32 or tuple(s.shape) != want:

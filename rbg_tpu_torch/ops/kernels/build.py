@@ -24,7 +24,8 @@ _PKG = Path(__file__).resolve().parents[2]
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("paged_decode", "ragged_paged", "paged_decode_q", "ragged_paged_q",
-           "paged_mla_decode", "ragged_paged_mla")
+           "paged_mla_decode", "ragged_paged_mla", "paged_mla_decode_q",
+           "ragged_paged_mla_q", "ragged_paged_tokengrid")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -16,10 +16,11 @@ the model applies ``W_uv`` after.
   XLA functions give an average there). The ragged one takes packs whose
   rows are not contiguous runs;
 * the CUDA kernels ``ops/kernels/paged_mla_decode.py`` (kernel E, decode)
-  and ``ops/kernels/ragged_paged_mla.py`` (kernel F, ragged packs), which
+  and ``ops/kernels/ragged_paged_mla.py`` (kernel F, ragged packs), and
+  their int8-latent-pool forms ``ops/kernels/paged_mla_decode_q.py``
+  (kernel G) and ``ops/kernels/ragged_paged_mla_q.py`` (kernel H), which
   the dispatchers ``paged_mla_attention`` / ``ragged_paged_mla_attention``
-  launch for CUDA tensors. int8 latent pools on CUDA need kernels G and H,
-  not ported yet: the dispatchers raise there.
+  launch for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -124,20 +125,19 @@ def ragged_paged_mla_attention_plain(
     return torch.where(pad[:, None, None], 0.0, res.float()).to(q_lat.dtype)[None]
 
 
-def _int8_on_cuda(kernel: str, reference: str):
-    return NotImplementedError(
-        f"int8 latent pools on CUDA need kernel {kernel} (the port of "
-        f"{reference}), not ported yet (ROADMAP queue 2)")
-
-
 def paged_mla_attention(q_lat, q_pe, c_pages, pe_pages, page_table,
                         q_positions, kv_lens, scale, *, use_kernels: str = "auto",
                         c_scales=None, pe_scales=None):
-    """MLA decode through kernel E for CUDA tensors, or the plain version
-    (see ``dispatch``)."""
+    """MLA decode through a CUDA kernel for CUDA tensors (kernel G for int8
+    latent pools with scales, else kernel E), or the plain version (see
+    ``dispatch``)."""
     def kernel():
         if c_scales is not None:
-            raise _int8_on_cuda("G", "paged_mla_attention_pallas_q")
+            from rbg_tpu_torch.ops.kernels.paged_mla_decode_q import (
+                paged_mla_decode_attention_q)
+            return paged_mla_decode_attention_q(q_lat, q_pe, c_pages, pe_pages,
+                                                c_scales, pe_scales, page_table,
+                                                kv_lens, scale)
         from rbg_tpu_torch.ops.kernels.paged_mla_decode import (
             paged_mla_decode_attention)
         return paged_mla_decode_attention(q_lat, q_pe, c_pages, pe_pages,
@@ -152,12 +152,18 @@ def ragged_paged_mla_attention(q_lat, q_pe, c_pages, pe_pages, page_table,
                                q_positions, kv_lens, row_ids, scale, *,
                                use_kernels: str = "auto", c_scales=None,
                                pe_scales=None, max_q_len: Optional[int] = None):
-    """Ragged MLA through kernel F for CUDA tensors, or the plain version
-    (see ``dispatch``). ``max_q_len`` only shapes the plain version's padded
+    """Ragged MLA through a CUDA kernel for CUDA tensors (kernel H for int8
+    latent pools with scales, else kernel F), or the plain version (see
+    ``dispatch``). ``max_q_len`` only shapes the plain version's padded
     batch."""
     def kernel():
         if c_scales is not None:
-            raise _int8_on_cuda("H", "ragged_paged_mla_attention_pallas_q")
+            from rbg_tpu_torch.ops.kernels.ragged_paged_mla_q import (
+                ragged_paged_mla_attention_q_cuda)
+            return ragged_paged_mla_attention_q_cuda(q_lat, q_pe, c_pages, pe_pages,
+                                                     c_scales, pe_scales, page_table,
+                                                     q_positions, kv_lens, row_ids,
+                                                     scale)
         from rbg_tpu_torch.ops.kernels.ragged_paged_mla import (
             ragged_paged_mla_attention_cuda)
         return ragged_paged_mla_attention_cuda(q_lat, q_pe, c_pages, pe_pages,

@@ -21,7 +21,11 @@ Token ``t`` attends slots ``< min(kv_lens[row_ids[t]], q_positions[t] + 1)``.
 * the CUDA kernels ``ops/kernels/ragged_paged.py`` (model-dtype pools)
   and ``ops/kernels/ragged_paged_q.py`` (int8 pools with scales) — query
   tiles that may span rows, each distinct row of a tile walking its pages
-  once.
+  once;
+* the token-grid CUDA kernel ``ops/kernels/ragged_paged_tokengrid.py`` —
+  the same function with one block per packed token, each walking its
+  row's pages alone: the baseline the block-ragged kernel is measured
+  against (``bench.block_ragged_probe``), not on the serving path.
 """
 
 from __future__ import annotations
@@ -133,3 +137,18 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, q_positions,
     return dispatch(use_kernels, q, kernel, lambda: ragged_paged_attention_plain(
         q, k_pages, v_pages, page_table, q_positions, kv_lens, row_ids,
         max_q_len, k_scales, v_scales))
+
+
+def ragged_paged_attention_tokengrid(q, k_pages, v_pages, page_table,
+                                     q_positions, kv_lens, row_ids, *,
+                                     use_kernels: str = "auto"):
+    """The token-grid kernel I for CUDA tensors (model-dtype pools), or the
+    plain version (see ``dispatch``)."""
+    def kernel():
+        from rbg_tpu_torch.ops.kernels.ragged_paged_tokengrid import (
+            ragged_paged_attention_tokengrid_cuda)
+        return ragged_paged_attention_tokengrid_cuda(q, k_pages, v_pages, page_table,
+                                                     q_positions, kv_lens, row_ids)
+
+    return dispatch(use_kernels, q, kernel, lambda: ragged_paged_attention_plain(
+        q, k_pages, v_pages, page_table, q_positions, kv_lens, row_ids))

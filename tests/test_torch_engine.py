@@ -1,8 +1,11 @@
 """rbg_tpu_torch's Engine against rbg_tpu's Engine on the same converted
 weights (tiny preset, float32, CPU): greedy tokens must be identical under
 staggered joins, preemption, a radix-cache hit and a multi-step decode
-window. A differing token is reported with the top-2 logit gap at that
-step; the comparison itself is exact."""
+window, and sampled streams identical too. A differing greedy token is
+reported with the top-2 logit gap at that step; the comparison itself is
+exact."""
+
+import itertools
 
 import jax
 import numpy as np
@@ -11,9 +14,10 @@ import torch
 
 from rbg_tpu.engine import Engine as JEngine, EngineConfig as JConfig
 from rbg_tpu.engine import SamplingParams as JSampling
+from rbg_tpu.engine.engine import Request as JRequest
 from rbg_tpu.models import get_config as j_get_config, init_params as j_init
 from rbg_tpu_torch.engine.config import EngineConfig, SamplingParams
-from rbg_tpu_torch.engine.engine import Engine
+from rbg_tpu_torch.engine.engine import Engine, Request
 from rbg_tpu_torch.engine.kvcache import PagedKVCache
 from rbg_tpu_torch.models.config import get_config
 from rbg_tpu_torch.models.convert import params_from_numpy
@@ -125,12 +129,56 @@ def test_sampled_streams_are_reproducible(weights):
     assert both[1] == alone[0] and len(both[0]) == 10
 
 
+@pytest.mark.parametrize("multi_step", [1, 4])
+def test_sampled_streams_match_jax(weights, monkeypatch, multi_step):
+    """Sampled requests, seeded and unseeded (keyed by request id), with
+    top-k and top-p: token for token the reference's streams, because the
+    port's keys and Gumbel noise are JAX's threefry bit for bit."""
+    jp, tp = weights
+    cfg = dict(BASE, num_pages=64, multi_step=multi_step, seed=3)
+    engines = (JEngine(JConfig(use_pallas="never", **cfg), params=jp),
+               Engine(EngineConfig(**cfg), params=tp, device="cpu"))
+    p = _prompts(3, (9, 14, 30, 5))
+    streams = []
+    for eng, req_cls, sampling_cls in zip(engines, (JRequest, Request),
+                                          (JSampling, SamplingParams)):
+        # The same request ids in both engines: unseeded rows fold them in.
+        monkeypatch.setattr(req_cls, "_ids", itertools.count(100))
+        ids = [eng.add_request(pr, sampling_cls(
+            max_new_tokens=12, temperature=0.9, top_k=40,
+            top_p=0.95 if i == 2 else 1.0, seed=5 if i % 2 == 0 else None))
+            for i, pr in enumerate(p)]
+        out = {i: [] for i in ids}
+        while eng.has_work():
+            for ev in eng.step():
+                out[ev.request_id].append(ev.token)
+        streams.append([out[i] for i in ids])
+    assert streams[0] == streams[1]
+    assert streams[1][0] != streams[1][2]       # seeded alike, other prompts
+
+
 @pytest.mark.parametrize("bad", [
     dict(speculative="ngram"), dict(mode="prefill"), dict(ragged="off"),
-    dict(host_tier_bytes=1 << 20), dict(model="tiny-mla", kv_dtype="int8")])
+    dict(host_tier_bytes=1 << 20), dict(mode="decode")])
 def test_unsupported_configs_raise(bad):
     with pytest.raises(NotImplementedError):
         Engine(EngineConfig(**{**BASE, **bad}), device="cpu")
+
+
+def test_mla_int8_latent_pools_serve():
+    """tiny-mla with kv_dtype='int8' builds int8 latent pools with f32
+    scales [L, NP, page, 1, 1] and serves a request."""
+    te = Engine(EngineConfig(**{**BASE, "model": "tiny-mla"}, kv_dtype="int8",
+                             num_pages=32), device="cpu")
+    cfg = te.mcfg
+    c = te.cache
+    assert c.quantized and c.k_pages.dtype == c.v_pages.dtype == torch.int8
+    assert tuple(c.k_pages.shape) == (cfg.num_layers, 32, 8, 1, cfg.kv_lora_rank)
+    assert tuple(c.v_pages.shape) == (cfg.num_layers, 32, 8, 1, cfg.qk_rope_head_dim)
+    assert tuple(c.k_scales.shape) == tuple(c.v_scales.shape) == (cfg.num_layers, 32, 8, 1, 1)
+    out = te.generate(_prompts(4, (11, 20)), SamplingParams(max_new_tokens=5))
+    assert [len(o) for o in out] == [5, 5]
+    assert bool(c.k_scales.abs().sum() > 0)
 
 
 @pytest.mark.parametrize("field", [dict(json_mode=True), dict(regex="a+"),

@@ -5,7 +5,7 @@ imports neither JAX nor rbg_tpu, so it also runs where JAX is absent:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels.py
 
 Tolerances: float32 inputs compare at 1e-5 (the same math, summed in
-another order); the MLA kernels' scores are 576-term dot products at
+another order); the MLA kernels' (E-H) scores are 576-term dot products at
 deepseek-v2-lite widths, so there float32 compares at 5e-5. bfloat16
 inputs: both sides accumulate in float32 and round the output to bfloat16
 once, so they may differ by one bfloat16 rounding step of the output,
@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from rbg_tpu_torch.engine.sampler import gumbel_noise, row_keys
 from rbg_tpu_torch.ops.kernels import LAUNCHES, reset_launches
 from rbg_tpu_torch.ops.mla_attention import (
     paged_mla_attention, paged_mla_attention_plain, ragged_paged_mla_attention,
@@ -26,7 +27,8 @@ from rbg_tpu_torch.ops.paged_attention import (paged_attention,
                                                paged_attention_plain,
                                                quantize_kv)
 from rbg_tpu_torch.ops.ragged_paged_attention import (
-    ragged_paged_attention, ragged_paged_attention_plain)
+    ragged_paged_attention, ragged_paged_attention_plain,
+    ragged_paged_attention_tokengrid)
 
 pytestmark = pytest.mark.cuda
 
@@ -301,17 +303,144 @@ def test_ragged_mla_matches_plain(dev, dtype, H, dc, dr, layout):
     assert torch.all(got[0, qpos[0] < 0] == 0)
 
 
-def test_mla_int8_pools_raise_on_cuda(dev):
-    """int8 latent pools need kernels G and H: the dispatchers raise on the
-    card instead of falling back to the plain version."""
+def _quantized_latents(c, pe):
+    (cq, cs), (pq, ps) = quantize_kv(c), quantize_kv(pe)
+    return cq, pq, cs, ps
+
+
+# (H, dc, dr): deepseek-v2-lite and tiny-mla (int8 rows are 16-element vectors).
+MLA_Q_SHAPES = [(16, 512, 64), (4, 64, 16)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,dc,dr", MLA_Q_SHAPES)
+def test_paged_mla_decode_q_matches_plain(dev, dtype, H, dc, dr):
+    """Kernel G against the plain version on the same int8 latent pools:
+    lengths 0, 1, around a page boundary and a full table."""
     rng = np.random.RandomState(8)
+    page, P = 16, 8
+    kv_lens_l = [1, 15, 16, 17, 100, P * page, 33, 0]
+    B = len(kv_lens_l)
+    NP = B * P + 1
+    cq, pq, cs, ps = _quantized_latents(*_latent_pools(rng, dev, dtype, NP, page, dc, dr))
+    table = torch.from_numpy((rng.permutation(NP - 1)[:B * P] + 1)
+                             .reshape(B, P).astype(np.int32)).to(dev)
+    kv_lens = torch.tensor(kv_lens_l, dtype=torch.int32, device=dev)
+    q_lat = torch.from_numpy(rng.randn(B, 1, H, dc).astype(np.float32)).to(dev, dtype)
+    q_pe = torch.from_numpy(rng.randn(B, 1, H, dr).astype(np.float32)).to(dev, dtype)
+    pos = (kv_lens - 1).clamp(min=0)[:, None]
+    scale = (128 + dr) ** -0.5
+    reset_launches()
+    got = paged_mla_attention(q_lat, q_pe, cq, pq, table, pos, kv_lens, scale,
+                              use_kernels="always", c_scales=cs, pe_scales=ps)
+    torch.cuda.synchronize()
+    assert LAUNCHES["paged_mla_decode_q"] == 1 and LAUNCHES["paged_mla_decode"] == 0
+    ref = paged_mla_attention_plain(q_lat, q_pe, cq, pq, table, pos, kv_lens, scale,
+                                    cs, ps)
+    torch.testing.assert_close(got.float(), ref.float(), **_mla_tol(dtype))
+    assert torch.all(got[-1] == 0)      # kv_len 0 gives 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,dc,dr", MLA_Q_SHAPES)
+@pytest.mark.parametrize("layout", ["straddle", "shuffled", "empty_row"])
+def test_ragged_mla_q_matches_plain(dev, dtype, H, dc, dr, layout):
+    """Kernel H against the plain version on the same int8 latent pools:
+    a row across tiles with pads, non-contiguous rows, a kv_len-0 row."""
+    rng = np.random.RandomState(9)
+    kw = {}
+    if layout == "straddle":
+        specs, kw = [(12, 12), (1, 9), (20, 100)], dict(pads=5)
+    elif layout == "shuffled":
+        specs = [(5, 15), (1, 21), (1, 4), (3, 40)]
+        kw = dict(order=lambda n: np.random.RandomState(7).permutation(n))
+    else:
+        specs = [(3, 30), (1, 5), (0, 0)]
+    case = list(_mla_ragged_case(rng, dev, dtype, specs, H, dc, dr, **kw))
+    case[2], case[3], cs, ps = _quantized_latents(case[2], case[3])
+    scale = (128 + dr) ** -0.5
+    reset_launches()
+    got = ragged_paged_mla_attention(*case, scale, use_kernels="always",
+                                     c_scales=cs, pe_scales=ps)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ragged_paged_mla_q"] == 1 and LAUNCHES["ragged_paged_mla"] == 0
+    ref = ragged_paged_mla_attention_plain(*case, scale, cs, ps)
+    torch.testing.assert_close(got.float(), ref.float(), **_mla_tol(dtype))
+    qpos = case[5]
+    assert torch.all(got[0, qpos[0] < 0] == 0)
+
+
+def test_mla_q_wrappers_refuse_bad_inputs(dev):
+    """Kernels G and H take int8 latent pools on the card: CPU tensors and
+    model-dtype pools are refused, never sent to the plain version."""
+    from rbg_tpu_torch.ops.kernels.paged_mla_decode_q import paged_mla_decode_attention_q
+    from rbg_tpu_torch.ops.kernels.ragged_paged_mla_q import (
+        ragged_paged_mla_attention_q_cuda)
+    rng = np.random.RandomState(10)
     case = list(_mla_ragged_case(rng, dev, torch.bfloat16, [(3, 9)], 4, 64, 16))
-    (cq, cs), (pq, ps) = quantize_kv(case[2]), quantize_kv(case[3])
-    case[2], case[3] = cq, pq
-    with pytest.raises(NotImplementedError, match="kernel H"):
-        ragged_paged_mla_attention(*case, 0.1, c_scales=cs, pe_scales=ps)
-    lens = torch.tensor([9], dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError, match="kernel G"):
-        paged_mla_attention(case[0][:, :1], case[1][:, :1], cq, pq, case[4],
-                            (lens - 1)[:, None], lens, 0.1, c_scales=cs,
-                            pe_scales=ps)
+    c, pe = case[2], case[3]
+    cq, pq, cs, ps = _quantized_latents(c, pe)
+    table, lens = case[4], torch.tensor([9], dtype=torch.int32, device=dev)
+    q_lat, q_pe = case[0][:, :1], case[1][:, :1]
+    decode = (table, lens, 0.1)
+    reset_launches()
+    with pytest.raises(TypeError):          # a model-dtype pool
+        paged_mla_decode_attention_q(q_lat, q_pe, c, pe, cs, ps, *decode)
+    with pytest.raises(ValueError):         # CPU tensors
+        paged_mla_decode_attention_q(*(x.cpu() for x in (q_lat, q_pe, cq, pq, cs, ps,
+                                                         table, lens)), 0.1)
+    ragged = (case[4], case[5], case[6], case[7], 0.1)
+    with pytest.raises(TypeError):
+        ragged_paged_mla_attention_q_cuda(case[0], case[1], c, pe, cs, ps, *ragged)
+    with pytest.raises(ValueError):
+        ragged_paged_mla_attention_q_cuda(*(x.cpu() for x in (case[0], case[1], cq, pq,
+                                                              cs, ps, *ragged[:4])), 0.1)
+    assert LAUNCHES["paged_mla_decode_q"] == LAUNCHES["ragged_paged_mla_q"] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("KV,G,hd", [(8, 4, 128), (2, 7, 64)])
+@pytest.mark.parametrize("layout", ["straddle", "pads", "shuffled", "empty_row"])
+def test_tokengrid_matches_plain(dev, dtype, KV, G, hd, layout):
+    """Kernel I against the plain version (B's function) on B's layouts."""
+    rng = np.random.RandomState(11)
+    kw = {}
+    if layout == "straddle":
+        specs = [(12, 12), (1, 9), (20, 100)]
+    elif layout == "pads":
+        specs, kw = [(2, 9), (1, 13)], dict(pads=13)
+    elif layout == "shuffled":
+        specs = [(5, 15), (1, 21), (1, 4), (3, 40)]
+        kw = dict(order=lambda n: np.random.RandomState(7).permutation(n))
+    else:
+        specs = [(3, 30), (1, 5), (0, 0)]
+    q, k, v, table, qpos, lens, rows = _ragged_case(rng, dev, dtype, specs,
+                                                    KV, G, hd, **kw)
+    reset_launches()
+    got = ragged_paged_attention_tokengrid(q, k, v, table, qpos, lens, rows,
+                                           use_kernels="always")
+    torch.cuda.synchronize()
+    assert LAUNCHES["ragged_paged_tokengrid"] == 1 and LAUNCHES["ragged_paged"] == 0
+    ref = ragged_paged_attention_plain(q, k, v, table, qpos, lens, rows)
+    torch.testing.assert_close(got.float(), ref.float(), **_tol(dtype))
+    assert torch.all(got[0, qpos[0] < 0] == 0)
+
+
+def test_block_ragged_probe_on_the_card(dev):
+    """The probe's two kernels agree with the plain version and both were
+    timed."""
+    from rbg_tpu_torch.bench import block_ragged_probe
+    out = block_ragged_probe()
+    assert out["measurable"] and out["bit_identical"], out
+    assert out["tokengrid_calls_per_s"] > 0 and out["block_ragged_calls_per_s"] > 0
+
+
+def test_gumbel_noise_on_the_card_equals_the_cpu(dev):
+    """The sampler's threefry noise is integer ops and float32 ops rounded
+    once each (its fused multiply-adds go through float64), so the card
+    gives the CPU's bits, which tests/test_torch_sampler.py holds to JAX's."""
+    keys = row_keys([7, None, 0, 2 ** 32 - 1], 3, [0, 4, 5, 9], "cpu")
+    pos = torch.tensor([0, 3, 1000, 2 ** 31 - 1])
+    want = gumbel_noise(keys, pos, 128256)
+    got = gumbel_noise(keys.to(dev), pos.to(dev), 128256).cpu()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

@@ -2,9 +2,10 @@
 of kernels E and F (and the int8 latent math of G and H) against the XLA
 functions and the Pallas kernels in interpret mode (float32, within 1e-5),
 the MoE MLP with routing ties, the llama forwards on ``tiny-mla``,
-``tiny-moe`` and the MLA + MoE config of tests/test_mla.py (logits within
-1e-4) and the engines' greedy tokens. Inputs come from numpy seeds and go
-to both frameworks."""
+``tiny-moe`` and the MLA + MoE config of tests/test_mla.py, and the MLA
+ones again over int8 latent pools (logits within 1e-4, the pools' int8
+values equal), and the engines' greedy tokens. Inputs come from numpy
+seeds and go to both frameworks."""
 
 import dataclasses
 
@@ -23,6 +24,8 @@ from rbg_tpu.models.llama import (_moe_mlp as j_moe_mlp,
 from rbg_tpu.ops.mla_attention import (paged_mla_attention_xla,
                                        ragged_paged_mla_attention_xla)
 from rbg_tpu.ops.paged_attention import quantize_kv as j_quantize
+from rbg_tpu.ops.ragged_paged_attention import (
+    write_kv_pages_ragged as j_write_ragged)
 from rbg_tpu.ops.pallas.paged_attention_kernel import (
     paged_mla_attention_pallas, paged_mla_attention_pallas_q)
 from rbg_tpu.ops.pallas.ragged_attention_kernel import (
@@ -35,6 +38,7 @@ from rbg_tpu_torch.ops.mla_attention import (paged_mla_attention,
                                              paged_mla_attention_plain,
                                              ragged_paged_mla_attention,
                                              ragged_paged_mla_attention_plain)
+from rbg_tpu_torch.ops.ragged_paged_attention import write_kv_pages_ragged
 from test_torch_engine import _compare, _prompts
 
 ATOL = 1e-5         # attention: the tolerance of tests/test_torch_ops.py
@@ -99,8 +103,15 @@ def _quantize(*arrays):
     return out
 
 
+def _j_scales(ks, vs):
+    """The reference forwards' scale arguments (none for model-dtype pools)."""
+    if ks is None:
+        return {}
+    return dict(k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs))
+
+
 def test_paged_mla_plain_int8_matches_xla_and_pallas_q():
-    """The plain version's int8 latent math (what kernel G will replace)."""
+    """The plain version's int8 latent math: kernel G's plain version."""
     q_lat, q_pe, c, pe, table, pos, lens = _paged_case(2)
     c8, cs, pe8, ps = _quantize(c, pe)
     case = (q_lat, q_pe, c8, pe8, table, pos, lens)
@@ -173,7 +184,7 @@ def test_ragged_mla_plain_pads_non_contiguous_and_max_q_len():
 
 
 def test_ragged_mla_plain_int8_matches_pallas_q():
-    """The plain version's int8 latent math (what kernel H will replace)."""
+    """The plain version's int8 latent math: kernel H's plain version."""
     q_lat, q_pe, c, pe, table, qpos, lens, rows = _ragged_case(
         5, LAYOUTS["boundary_in_tile"])
     c8, cs, pe8, ps = _quantize(c, pe)
@@ -184,6 +195,30 @@ def test_ragged_mla_plain_int8_matches_pallas_q():
         *map(jnp.asarray, case), SCALE, jnp.asarray(cs), jnp.asarray(ps),
         interpret=True))
     np.testing.assert_allclose(got, ref, atol=ATOL, rtol=ATOL)
+
+
+def test_latent_int8_writes_and_pads_match_jax():
+    """A pack's latents into int8 latent pools (c and pe, each with
+    [NP, page, 1, 1] scales), bit for bit as the reference writes them;
+    pad tokens go to the null page 0 carrying its own values and scales,
+    so page 0 is unchanged."""
+    rng = np.random.RandomState(12)
+    NP, page, dc, dr = 9, 4, 64, 16
+    c8, cs, pe8, ps = _quantize(*_latent_pools(rng, NP, page, dc, dr))
+    table = np.asarray([[1, 2, 3, 4], [5, 6, 7, 8]], np.int32)
+    rows = np.asarray([0, 0, 1, 0, 0, 1], np.int32)
+    pos = np.asarray([[6, 7, 2, -1, -1, -1]], np.int32)
+    mask = pos >= 0
+    cn = rng.randn(1, 6, 1, dc).astype(np.float32)
+    pn = rng.randn(1, 6, 1, dr).astype(np.float32)
+    want = j_write_ragged(*map(jnp.asarray, (c8, pe8, cn, pn, table, rows, pos,
+                                             mask, cs, ps)))
+    got = [t(a.copy()) for a in (c8, pe8, cs, ps)]
+    write_kv_pages_ragged(got[0], got[1], t(cn), t(pn), t(table), t(rows), t(pos),
+                          t(mask), got[2], got[3])
+    for g, w, before in zip(got, want, (c8, pe8, cs, ps)):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        np.testing.assert_array_equal(g.numpy()[0], before[0])
 
 
 def test_mla_dispatch_on_cpu():
@@ -232,6 +267,8 @@ def test_moe_mlp_matches_jax(router_scale):
 # ---- forwards and engines ----
 
 CONFIGS = {"tiny-mla": {}, "tiny-moe": {}, "tiny-mla-moe": MLA_MOE}
+# The MLA configs again over int8 latent pools (kernels G and H on the card).
+INT8 = {"tiny-mla-int8": "tiny-mla", "tiny-mla-moe-int8": "tiny-mla-moe"}
 
 
 def _configs(name):
@@ -239,31 +276,55 @@ def _configs(name):
     return (j_get_config(base, **CONFIGS[name]), get_config(base, **CONFIGS[name]))
 
 
-@pytest.fixture(scope="module", params=sorted(CONFIGS))
+@pytest.fixture(scope="module", params=sorted(CONFIGS) + sorted(INT8))
 def model(request):
-    jcfg, cfg = _configs(request.param)
+    """(config name, kv_dtype, JAX config, port config, JAX params, port
+    params)."""
+    name = INT8.get(request.param, request.param)
+    jcfg, cfg = _configs(name)
     jp = j_init(jcfg, jax.random.key(0))
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), cfg, "cpu")
-    return request.param, jcfg, cfg, jp, tp
+    kv_dtype = "int8" if request.param in INT8 else "model"
+    return name, kv_dtype, jcfg, cfg, jp, tp
 
 
-def _pools(cfg, NP, page, rng):
+def _pools(cfg, NP, page, rng, kv_dtype="model"):
+    """Random context pools: (k, v, k_scales, v_scales), the scales None for
+    model-dtype pools; int8 pools are quantized by JAX."""
     if cfg.mla:
         kshape = (cfg.num_layers, NP, page, 1, cfg.kv_lora_rank)
         vshape = kshape[:-1] + (cfg.qk_rope_head_dim,)
     else:
         kshape = vshape = (cfg.num_layers, NP, page, cfg.num_kv_heads, cfg.head_dim_)
-    return (rng.randn(*kshape).astype(np.float32),
+    k, v = (rng.randn(*kshape).astype(np.float32),
             rng.randn(*vshape).astype(np.float32))
+    if kv_dtype == "model":
+        return k, v, None, None
+    k8, ks, v8, vs = _quantize(k, v)
+    return k8, v8, ks, vs
+
+
+def _assert_pools_match(pools, jpools):
+    """The forwards' writes: pools equal (int8 values exactly; model-dtype
+    within the logits' tolerance) and int8 scales within 1e-6 relative (the
+    latents come from the two frameworks' matmuls, an ulp apart)."""
+    for g, w in zip(pools[:2], jpools[:2]):
+        if g.dtype == torch.int8:
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        else:
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=LOGIT_ATOL, rtol=0)
+    for g, w in zip(pools[2:], jpools[2:]):
+        if g is not None:
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6, atol=0)
 
 
 def test_forward_paged_matches_jax(model):
     """A decode step (T=1) and a 4-token step with a pad token over a pool
     holding earlier context; logits and pools agree."""
-    _, jcfg, cfg, jp, tp = model
+    _, kv_dtype, jcfg, cfg, jp, tp = model
     rng = np.random.RandomState(9)
     page, B = 8, 2
-    kp, vp = _pools(cfg, 9, page, rng)
+    pools0 = _pools(cfg, 9, page, rng, kv_dtype)
     table = np.asarray([[1, 2, 3, 4], [5, 6, 7, 8]], np.int32)
     for T in (1, 4):
         tok = rng.randint(0, cfg.vocab_size, size=(B, T)).astype(np.int32)
@@ -272,24 +333,25 @@ def test_forward_paged_matches_jax(model):
         mask = np.ones((B, T), bool)
         mask[1, -1] = False
         kvl = (start[:, 0] + mask.sum(1)).astype(np.int32)
-        jl, jk, jv, _, _ = j_forward_paged(
+        kp, vp, ks, vs = pools0
+        jl, *jpools = j_forward_paged(
             jp, jcfg, *map(jnp.asarray, (tok, pos, mask, kvl, table, kp, vp)),
-            use_pallas="never")
-        tk, tv = t(kp), t(vp)
-        tl = forward_paged(tp, cfg, *map(t, (tok, pos, mask, kvl, table)), tk, tv)
+            use_pallas="never", **_j_scales(ks, vs))
+        pools = [None if a is None else t(a.copy()) for a in pools0]
+        tl = forward_paged(tp, cfg, *map(t, (tok, pos, mask, kvl, table)),
+                           pools[0], pools[1], k_scales=pools[2], v_scales=pools[3])
         np.testing.assert_allclose(tl.numpy()[mask], np.asarray(jl)[mask],
                                    atol=LOGIT_ATOL, rtol=0)
-        np.testing.assert_allclose(tk.numpy(), np.asarray(jk), atol=LOGIT_ATOL, rtol=0)
-        np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=LOGIT_ATOL, rtol=0)
+        _assert_pools_match(pools, jpools)
 
 
 def test_forward_ragged_matches_jax(model):
     """A unified-step pack: a prefill chunk of row 0, a decode token of
     row 1, a prefill chunk of row 2, then pads (row 0, position -1)."""
-    _, jcfg, cfg, jp, tp = model
+    _, kv_dtype, jcfg, cfg, jp, tp = model
     rng = np.random.RandomState(10)
     page, P, R = 8, 4, 3
-    kp, vp = _pools(cfg, R * P + 1, page, rng)
+    kp, vp, ks, vs = _pools(cfg, R * P + 1, page, rng, kv_dtype)
     table = (np.arange(R * P) + 1).reshape(R, P).astype(np.int32)
     rows = np.asarray([0] * 5 + [1] + [2] * 6 + [0] * 4, np.int32)
     pos = np.asarray([list(range(0, 5)) + [17] + list(range(8, 14)) + [-1] * 4],
@@ -297,23 +359,23 @@ def test_forward_ragged_matches_jax(model):
     mask = pos >= 0
     kvl = np.asarray([5, 18, 14], np.int32)
     tok = rng.randint(0, cfg.vocab_size, size=(1, rows.shape[0])).astype(np.int32)
-    jl, jk, jv, _, _ = j_forward_ragged(
+    jl, *jpools = j_forward_ragged(
         jp, jcfg, *map(jnp.asarray, (tok, pos, mask, rows, kvl, table, kp, vp)),
-        use_pallas="never", max_q_len=8)
-    tk, tv = t(kp), t(vp)
-    tl = forward_ragged(tp, cfg, *map(t, (tok, pos, mask, rows, kvl, table)), tk, tv,
-                        max_q_len=8)
+        use_pallas="never", max_q_len=8, **_j_scales(ks, vs))
+    pools = [None if a is None else t(a.copy()) for a in (kp, vp, ks, vs)]
+    tl = forward_ragged(tp, cfg, *map(t, (tok, pos, mask, rows, kvl, table)),
+                        pools[0], pools[1], max_q_len=8, k_scales=pools[2],
+                        v_scales=pools[3])
     np.testing.assert_allclose(tl.numpy()[mask], np.asarray(jl)[mask],
                                atol=LOGIT_ATOL, rtol=0)
-    np.testing.assert_allclose(tk.numpy(), np.asarray(jk), atol=LOGIT_ATOL, rtol=0)
-    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=LOGIT_ATOL, rtol=0)
+    _assert_pools_match(pools, jpools)
 
 
 def test_init_params_layout_matches_jax(model):
     """The port's seeded init has the reference's tree, shapes and dtypes
     (the shared expert at moe_shared_f), and is a pure function of the
     seed."""
-    _, _, cfg, jp, _ = model
+    _, _, _, cfg, jp, _ = model
     a, b = init_params(cfg, 3, "cpu"), init_params(cfg, 3, "cpu")
     flat = lambda p: {**{k: v for k, v in p.items() if k != "blocks"},
                       **{f"blocks.{k}": v for k, v in p["blocks"].items()}}
@@ -338,10 +400,11 @@ def presets(monkeypatch):
 def test_engine_staggered_joins_match_jax(model, presets, multi_step):
     """Greedy tokens identical to rbg_tpu's under staggered joins (unified
     steps mixing decode rows with prefill chunks, then decode windows)."""
-    name, _, _, jp, tp = model
+    name, kv_dtype, _, _, jp, tp = model
     p = _prompts(0, (5, 40, 17, 3, 30))
     schedule = [(0, p[0], 12), (0, p[1], 6), (2, p[2], 9), (3, p[3], 5),
                 (7, p[4], 8)]
     je, te = _compare((jp, tp), schedule, model=name, num_pages=64,
-                      multi_step=multi_step)
+                      multi_step=multi_step, kv_dtype=kv_dtype)
     assert te.metrics["unified_steps"] == je.metrics["unified_steps"]
+    assert te.cache.quantized == (kv_dtype == "int8")

@@ -1,8 +1,9 @@
 """rbg_tpu_torch's sampler against rbg_tpu's, fed the SAME Gumbel noise:
 JAX's own ``gumbel(step_keys(row_keys(...)))`` goes into the port's
 ``sample_from_noise``, so every sampled token must match, and logprobs
-agree within float32 rounding. Also pins the port's own noise rule: a pure
-function of (row key, position)."""
+agree within float32 rounding. The port's own keys and noise (its threefry)
+equal JAX's bit for bit, and stay a pure function of (row key,
+position)."""
 
 import jax
 import jax.numpy as jnp
@@ -11,8 +12,8 @@ import pytest
 import torch
 
 from rbg_tpu.engine.sampler import row_keys as j_row_keys, sample as j_sample, step_keys
-from rbg_tpu_torch.engine.sampler import (gumbel_noise, row_keys, sample,
-                                          sample_from_noise)
+from rbg_tpu_torch.engine.sampler import (fold_in, gumbel_noise, key, row_keys,
+                                          sample, sample_from_noise)
 
 B, V = 6, 256
 
@@ -79,7 +80,7 @@ def test_greedy_ties_take_the_first_index_and_skip_noise():
 
 def test_noise_is_a_pure_function_of_key_and_position():
     keys = row_keys([7, None, None], 1, [0, 4, 5], "cpu")
-    assert keys[0] == 7 and keys[1] != keys[2]
+    assert keys[0].tolist() == [0, 7] and not torch.equal(keys[1], keys[2])
     pos = torch.tensor([3, 3, 3])
     a = gumbel_noise(keys, pos, 1000)
     assert torch.equal(a, gumbel_noise(keys, pos, 1000))
@@ -87,6 +88,33 @@ def test_noise_is_a_pure_function_of_key_and_position():
     assert not torch.equal(a, b)
     assert not torch.equal(a[1], a[2])
     # Gumbel(0, 1): mean 0.5772, variance pi^2/6.
-    g = gumbel_noise(torch.arange(64), torch.zeros(64, dtype=torch.int64), 4096)
+    g = gumbel_noise(row_keys(list(range(64)), 0, [0] * 64, "cpu"),
+                     torch.zeros(64, dtype=torch.int64), 4096)
     assert abs(float(g.mean()) - 0.5772) < 0.01
     assert abs(float(g.var()) - np.pi ** 2 / 6) < 0.03
+
+
+def test_key_and_fold_in_match_jax():
+    assert fold_in(key(7), torch.tensor(3)).tolist() == [276534068, 1641862660]
+    for s in (0, 7, 5, 2 ** 31 + 9, 2 ** 32 - 1):
+        for d in (0, 1, 3, 1000, 2 ** 32 - 2):
+            want = jax.random.key_data(jax.random.fold_in(jax.random.key(s & 0xFFFFFFFF),
+                                                          np.uint32(d)))
+            assert key(s).tolist() == [0, s & 0xFFFFFFFF]
+            assert fold_in(key(s), torch.tensor(d)).tolist() == np.asarray(want).tolist()
+
+
+@pytest.mark.parametrize("V", [1000, 128256])
+def test_gumbel_noise_matches_jax_bit_for_bit(V):
+    """Seeded and unseeded rows at several positions: the port's noise is
+    ``jax.random.gumbel(fold_in(row_key, pos), (V,), float32)`` to the bit."""
+    seeds = [7, None, 0, None, 2 ** 32 - 1, 123456789]
+    ids = [0, 4, 5, 2 ** 31 + 3, 9, 11]
+    pos = np.asarray([0, 3, 1000, 2 ** 31 - 1, 17, 5], np.int32)
+    jkeys = j_row_keys(seeds, jax.random.key(3), ids)
+    keys = row_keys(seeds, 3, ids, "cpu")
+    np.testing.assert_array_equal(keys.numpy(), np.asarray(jax.random.key_data(jkeys)))
+    want = np.asarray(jax.vmap(lambda k: jax.random.gumbel(k, (V,), jnp.float32))(
+        step_keys(jkeys, jnp.asarray(pos))))
+    got = gumbel_noise(keys, torch.from_numpy(pos), V).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))

@@ -10,6 +10,7 @@ import sys
 import time
 
 import pytest
+import torch
 
 from rbg_tpu.engine.protocol import recv_msg, request_once, send_msg
 from rbg_tpu_torch.engine.config import SamplingParams
@@ -96,21 +97,21 @@ def test_bad_requests_get_error_replies(server):
 
 
 def test_kv_dtype_and_model_flags():
-    """--kv-dtype int8 builds an int8 pool that serves; an MLA model with
-    int8 pools (kernels G, H) is refused before the port binds."""
+    """--kv-dtype int8 builds an int8 pool that serves, for a GQA model and
+    for an MLA model (int8 latent pools)."""
     base = ["--device", "cpu", "--num-pages", "32", "--max-seq-len", "64",
             "--prefill-chunk", "8"]
-    cfg = build_config(parse_args(base + ["--model", "tiny", "--kv-dtype", "int8"]))
-    assert cfg.kv_dtype == "int8"
-    svc = EngineService(cfg)
-    try:
-        assert svc.engine.cache.quantized
-        p = svc.submit_wait([5, 9, 13, 2], SamplingParams(max_new_tokens=4))
-        assert len(p.tokens) == 4
-    finally:
-        svc.stop()
-    with pytest.raises(NotImplementedError, match="kernels G and H"):
-        build_config(parse_args(base + ["--model", "tiny-mla", "--kv-dtype",
-                                        "int8"])).validate()
+    for model in ("tiny", "tiny-mla"):
+        cfg = build_config(parse_args(base + ["--model", model, "--kv-dtype", "int8"]))
+        assert cfg.kv_dtype == "int8"
+        svc = EngineService(cfg)
+        try:
+            assert svc.engine.cache.quantized
+            assert svc.engine.cache.k_pages.dtype == torch.int8
+            assert svc.engine.mcfg.mla == (model == "tiny-mla")
+            p = svc.submit_wait([5, 9, 13, 2], SamplingParams(max_new_tokens=4))
+            assert len(p.tokens) == 4
+        finally:
+            svc.stop()
     assert build_config(parse_args(base + ["--model", "deepseek-v2-lite"])
                         ).model_config.mla
