@@ -15,7 +15,10 @@ Phases, each printing one JSON line:
              (G and H on the same latent pools quantized): error, kernel
              time, plain time, one PyTorch library call on the same inputs
              (SDPA on the gathered view, a yardstick the port never calls)
-             and the least time the card could take (bound).
+             and the least time the card could take (bound). B, D and I
+             also give host_us, the host's time per call; B and D give
+             work_items and grid_blocks as the kernel wrote them back, and
+             their time on the same pack in a table WIDE_P pages wide.
 4. llama3-8b at full width and depth, random weights from a seed:
    engine  — Engine (bf16 pools; kernels A, B): a request steps into
              decode, a second joins so one ragged step holds a decode row
@@ -28,7 +31,8 @@ Phases, each printing one JSON line:
    server  — the port's engine server in this process on a free port,
              answering 4 concurrent generate requests (one streamed).
    int8    — the same engine script with kv_dtype="int8" (kernels C, D),
-             multi_step 4, and its witness on an int8 pool.
+             multi_step 4, its witness on an int8 pool and the server over
+             int8 pools.
 5. deepseek-v2-lite (MLA + MoE) at full width and depth, random weights
    from a seed, after llama3-8b is freed: engine (kernels E, F; multi_step
    1 and 4), witness and server, as for llama3-8b; then on the same
@@ -109,6 +113,18 @@ def cuda_ms(torch, fn, flush, iters=20, warm=3):
     return statistics.median(times)
 
 
+def host_us(torch, fn, n=200):
+    """Host time of one call in microseconds: n calls issued back to back,
+    the card running behind them."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return t
+
+
 def bound(bytes_moved, flops):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS * 1e3
@@ -136,6 +152,7 @@ DECODE_LENS = [2048, 1900, 1536, 1200, 1024, 700, 333, 65]
 # first puts every chunk across a tile boundary.
 RAGGED_SPEC = [(1, 2048), (64, 64), (1, 1500), (64, 512), (1, 800), (64, 1024),
                (1, 100), (64, 2000)]
+WIDE_P = 512     # a table of 8192 slots (--max-seq-len 8192), 4x the longest row
 
 
 def decode_case(torch, np, KV, G, hd, lens, page=16):
@@ -206,7 +223,8 @@ def gqa_kernel_cases(torch, np, flush, out):
 
     from rbg_tpu_torch.ops.kernels.paged_decode import paged_decode_attention
     from rbg_tpu_torch.ops.kernels.paged_decode_q import paged_decode_attention_q
-    from rbg_tpu_torch.ops.kernels.ragged_paged import ragged_paged_attention_cuda
+    from rbg_tpu_torch.ops.kernels.ragged_paged import (launch_report,
+                                                        ragged_paged_attention_cuda)
     from rbg_tpu_torch.ops.kernels.ragged_paged_q import ragged_paged_attention_q_cuda
     from rbg_tpu_torch.ops.kernels.ragged_paged_tokengrid import (
         ragged_paged_attention_tokengrid_cuda)
@@ -268,12 +286,12 @@ def gqa_kernel_cases(torch, np, flush, out):
         meta = pages_of([kv for _, kv in spec]) * 4 + rows.numel() * 8 + R * 4
         for name, elem, fn, plain, kv_pair in (
                 ("ragged_paged", 2,
-                 lambda: ragged_paged_attention_cuda(q, k, v, table, qpos, kv_lens, rows),
+                 lambda t=table: ragged_paged_attention_cuda(q, k, v, t, qpos, kv_lens, rows),
                  lambda: ragged_paged_attention_plain(q, k, v, table, qpos, kv_lens,
                                                       rows, 64), (k, v)),
                 ("ragged_paged_q", 1,
-                 lambda: ragged_paged_attention_q_cuda(q, k8, v8, ks, vs, table, qpos,
-                                                       kv_lens, rows),
+                 lambda t=table: ragged_paged_attention_q_cuda(q, k8, v8, ks, vs, t, qpos,
+                                                               kv_lens, rows),
                  lambda: ragged_paged_attention_plain(q, k8, v8, table, qpos, kv_lens,
                                                       rows, 64, ks, vs), None),
                 ("ragged_paged_tokengrid", 2,
@@ -290,8 +308,19 @@ def gqa_kernel_cases(torch, np, flush, out):
             nbytes = (2 * row_extent * KV * hd * elem + 2 * q.numel() * 2 + meta
                       + (2 * row_extent * KV * 4 if elem == 1 else 0))
             b_ms, b_by = bound(nbytes, flops)
+            extra = {"host_us": host_us(torch, fn)}
+            if name != "ragged_paged_tokengrid":
+                # The kernel's own report of its last launch, then the same
+                # pack in a wider table: the same items and the same output.
+                got = fn()
+                extra.update(launch_report(q.device))
+                wide = F.pad(table, (0, WIDE_P - table.shape[1]))
+                if not torch.equal(fn(wide), got):
+                    raise AssertionError(f"{name} {model}: output moved with the table width")
+                extra["wide_table"] = dict(P=WIDE_P, **launch_report(q.device),
+                                           ms=cuda_ms(torch, lambda: fn(wide), flush))
             out[name].append(dict(
-                model=model, KV=KV, G=G, hd=hd, T=int(q.shape[1]), rows=spec,
+                model=model, KV=KV, G=G, hd=hd, T=int(q.shape[1]), rows=spec, **extra,
                 max_abs_err=err, ms=cuda_ms(torch, fn, flush),
                 plain_ms=cuda_ms(torch, plain, flush, iters=5),
                 library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -739,6 +768,18 @@ def server_phase(torch, np, params, model, kernels, card, kv_dtype="model"):
         svc.stop()
 
 
+def ptxas_summary(report):
+    """Per kernel instance of one library: registers, shared memory and
+    spills as ptxas -v printed them."""
+    out, spill = set(), ""
+    for ln in report.splitlines():
+        if "spill stores" in ln:
+            spill = ln.strip()
+        elif "Used " in ln:
+            out.add(f"{ln.split('Used ')[1].strip()}; {spill}")
+    return sorted(out)
+
+
 def init_phase(torch, model):
     from rbg_tpu_torch.models.config import get_config
     from rbg_tpu_torch.models.llama import init_params
@@ -756,7 +797,8 @@ def init_phase(torch, model):
 
 def llama_phases(torch, np, card):
     """llama3-8b: bf16 engine, witness and server (A, B), then the int8
-    engine and witness (C, D). Returns {kernel: launches on its path}."""
+    engine, witness and server (C, D). Returns {kernel: launches on its
+    path}."""
     params = init_phase(torch, "llama3-8b")
     bf16 = engine_phase(torch, np, params, "llama3-8b", LLAMA_KERNELS, sampled=True)
     ragged_compare(torch, np, params, "llama3-8b")
@@ -772,6 +814,7 @@ def llama_phases(torch, np, card):
          note="a reading of the int8 pool's effect, not a check")
     launches.update({k: l8[k] for k in INT8_KERNELS})
     ragged_compare(torch, np, params, "llama3-8b", kv_dtype="int8")
+    server_phase(torch, np, params, "llama3-8b", INT8_KERNELS, card, kv_dtype="int8")
     return launches
 
 
@@ -834,11 +877,8 @@ def main():
 
     t0 = time.perf_counter()
     reports = build()
-    regs = {k: sorted({ln.split("Used ")[1].split(",")[0]
-                       for ln in v.splitlines() if "Used " in ln})
-            for k, v in reports.items()}
     emit("build", seconds=time.perf_counter() - t0, built=sorted(reports),
-         ptxas=regs)
+         ptxas={k: ptxas_summary(v) for k, v in reports.items()})
 
     kern = kernels_phase(torch, np)
     launches = llama_phases(torch, np, card)

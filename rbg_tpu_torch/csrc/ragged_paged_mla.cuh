@@ -10,11 +10,12 @@
 //
 // Bound: bytes for decode-heavy packs; prefill chunks raise the flops per
 // page byte toward the ridge, where the f32 CUDA-core arithmetic of this
-// first version is far from the card's bound. Design: kernel B's tile
-// leadership (the first token of each distinct row in a tile of kTile
-// packed tokens walks that row's pages once for all of the row's tokens in
-// the tile; rows need not be contiguous runs). B holds kTile·G query rows
-// per block; here that would be kTile·H rows of width dc + dr plus dc of
+// first version is far from the card's bound. Design: tile leadership
+// (paged_attn_common.cuh `tile_rows` / `lead_row`: the first token of each
+// distinct row in a tile of kTile packed tokens walks that row's pages once
+// for all of the row's tokens in the tile; rows need not be contiguous
+// runs). A block holding all heads of its kTile tokens would hold
+// kTile·H rows of width dc + dr plus dc of
 // accumulator, 8·16·1088·4 B = 557 KB at deepseek-v2-lite, far over the
 // 227 KB a block may use. The heads are therefore split across blocks:
 // a block owns (tile, group of hg heads), kTile·hg query rows. Splitting

@@ -1,8 +1,16 @@
-"""Wrapper of the block-ragged paged attention kernel
-(``csrc/ragged_paged.cu``), the port of
+"""Wrapper of the block-ragged paged attention kernel B
+(``csrc/ragged_paged.cu``, body in ``csrc/ragged_paged.cuh``), the port of
 ``rbg_tpu/ops/pallas/ragged_attention_kernel.py``
 ``ragged_paged_attention_pallas``. Its plain PyTorch version is
-``ops/ragged_paged_attention.py::ragged_paged_attention_plain``."""
+``ops/ragged_paged_attention.py::ragged_paged_attention_plain``.
+
+Each work item of B (and of D, ``ragged_paged_q.py``) is a row, up to
+``tile_tokens(G)`` of that row's live tokens, a kv head and one of up to
+``MAX_SPLITS`` parts of the row's walk; the kernel derives the items and
+splits from the pack on the card, each row's from its own kv_len.
+The kernel takes hd in ``HEAD_DIMS``, G <= 16, a page size that divides
+``KV_BLOCK`` and at most ``MAX_ROWS`` table rows; ``check_ragged_shapes``
+refuses anything else with a ``ValueError`` before any launch."""
 
 from __future__ import annotations
 
@@ -14,10 +22,18 @@ from rbg_tpu_torch.ops.kernels import LAUNCHES, check_tensors, dtype_code
 from rbg_tpu_torch.ops.kernels.build import check, load_function
 from rbg_tpu_torch.ops.kernels.paged_decode import check_shapes
 
-Q_TILE = 8              # packed tokens per block (kTile in the source)
+TILE_ROWS = 64          # query rows per block: tile_tokens(G) tokens x G heads
+KV_BLOCK = 64           # KV slots per pipeline step; the page size must divide it
+MAX_ROWS = 1024         # table rows the kernel's shared row counts hold
+HEAD_DIMS = (64, 128)   # the kernel's template instances
+MAX_SPLITS = 4          # items of one tile's walk at most (kMaxSplits in the source)
+# The int32 counts (kHeadSlot.. in the source): the work queue's head, the
+# last launch's work items and grid blocks, then each (tile, kv head)'s
+# finished splits.
+_HEAD, _ITEMS, _GRID, _TILES = 0, 1, 2, 3
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+_ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
              ctypes.c_float, _I, _P)
 
 
@@ -33,26 +49,83 @@ def check_pack(q, page_table, q_positions, kv_lens, row_ids):
     return T, R
 
 
+def tile_tokens(G: int) -> int:
+    """Packed tokens of one row per block (kRows / G in the source)."""
+    return TILE_ROWS // G
+
+
+def check_ragged_shapes(name: str, q, k_pages, v_pages, page_table):
+    """Kernels B and D's limits on top of ``check_shapes``, and q 16-byte
+    aligned for their vector loads. Returns (KV, G, hd, page)."""
+    KV, G, hd, page = check_shapes(name, q, k_pages, v_pages)
+    R = page_table.shape[0]
+    if hd not in HEAD_DIMS or KV_BLOCK % page or R > MAX_ROWS:
+        raise ValueError(f"{name} takes hd in {HEAD_DIMS}, a page size dividing "
+                         f"{KV_BLOCK} and at most {MAX_ROWS} table rows; got "
+                         f"hd={hd} page={page} R={R}")
+    if q.data_ptr() % 16:
+        raise ValueError(f"{name} needs q 16-byte aligned")
+    return KV, G, hd, page
+
+
+# Scratch per (device, stream), grown as needed: (float32 partials, int32
+# counts). The kernel's atomicInc wraps the queue head and every split count
+# back to 0 at its last use in a launch, so the counts are zeroed once, when
+# made, and launches on one stream reuse both buffers in order.
+_SCRATCH: dict = {}
+
+
+def scratch(q: torch.Tensor, stream: int, R: int, KV: int, G: int, hd: int):
+    """The kernels' scratch on ``stream``: float32 partials for the
+    cross-block merge, [T * G, KV, MAX_SPLITS, hd + 4] (a split tile's
+    query rows, numbered by live token), and the counts, _TILES + (tiles
+    bound) * KV of them, tiles bound = ceil(T / tile_tokens(G)) + R."""
+    T = q.shape[1]
+    n_part = T * G * KV * MAX_SPLITS * (hd + 4)
+    n_counts = _TILES + (-(-T // tile_tokens(G)) + R) * KV
+    part, counts = _SCRATCH.get((q.device, stream), (None, None))
+    if part is None or part.numel() < n_part:
+        part = torch.empty(n_part, dtype=torch.float32, device=q.device)
+    if counts is None or counts.numel() < n_counts:
+        counts = torch.zeros(max(n_counts, 4096), dtype=torch.int32, device=q.device)
+    _SCRATCH[(q.device, stream)] = part, counts
+    return part, counts
+
+
+def launch_report(device: torch.device) -> dict:
+    """What the last launch of B or D on ``device``'s current stream
+    derived, as the kernel wrote it: ``work_items`` ((tile split, kv head)
+    items it ran) and ``grid_blocks`` (its persistent blocks). Waits for
+    the stream."""
+    counts = _SCRATCH[(device, torch.cuda.current_stream(device).cuda_stream)][1]
+    items, grid = counts[_ITEMS:_GRID + 1].tolist()
+    return {"work_items": items, "grid_blocks": grid}
+
+
 def ragged_paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                                 v_pages: torch.Tensor, page_table: torch.Tensor,
                                 q_positions: torch.Tensor, kv_lens: torch.Tensor,
                                 row_ids: torch.Tensor) -> torch.Tensor:
     """q [1, T, H, hd] packed; pools [NP, page, KV, hd] in q's dtype;
     page_table [R, P], q_positions [1, T], kv_lens [R], row_ids [T], all
-    int32. Returns [1, T, H, hd] in q's dtype."""
-    KV, G, hd, page = check_shapes("ragged_paged", q, k_pages, v_pages)
+    int32. Returns [1, T, H, hd] in q's dtype. Shape limits:
+    ``check_ragged_shapes``."""
+    KV, G, hd, page = check_ragged_shapes("ragged_paged", q, k_pages, v_pages,
+                                          page_table)
     T, R = check_pack(q, page_table, q_positions, kv_lens, row_ids)
     check_tensors(q, pools=(k_pages, v_pages),
                   int32=(page_table, kv_lens, row_ids, q_positions))
     code = dtype_code(q, k_pages, v_pages)
     out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    part, counts = scratch(q, stream, R, KV, G, hd)
     fn = load_function("ragged_paged", _ARGTYPES)
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 page_table.data_ptr(), kv_lens.data_ptr(), row_ids.data_ptr(),
-                q_positions.data_ptr(), out.data_ptr(), T, R, KV, G, hd, page,
-                page_table.shape[1], hd ** -0.5, code,
-                torch.cuda.current_stream(q.device).cuda_stream)
+                q_positions.data_ptr(), out.data_ptr(), part.data_ptr(),
+                counts.data_ptr(), T, R, KV, G, hd, page, page_table.shape[1],
+                hd ** -0.5, code, stream)
     check("ragged_paged", rc)
     if T:
         LAUNCHES["ragged_paged"] += 1

@@ -19,9 +19,10 @@ Token ``t`` attends slots ``< min(kv_lens[row_ids[t]], q_positions[t] + 1)``.
   its rank among the row's real tokens, so the pack need not hold each row
   as one contiguous run.
 * the CUDA kernels ``ops/kernels/ragged_paged.py`` (model-dtype pools)
-  and ``ops/kernels/ragged_paged_q.py`` (int8 pools with scales) — query
-  tiles that may span rows, each distinct row of a tile walking its pages
-  once;
+  and ``ops/kernels/ragged_paged_q.py`` (int8 pools with scales) — per-row
+  query tiles (up to 64 // G of one row's live tokens, pads never in a
+  tile), each walking its row's pages once, a long walk split across
+  blocks and merged;
 * the token-grid CUDA kernel ``ops/kernels/ragged_paged_tokengrid.py`` —
   the same function with one block per packed token, each walking its
   row's pages alone: the baseline the block-ragged kernel is measured

@@ -1,0 +1,176 @@
+#!/usr/bin/env python3
+"""Two trees of the PyTorch/CUDA port in turns on one card: kernels B and D,
+one ragged step of llama3-8b, and the server's TTFT.
+
+    python3 scripts/torch_ab.py BASE_TREE [NEW_TREE]
+
+BASE_TREE and NEW_TREE (default: this checkout) are checkouts of the repo,
+for example an older commit unpacked with ``git archive``. The order is
+base, new, new, base. Each run is a subprocess that imports ``rbg_tpu_torch``
+and ``chip_smoke`` from its own tree, builds that tree's CUDA kernels and
+prints, as JSON lines:
+
+- ``kernels``: B and D on ``chip_smoke``'s llama3-8b mixed pack: device ms
+  per call (``chip_smoke.cuda_ms``, L2 flushed) and host microseconds per
+  call (median of 3 runs of 200 calls issued back to back);
+- ``step``: ``forward_ragged`` at full depth (llama3-8b, random weights from
+  seed 0, bf16 pools) on the server's first ragged step (7 + 40 + 64 + 64
+  tokens in a 256-token bucket): median wall ms of 10 synchronised steps,
+  device ms per step summed over the profiler's kernels, the device's busy
+  share, and the eight kernels that take the most device time;
+- ``server``: ``chip_smoke.server_phase`` (4 concurrent requests, prompts
+  of 7, 40, 130 and 300 tokens) over bf16 and then int8 pools.
+
+A last line gives each tree's medians. Needs one CUDA device.
+"""
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+CHILD = """
+import json, statistics, subprocess, time
+import numpy as np, torch
+from torch.profiler import ProfilerActivity, profile
+import chip_smoke as cs
+from rbg_tpu_torch.engine.kvcache import PagedKVCache
+from rbg_tpu_torch.models.config import get_config
+from rbg_tpu_torch.models.llama import forward_ragged
+from rbg_tpu_torch.ops.kernels.build import build
+from rbg_tpu_torch.ops.kernels.ragged_paged import ragged_paged_attention_cuda
+from rbg_tpu_torch.ops.kernels.ragged_paged_q import ragged_paged_attention_q_cuda
+from rbg_tpu_torch.ops.paged_attention import quantize_kv
+
+torch.backends.cuda.matmul.allow_tf32 = False
+build()
+card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                       "--format=csv,noheader"], capture_output=True, text=True,
+                      check=True).stdout.strip().splitlines()[0]
+
+def emit(what, **kw):
+    print(json.dumps({"what": what, "card": card, **kw}), flush=True)
+
+def host_us(fn, n=200):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return t
+
+q, k, v, table, qpos, kv_lens, rows = cs.ragged_case(torch, np, 8, 4, 128, cs.RAGGED_SPEC)
+(k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+calls = {"B": lambda: ragged_paged_attention_cuda(q, k, v, table, qpos, kv_lens, rows),
+         "D": lambda: ragged_paged_attention_q_cuda(q, k8, v8, ks, vs, table, qpos,
+                                                    kv_lens, rows)}
+emit("kernels", **{n: {"ms": cs.cuda_ms(torch, f, flush),
+                       "host_us": statistics.median(host_us(f) for _ in range(3))}
+                   for n, f in calls.items()})
+del q, k, v, k8, v8, flush
+
+params = cs.init_phase(torch, "llama3-8b")
+cfg = get_config("llama3-8b")
+cache = PagedKVCache.create(cfg, 64, 16, device="cuda")
+parts, T = [7, 40, 64, 64], 256
+rows, pos = [], []
+for r, n in enumerate(parts):
+    rows += [r] * n
+    pos += list(range(n))
+rows += [0] * (T - len(rows))
+pos += [-1] * (T - len(pos))
+g = torch.Generator(device="cuda").manual_seed(0)
+tok = torch.randint(0, cfg.vocab_size, (1, T), generator=g, device="cuda")
+pos = torch.tensor([pos], dtype=torch.int32, device="cuda")
+rows = torch.tensor(rows, dtype=torch.int32, device="cuda")
+table = torch.arange(1, 33, dtype=torch.int32, device="cuda").reshape(4, 8)
+kv_lens = torch.tensor(parts, dtype=torch.int32, device="cuda")
+
+def step():
+    forward_ragged(params, cfg, tok, pos, pos >= 0, rows, kv_lens, table,
+                   cache.k_pages, cache.v_pages, max_q_len=64)
+
+for _ in range(3):
+    step()
+torch.cuda.synchronize()
+walls = []
+for _ in range(10):
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    walls.append((time.perf_counter() - t0) * 1e3)
+n = 5
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+kern = {}
+for e in prof.key_averages():
+    if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+        kern[e.key[:60]] = kern.get(e.key[:60], 0.0) + e.self_device_time_total / n / 1e3
+wall, dev = statistics.median(walls), sum(kern.values())
+emit("step", wall_ms=wall, wall_ms_runs=walls, device_ms=dev, device_busy_share=dev / wall,
+     top_kernels_ms=sorted(kern.items(), key=lambda kv: -kv[1])[:8])
+del cache
+
+cs.server_phase(torch, np, params, "llama3-8b", cs.LLAMA_KERNELS, card)
+cs.server_phase(torch, np, params, "llama3-8b", cs.INT8_KERNELS, card, kv_dtype="int8")
+"""
+
+
+def run_tree(tree: Path) -> list:
+    """The JSON lines of one child run in ``tree``."""
+    env = dict(os.environ, PYTHONPATH=str(tree))
+    proc = subprocess.run([sys.executable, "-c", CHILD], cwd=tree, env=env,
+                          capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{tree}: exit {proc.returncode}\n{proc.stderr[-4000:]}")
+    return [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+
+
+def main(argv) -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_ab: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    if not 2 <= len(argv) <= 3:
+        print(__doc__, file=sys.stderr)
+        return 2
+    trees = {"base": Path(argv[1]).resolve(),
+             "new": Path(argv[2] if len(argv) > 2 else Path(__file__).parents[1]).resolve()}
+    got = {t: {} for t in trees}
+
+    def keep(which, key, value):
+        got[which].setdefault(key, []).append(value)
+
+    for which in ("base", "new", "new", "base"):
+        for line in run_tree(trees[which]):
+            if line.get("what") == "kernels":
+                for k in ("B", "D"):
+                    keep(which, f"{k}_ms", line[k]["ms"])
+                    keep(which, f"{k}_host_us", line[k]["host_us"])
+            elif line.get("what") == "step":
+                keep(which, "step_wall_ms", line["wall_ms"])
+                keep(which, "step_device_ms", line["device_ms"])
+            elif line.get("phase") == "server":
+                keep(which, f"ttft_s/{line['kv_dtype']}", line["ttft_s"])
+            else:
+                continue
+            print(json.dumps({"tree": which, **line}), flush=True)
+
+    def median(runs):
+        if isinstance(runs[0], list):
+            return [statistics.median(r[i] for r in runs) for i in range(len(runs[0]))]
+        return statistics.median(runs)
+
+    print(json.dumps({"median": {t: {k: median(v) for k, v in m.items()}
+                                 for t, m in got.items()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))

@@ -20,6 +20,7 @@ import torch
 
 from rbg_tpu_torch.engine.sampler import gumbel_noise, row_keys
 from rbg_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+from rbg_tpu_torch.ops.kernels.ragged_paged import tile_tokens
 from rbg_tpu_torch.ops.mla_attention import (
     paged_mla_attention, paged_mla_attention_plain, ragged_paged_mla_attention,
     ragged_paged_mla_attention_plain)
@@ -102,10 +103,44 @@ def _ragged_case(rng, dev, dtype, specs, KV, G, hd, page=16, P=8, pads=0,
             torch.from_numpy(rows).to(dev))
 
 
+# Packs aimed at kernels B and D's per-row tiles (tile_tokens(G) tokens of
+# one row per block) and 64-slot KV blocks; (specs, _ragged_case kwargs).
+def _tile_layout(layout, G):
+    tm = tile_tokens(G)
+    if layout == "chunk_tiles":     # a 64-token chunk over kv 1000: several tiles
+        return [(64, 1000), (1, 37)], dict(P=63)
+    if layout == "limit_in_block":  # causal limits 127..150 cross slot 128
+        return [(24, 150), (1, 70)], dict(P=10)
+    if layout == "tile_exact":      # exactly one tile, and one tile plus a token
+        return [(tm, tm + 5), (tm + 1, 40)], {}
+    if layout == "many_rows":       # 64 decode rows beside one chunk
+        return [(1, 5 + 3 * r) for r in range(64)] + [(30, 60)], dict(P=13)
+    if layout == "split_empty":     # walks split in two; early tiles' 2nd split is empty
+        return [(160, 600), (1, 20)], dict(P=38)
+    if layout == "wide_table":      # a table 4096 slots wide; rows of 1000 and 37
+        return [(64, 1000), (1, 37)], dict(P=256)
+    assert layout == "bucket_pads"  # more pads than tokens (a power-of-two bucket)
+    return [(3, 20), (1, 9)], dict(pads=28)
+
+
+TILE_LAYOUTS = ["chunk_tiles", "limit_in_block", "tile_exact", "many_rows",
+                "bucket_pads", "split_empty", "wide_table"]
+
+
+def _split_counts_zero():
+    """Kernels B and D leave their work queue and split counts at 0 after a
+    launch, ready for the next one on the stream (the slots between hold
+    the launch's report)."""
+    from rbg_tpu_torch.ops.kernels.ragged_paged import _HEAD, _SCRATCH, _TILES
+    return bool(_SCRATCH) and all(
+        int(c[_HEAD]) == 0 and int(c[_TILES:].count_nonzero()) == 0
+        for _, c in _SCRATCH.values())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("KV,G,hd", [(8, 4, 128), (2, 7, 64)])
 @pytest.mark.parametrize("layout", ["straddle", "three_in_tile", "pads",
-                                    "shuffled", "empty_row"])
+                                    "shuffled", "empty_row", *TILE_LAYOUTS])
 def test_ragged_matches_plain(dev, dtype, KV, G, hd, layout):
     rng = np.random.RandomState(1)
     kw = {}
@@ -118,15 +153,17 @@ def test_ragged_matches_plain(dev, dtype, KV, G, hd, layout):
     elif layout == "shuffled":      # rows are not contiguous runs
         specs = [(5, 15), (1, 21), (1, 4), (3, 40)]
         kw = dict(order=lambda n: np.random.RandomState(7).permutation(n))
-    else:                           # a row with kv_len 0 (bucket padding)
+    elif layout == "empty_row":     # a row with kv_len 0 (bucket padding)
         specs = [(3, 30), (1, 5), (0, 0)]
+    else:
+        specs, kw = _tile_layout(layout, G)
     q, k, v, table, qpos, lens, rows = _ragged_case(rng, dev, dtype, specs,
                                                     KV, G, hd, **kw)
     reset_launches()
     got = ragged_paged_attention(q, k, v, table, qpos, lens, rows,
                                  use_kernels="always")
     torch.cuda.synchronize()
-    assert LAUNCHES["ragged_paged"] == 1
+    assert LAUNCHES["ragged_paged"] == 1 and _split_counts_zero()
     ref = ragged_paged_attention_plain(q, k, v, table, qpos, lens, rows)
     torch.testing.assert_close(got.float(), ref.float(), **_tol(dtype))
     assert torch.all(got[0, qpos[0] < 0] == 0)      # pads give 0
@@ -180,7 +217,8 @@ def test_paged_decode_q_matches_plain(dev, dtype, KV, G, hd):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("KV,G,hd", [(8, 4, 128), (2, 7, 64)])
-@pytest.mark.parametrize("layout", ["straddle", "shuffled", "empty_row"])
+@pytest.mark.parametrize("layout", ["straddle", "shuffled", "empty_row",
+                                    *TILE_LAYOUTS])
 def test_ragged_q_matches_plain(dev, dtype, KV, G, hd, layout):
     """Kernel D against the plain version on the same int8 pool."""
     rng = np.random.RandomState(4)
@@ -190,8 +228,10 @@ def test_ragged_q_matches_plain(dev, dtype, KV, G, hd, layout):
     elif layout == "shuffled":
         specs = [(5, 15), (1, 21), (1, 4), (3, 40)]
         kw = dict(order=lambda n: np.random.RandomState(7).permutation(n))
-    else:
+    elif layout == "empty_row":
         specs = [(3, 30), (1, 5), (0, 0)]
+    else:
+        specs, kw = _tile_layout(layout, G)
     q, k, v, table, qpos, lens, rows = _ragged_case(rng, dev, dtype, specs,
                                                     KV, G, hd, **kw)
     kq, vq, ks, vs = _quantized(k, v)
@@ -200,10 +240,69 @@ def test_ragged_q_matches_plain(dev, dtype, KV, G, hd, layout):
                                  use_kernels="always", k_scales=ks, v_scales=vs)
     torch.cuda.synchronize()
     assert LAUNCHES["ragged_paged_q"] == 1 and LAUNCHES["ragged_paged"] == 0
+    assert _split_counts_zero()
     ref = ragged_paged_attention_plain(q, kq, vq, table, qpos, lens, rows,
                                        k_scales=ks, v_scales=vs)
     torch.testing.assert_close(got.float(), ref.float(), **_tol(dtype))
     assert torch.all(got[0, qpos[0] < 0] == 0)
+
+
+# The kernels phase's mixed pack (chip_smoke.RAGGED_SPEC): rows of kv_len
+# 2048, 2000, 1500, 1024 and 800 split into 4, 4, 3, 2 and 2 walks (one per
+# 8 KV blocks begun), the others walk whole. Per kv head, at 16 tokens per
+# tile (G = 4): 4 + 4 + 3 + 4 + 2 + 8 + 1 + 16 = 42 items; at 9 (G = 7): 74.
+MIXED_SPEC = [(1, 2048), (64, 64), (1, 1500), (64, 512), (1, 800), (64, 1024),
+              (1, 100), (64, 2000)]
+
+
+@pytest.mark.parametrize("KV,G,hd,want", [(8, 4, 128, 42), (2, 7, 64, 74)])
+@pytest.mark.parametrize("P", [128, 512])
+def test_ragged_kernel_work_items(dev, KV, G, hd, want, P):
+    """The work items kernel B reports for the mixed pack (252 pads), read
+    back from its counts: each row's split follows its own kv_len, so a
+    table 4x wider than the longest row (P = 512) gives the same items and
+    the same output."""
+    from rbg_tpu_torch.ops.kernels.ragged_paged import (launch_report,
+                                                        ragged_paged_attention_cuda)
+    rng = np.random.RandomState(13)
+    q, k, v, table, qpos, lens, rows = _ragged_case(rng, dev, torch.bfloat16, MIXED_SPEC,
+                                                    KV, G, hd, P=128, pads=252)
+    got = ragged_paged_attention_cuda(q, k, v, table, qpos, lens, rows)
+    rep = launch_report(q.device)
+    assert rep["work_items"] == want * KV
+    tiles = -(-q.shape[1] // (64 // G)) + len(MIXED_SPEC)     # the launch's bound
+    assert 1 <= rep["grid_blocks"] <= tiles * 4 * KV
+    if P > 128:
+        wide = torch.nn.functional.pad(table, (0, P - 128))
+        assert torch.equal(ragged_paged_attention_cuda(q, k, v, wide, qpos, lens, rows), got)
+        assert launch_report(q.device)["work_items"] == want * KV
+    ref = ragged_paged_attention_plain(q, k, v, table, qpos, lens, rows)
+    torch.testing.assert_close(got.float(), ref.float(), **_tol(torch.bfloat16))
+
+
+def test_ragged_wrappers_refuse_unsupported_shapes(dev):
+    """Kernels B and D take hd 64 or 128, a page size dividing 64 and at
+    most MAX_ROWS table rows; anything else is a ValueError before any
+    launch, never the plain version."""
+    from rbg_tpu_torch.ops.kernels.ragged_paged import (MAX_ROWS,
+                                                        ragged_paged_attention_cuda)
+    from rbg_tpu_torch.ops.kernels.ragged_paged_q import ragged_paged_attention_q_cuda
+    rng = np.random.RandomState(12)
+    cases = [_ragged_case(rng, dev, torch.bfloat16, [(3, 9), (1, 5)], 2, 2, 32),
+             _ragged_case(rng, dev, torch.bfloat16, [(3, 9), (1, 5)], 2, 2, 64,
+                          page=24, P=2),
+             _ragged_case(rng, dev, torch.bfloat16, [(1, 3)] * (MAX_ROWS + 1), 1, 2,
+                          64, P=1)]
+    reset_launches()
+    for q, k, v, table, qpos, lens, rows in cases:
+        with pytest.raises(ValueError):
+            ragged_paged_attention_cuda(q, k, v, table, qpos, lens, rows)
+        kq, vq, ks, vs = _quantized(k, v)
+        with pytest.raises(ValueError):
+            ragged_paged_attention_q_cuda(q, kq, vq, ks, vs, table, qpos, lens, rows)
+        with pytest.raises(ValueError):     # the dispatcher does not fall back
+            ragged_paged_attention(q, k, v, table, qpos, lens, rows)
+    assert LAUNCHES["ragged_paged"] == LAUNCHES["ragged_paged_q"] == 0
 
 
 def _mla_tol(dtype):
