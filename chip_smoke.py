@@ -15,24 +15,29 @@ Phases, each printing one JSON line:
              (G and H on the same latent pools quantized): error, kernel
              time, plain time, one PyTorch library call on the same inputs
              (SDPA on the gathered view, a yardstick the port never calls)
-             and the least time the card could take (bound). B, D and I
-             also give host_us, the host's time per call; B and D give
+             and the least time the card could take (bound). A-D and I
+             also give host_us, the host's time per call; A-D give
              work_items and grid_blocks as the kernel wrote them back, and
-             their time on the same pack in a table WIDE_P pages wide.
+             their time on the same case in a table WIDE_P pages wide
+             (output equal bit for bit); A and C also their kernel's own
+             device time (device_ms, torch.profiler) and a B=64 decode
+             bucket of short rows (bucket64).
 4. llama3-8b at full width and depth, random weights from a seed:
    engine  — Engine (bf16 pools; kernels A, B): a request steps into
              decode, a second joins so one ragged step holds a decode row
              and a prefill chunk, both run to completion (multi_step 1
              and 4); greedy is repeatable; a seeded sampled request gives
              the same stream twice, and the Gumbel noise is timed.
-   witness — one forward_ragged with kernels against the plain version on
-             the same pool, in float32 (tight) and in bfloat16 (against a
-             float32 control).
+   witness — one forward_ragged (ragged_compare) and one forward_paged
+             decode step over rows whose walks split (decode_compare),
+             each with kernels against the plain version on the same pool,
+             in float32 (tight) and in bfloat16 (against a float32
+             control).
    server  — the port's engine server in this process on a free port,
              answering 4 concurrent generate requests (one streamed).
    int8    — the same engine script with kv_dtype="int8" (kernels C, D),
-             multi_step 4, its witness on an int8 pool and the server over
-             int8 pools.
+             multi_step 4, its two witnesses on int8 pools and the server
+             over int8 pools.
 5. deepseek-v2-lite (MLA + MoE) at full width and depth, random weights
    from a seed, after llama3-8b is freed: engine (kernels E, F; multi_step
    1 and 4), witness and server, as for llama3-8b; then on the same
@@ -125,6 +130,22 @@ def host_us(torch, fn, n=200):
     return t
 
 
+def device_ms(torch, fn, flush, kernel, n=20):
+    """Mean device time of the kernel named ``kernel`` over the launches
+    the profiler recorded in n calls of ``fn`` (torch.profiler, L2 flushed
+    before each call): the kernel's own time, without the wrapper's host
+    time that cuda_ms also counts where the flush does not hide it."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
+    return sum(e.self_device_time_total for e in ev) / max(1, sum(e.count for e in ev)) / 1e3
+
+
 def bound(bytes_moved, flops):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS * 1e3
@@ -153,6 +174,7 @@ DECODE_LENS = [2048, 1900, 1536, 1200, 1024, 700, 333, 65]
 RAGGED_SPEC = [(1, 2048), (64, 64), (1, 1500), (64, 512), (1, 800), (64, 1024),
                (1, 100), (64, 2000)]
 WIDE_P = 512     # a table of 8192 slots (--max-seq-len 8192), 4x the longest row
+BUCKET64_LENS = [64 + 10 * i for i in range(64)]   # a B=64 decode bucket of short rows
 
 
 def decode_case(torch, np, KV, G, hd, lens, page=16):
@@ -217,58 +239,94 @@ def padded_queries(torch, q, qpos, rows, R, Tm=64):
     return qp, pp
 
 
+def decode_kernel_cases(torch, np, flush, model, KV, G, hd, lens, wide=False):
+    """Kernels A and C (on the same pools quantized) against their plain
+    versions on one decode case: {name: record}, each with host_us and the
+    kernel's own report of its launch (work_items, grid_blocks); with
+    ``wide`` also the same case in a table WIDE_P pages wide, whose output
+    must be the same bit for bit."""
+    import torch.nn.functional as F
+
+    from rbg_tpu_torch.ops.kernels import launch_report
+    from rbg_tpu_torch.ops.kernels.paged_decode import paged_decode_attention
+    from rbg_tpu_torch.ops.kernels.paged_decode_q import paged_decode_attention_q
+    from rbg_tpu_torch.ops.paged_attention import (gather_kv, paged_attention_plain,
+                                                   quantize_kv)
+
+    q, k, v, table, pos, kv_lens = decode_case(torch, np, KV, G, hd, lens)
+    (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+    B, S, tokens = len(lens), table.shape[1] * 16, sum(lens)
+    qh = q.permute(0, 2, 1, 3)                                       # [B,H,1,hd]
+    mask = (torch.arange(S, device="cuda")[None, :] < kv_lens[:, None])[:, None, None]
+    meta = pages_of(lens) * 4 + B * 4
+    flops = 4 * tokens * KV * G * hd
+    out = {}
+    for name, elem, fn, plain, kv_pair in (
+            ("paged_decode", 2,
+             lambda t=table: paged_decode_attention(q, k, v, t, kv_lens),
+             lambda: paged_attention_plain(q, k, v, table, pos, kv_lens), (k, v)),
+            ("paged_decode_q", 1,
+             lambda t=table: paged_decode_attention_q(q, k8, v8, ks, vs, t, kv_lens),
+             lambda: paged_attention_plain(q, k8, v8, table, pos, kv_lens, ks, vs),
+             None)):
+        got = fn()
+        report = launch_report(q.device)
+        err = max_err_checked(torch, f"{name} {model} B={B}", got, plain())
+        extra = {}
+        if wide:
+            wt = F.pad(table, (0, WIDE_P - table.shape[1]))
+            if not torch.equal(fn(wt), got):
+                raise AssertionError(f"{name} {model}: output moved with the table width")
+            extra["wide_table"] = dict(P=WIDE_P, **launch_report(q.device),
+                                       ms=cuda_ms(torch, lambda: fn(wt), flush))
+        if kv_pair is None:     # SDPA on the pre-dequantized bf16 view
+            kv_pair = ((k8.float() * ks).to(torch.bfloat16),
+                       (v8.float() * vs).to(torch.bfloat16))
+        kg = gather_kv(kv_pair[0], table).permute(0, 2, 1, 3).contiguous()
+        vg = gather_kv(kv_pair[1], table).permute(0, 2, 1, 3).contiguous()
+        nbytes = (2 * tokens * KV * hd * elem + 2 * q.numel() * 2 + meta
+                  + (2 * tokens * KV * 4 if elem == 1 else 0))
+        b_ms, b_by = bound(nbytes, flops)
+        out[name] = dict(
+            model=model, KV=KV, G=G, hd=hd, B=B, kv_lens=lens, max_abs_err=err,
+            host_us=host_us(torch, fn), **report, **extra, ms=cuda_ms(torch, fn, flush),
+            device_ms=device_ms(torch, fn, flush, "paged_decode_kernel"),
+            plain_ms=cuda_ms(torch, plain, flush, iters=5),
+            library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                qh, kg, vg, attn_mask=mask, enable_gqa=True), flush),
+            library="sdpa, gathered bf16 view" + (
+                " dequantized beforehand" if elem == 1 else ""),
+            bound_ms=b_ms, bound_by=b_by)
+        del kg, vg
+    return out
+
+
 def gqa_kernel_cases(torch, np, flush, out):
     """Kernels A-D and I at the llama3-8b and qwen2-0.5b shapes."""
     import torch.nn.functional as F
 
-    from rbg_tpu_torch.ops.kernels.paged_decode import paged_decode_attention
-    from rbg_tpu_torch.ops.kernels.paged_decode_q import paged_decode_attention_q
-    from rbg_tpu_torch.ops.kernels.ragged_paged import (launch_report,
-                                                        ragged_paged_attention_cuda)
+    from rbg_tpu_torch.ops.kernels import launch_report
+    from rbg_tpu_torch.ops.kernels.ragged_paged import ragged_paged_attention_cuda
     from rbg_tpu_torch.ops.kernels.ragged_paged_q import ragged_paged_attention_q_cuda
     from rbg_tpu_torch.ops.kernels.ragged_paged_tokengrid import (
         ragged_paged_attention_tokengrid_cuda)
-    from rbg_tpu_torch.ops.paged_attention import (gather_kv, paged_attention_plain,
-                                                   quantize_kv)
+    from rbg_tpu_torch.ops.paged_attention import gather_kv, quantize_kv
     from rbg_tpu_torch.ops.ragged_paged_attention import ragged_paged_attention_plain
 
     shapes = {"llama3-8b": (8, 4, 128), "qwen2-0.5b": (2, 7, 64)}
     for model, (KV, G, hd) in shapes.items():
-        # -- A and C: decode, B=8, kv_len up to 2048 --
-        lens = DECODE_LENS
-        q, k, v, table, pos, kv_lens = decode_case(torch, np, KV, G, hd, lens)
-        (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
-        B, S, tokens = len(lens), table.shape[1] * 16, sum(lens)
-        qh = q.permute(0, 2, 1, 3)                                   # [B,H,1,hd]
-        mask = (torch.arange(S, device="cuda")[None, :] < kv_lens[:, None])[:, None, None]
-        meta = pages_of(lens) * 4 + B * 4
-        flops = 4 * tokens * KV * G * hd
-        for name, elem, fn, plain, kv_pair in (
-                ("paged_decode", 2,
-                 lambda: paged_decode_attention(q, k, v, table, kv_lens),
-                 lambda: paged_attention_plain(q, k, v, table, pos, kv_lens), (k, v)),
-                ("paged_decode_q", 1,
-                 lambda: paged_decode_attention_q(q, k8, v8, ks, vs, table, kv_lens),
-                 lambda: paged_attention_plain(q, k8, v8, table, pos, kv_lens, ks, vs),
-                 None)):
-            err = max_err_checked(torch, f"{name} {model}", fn(), plain())
-            if kv_pair is None:     # SDPA on the pre-dequantized bf16 view
-                kv_pair = ((k8.float() * ks).to(torch.bfloat16),
-                           (v8.float() * vs).to(torch.bfloat16))
-            kg = gather_kv(kv_pair[0], table).permute(0, 2, 1, 3).contiguous()
-            vg = gather_kv(kv_pair[1], table).permute(0, 2, 1, 3).contiguous()
-            nbytes = (2 * tokens * KV * hd * elem + 2 * q.numel() * 2 + meta
-                      + (2 * tokens * KV * 4 if elem == 1 else 0))
-            b_ms, b_by = bound(nbytes, flops)
-            out[name].append(dict(
-                model=model, KV=KV, G=G, hd=hd, B=B, kv_lens=lens, max_abs_err=err,
-                ms=cuda_ms(torch, fn, flush), plain_ms=cuda_ms(torch, plain, flush, iters=5),
-                library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                    qh, kg, vg, attn_mask=mask, enable_gqa=True), flush),
-                library="sdpa, gathered bf16 view" + (
-                    " dequantized beforehand" if elem == 1 else ""),
-                bound_ms=b_ms, bound_by=b_by))
-            del kg, vg
+        # -- A and C: decode, B=8, kv_len up to 2048; then a B=64 bucket --
+        decode = decode_kernel_cases(torch, np, flush, model, KV, G, hd, DECODE_LENS,
+                                     wide=True)
+        bucket = decode_kernel_cases(torch, np, flush, model, KV, G, hd, BUCKET64_LENS)
+        for name, rec in decode.items():
+            b = bucket[name]
+            rec["bucket64"] = {"B": b["B"], "kv_lens": "64 + 10 i, i < 64",
+                               **{k: b[k] for k in (
+                                   "max_abs_err", "ms", "device_ms", "library_ms", "bound_ms",
+                                   "bound_by", "plain_ms", "host_us", "work_items",
+                                   "grid_blocks")}}
+            out[name].append(rec)
 
         # -- B, D and I (B's function on a token grid): the mixed pack --
         spec = RAGGED_SPEC
@@ -501,11 +559,11 @@ def logit_stats(a, b):
             "argmax_agree": float((a.argmax(-1) == b.argmax(-1)).float().mean())}
 
 
-def ragged_compare(torch, np, params, model, kv_dtype="model", dev="cuda"):
-    """forward_ragged with kernels against use_kernels='never' on the same
-    pool, at full width and depth: a decode row and a 64-token prefill chunk
-    over context that an earlier kernel call wrote. The float32 runs use
-    the same weights cast to float32 one layer at a time.
+def compare_paths(torch, params, model, kv_dtype, run, phase, tokens):
+    """A witness's judgment: ``run(params, cfg, quantize)`` gives the
+    kernel path's and the plain path's logits of the compared step, each on
+    a pool of its own that the same context wrote. The float32 runs use the
+    same weights cast to float32 one layer at a time.
 
     Model-dtype pools. float32: kernel and plain differ only in summation
     order, so their logits must agree within F32_LOGIT_ATOL (MoE models:
@@ -517,44 +575,9 @@ def ragged_compare(torch, np, params, model, kv_dtype="model", dev="cuda"):
     int8 pools: in float32 and in bfloat16, the int8 kernel path's mean
     distance from the float32 plain logits on a model-dtype pool must be at
     most INT8_VS_CONTROL x the int8 plain path's."""
-    from rbg_tpu_torch.engine.kvcache import PagedKVCache
     from rbg_tpu_torch.models.config import get_config
-    from rbg_tpu_torch.models.llama import forward_ragged
 
     cfg16 = get_config(model)
-    rng = np.random.RandomState(5)
-    table = torch.zeros(2, 11, dtype=torch.int32, device=dev)
-    table[0, :5] = torch.arange(1, 6)            # row 0: 65 slots
-    table[1, :11] = torch.arange(6, 17)          # row 1: 164 slots
-
-    def pack(parts, T):
-        rows, pos = [], []
-        for r, (lo, hi) in enumerate(parts):
-            rows += [r] * (hi - lo)
-            pos += list(range(lo, hi))
-        n = len(rows)
-        rows += [0] * (T - n)
-        pos += [-1] * (T - n)
-        tok = torch.from_numpy(rng.randint(0, cfg16.vocab_size, (1, T))).to(dev)
-        pos = torch.tensor([pos], dtype=torch.int32, device=dev)
-        return (tok, pos, pos >= 0, torch.tensor(rows, dtype=torch.int32, device=dev),
-                torch.tensor([hi for _, hi in parts], dtype=torch.int32, device=dev))
-
-    context = pack([(0, 64), (0, 100)], 256)
-    step = pack([(64, 65), (100, 164)], 128)
-    mask = step[2][0]
-
-    def run(p, cfg, quantize):
-        """(kernel logits, plain logits) of the compared step, real tokens."""
-        c = PagedKVCache.create(cfg, 17, 16, device=dev, quantize=quantize)
-        pools = (c.k_pages, c.v_pages)
-        kw = dict(k_scales=c.k_scales, v_scales=c.v_scales)
-        forward_ragged(p, cfg, *context, table, *pools, **kw)
-        lk = forward_ragged(p, cfg, *step, table, *pools, max_q_len=64, **kw)
-        lp = forward_ragged(p, cfg, *step, table, *pools, use_kernels="never",
-                            max_q_len=64, **kw)
-        return lk[0][mask], lp[0][mask]
-
     p32, cfg32 = float32_params(params), get_config(model, dtype="float32")
     res = {}
     if kv_dtype == "model":
@@ -603,11 +626,102 @@ def ragged_compare(torch, np, params, model, kv_dtype="model", dev="cuda"):
     torch.cuda.empty_cache()
     finite = all(bool(torch.isfinite(t).all()) for t in tensors)
     res.update(logit_std_f32=float(r32.std()), logit_absmax_f32=float(r32.abs().max()))
-    emit("ragged_compare", model=model, kv_dtype=kv_dtype, layers=cfg16.num_layers,
-         tokens=int(mask.sum()), tolerance=tol, **res)
+    emit(phase, model=model, kv_dtype=kv_dtype, layers=cfg16.num_layers,
+         tokens=tokens, tolerance=tol, **res)
     if not (finite and ok):
-        raise AssertionError(f"forward_ragged kernels vs plain ({model}, "
-                             f"{kv_dtype}): {res}")
+        raise AssertionError(f"{phase}: kernels vs plain ({model}, {kv_dtype}): {res}")
+
+
+def ragged_compare(torch, np, params, model, kv_dtype="model", dev="cuda"):
+    """forward_ragged with kernels against use_kernels='never' on the same
+    pool, at full width and depth: a decode row and a 64-token prefill chunk
+    over context that an earlier kernel call wrote. Limits: compare_paths."""
+    from rbg_tpu_torch.engine.kvcache import PagedKVCache
+    from rbg_tpu_torch.models.config import get_config
+    from rbg_tpu_torch.models.llama import forward_ragged
+
+    V = get_config(model).vocab_size
+    rng = np.random.RandomState(5)
+    table = torch.zeros(2, 11, dtype=torch.int32, device=dev)
+    table[0, :5] = torch.arange(1, 6)            # row 0: 65 slots
+    table[1, :11] = torch.arange(6, 17)          # row 1: 164 slots
+
+    def pack(parts, T):
+        rows, pos = [], []
+        for r, (lo, hi) in enumerate(parts):
+            rows += [r] * (hi - lo)
+            pos += list(range(lo, hi))
+        n = len(rows)
+        rows += [0] * (T - n)
+        pos += [-1] * (T - n)
+        tok = torch.from_numpy(rng.randint(0, V, (1, T))).to(dev)
+        pos = torch.tensor([pos], dtype=torch.int32, device=dev)
+        return (tok, pos, pos >= 0, torch.tensor(rows, dtype=torch.int32, device=dev),
+                torch.tensor([hi for _, hi in parts], dtype=torch.int32, device=dev))
+
+    context = pack([(0, 64), (0, 100)], 256)
+    step = pack([(64, 65), (100, 164)], 128)
+    mask = step[2][0]
+
+    def run(p, cfg, quantize):
+        """(kernel logits, plain logits) of the compared step, real tokens."""
+        c = PagedKVCache.create(cfg, 17, 16, device=dev, quantize=quantize)
+        pools = (c.k_pages, c.v_pages)
+        kw = dict(k_scales=c.k_scales, v_scales=c.v_scales)
+        forward_ragged(p, cfg, *context, table, *pools, **kw)
+        lk = forward_ragged(p, cfg, *step, table, *pools, max_q_len=64, **kw)
+        lp = forward_ragged(p, cfg, *step, table, *pools, use_kernels="never",
+                            max_q_len=64, **kw)
+        return lk[0][mask], lp[0][mask]
+
+    compare_paths(torch, params, model, kv_dtype, run, "ragged_compare", int(mask.sum()))
+
+
+# The decode witness's rows: their context lengths before the compared
+# step. At B = 3 on llama3-8b the first two walks split 9 and 12 ways.
+DECODE_WITNESS_LENS = [1100, 1500, 65]
+
+
+def decode_compare(torch, np, params, model, kv_dtype="model", dev="cuda"):
+    """forward_paged (one decode step: kernel A, or C on int8 pools) with
+    kernels against use_kernels='never' on the same pool, at full width and
+    depth, over context that an earlier forward_ragged call wrote: rows of
+    DECODE_WITNESS_LENS slots, long enough that their walks split. Limits:
+    compare_paths."""
+    from rbg_tpu_torch.engine.kvcache import PagedKVCache
+    from rbg_tpu_torch.models.config import get_config
+    from rbg_tpu_torch.models.llama import forward_paged, forward_ragged
+
+    V = get_config(model).vocab_size
+    rng = np.random.RandomState(6)
+    lens = DECODE_WITNESS_LENS
+    pages = [-(-(n + 1) // 16) for n in lens]
+    table = torch.zeros(len(lens), max(pages), dtype=torch.int32, device=dev)
+    for r, n in enumerate(pages):
+        table[r, :n] = torch.arange(1 + sum(pages[:r]), 1 + sum(pages[:r + 1]))
+
+    def ints(x):
+        return torch.tensor(x, dtype=torch.int32, device=dev)
+
+    rows = ints([r for r, n in enumerate(lens) for _ in range(n)])
+    pos = ints([[i for n in lens for i in range(n)]])
+    context = (torch.from_numpy(rng.randint(0, V, (1, rows.numel()))).to(dev), pos,
+               pos >= 0, rows, ints(lens))
+    pos = ints([[n] for n in lens])
+    step = (torch.from_numpy(rng.randint(0, V, (len(lens), 1))).to(dev), pos, pos >= 0,
+            ints([n + 1 for n in lens]))
+
+    def run(p, cfg, quantize):
+        """(kernel logits, plain logits) of the decode step, [B, V]."""
+        c = PagedKVCache.create(cfg, 1 + sum(pages), 16, device=dev, quantize=quantize)
+        pools = (c.k_pages, c.v_pages)
+        kw = dict(k_scales=c.k_scales, v_scales=c.v_scales)
+        forward_ragged(p, cfg, *context, table, *pools, **kw)
+        lk = forward_paged(p, cfg, *step, table, *pools, **kw)
+        lp = forward_paged(p, cfg, *step, table, *pools, use_kernels="never", **kw)
+        return lk[:, 0], lp[:, 0]
+
+    compare_paths(torch, params, model, kv_dtype, run, "decode_compare", len(lens))
 
 
 def check_launches(launches, kernels):
@@ -802,6 +916,7 @@ def llama_phases(torch, np, card):
     params = init_phase(torch, "llama3-8b")
     bf16 = engine_phase(torch, np, params, "llama3-8b", LLAMA_KERNELS, sampled=True)
     ragged_compare(torch, np, params, "llama3-8b")
+    decode_compare(torch, np, params, "llama3-8b")
     launches = {k: v for k, v in server_phase(torch, np, params, "llama3-8b",
                                               LLAMA_KERNELS, card).items()
                 if k in LLAMA_KERNELS}
@@ -814,6 +929,7 @@ def llama_phases(torch, np, card):
          note="a reading of the int8 pool's effect, not a check")
     launches.update({k: l8[k] for k in INT8_KERNELS})
     ragged_compare(torch, np, params, "llama3-8b", kv_dtype="int8")
+    decode_compare(torch, np, params, "llama3-8b", kv_dtype="int8")
     server_phase(torch, np, params, "llama3-8b", INT8_KERNELS, card, kv_dtype="int8")
     return launches
 

@@ -39,11 +39,13 @@ def dtype_code(q: torch.Tensor, *pools: torch.Tensor,
 
 def check_tensors(q: torch.Tensor, pools=(), int32=(), others=()) -> None:
     """Every tensor on q's CUDA device and contiguous; ``int32`` ones int32;
-    the pools 16-byte aligned for the kernels' vector loads."""
-    if not q.is_cuda:
+    the pools 16-byte aligned for the kernels' vector loads. (Device
+    indices, not ``Tensor.device`` objects: this runs before every launch.)"""
+    dev = q.get_device()
+    if dev < 0:
         raise ValueError(f"CUDA kernel needs CUDA tensors; got {q.device}")
     for t in (q, *pools, *int32, *others):
-        if t.device != q.device:
+        if t.get_device() != dev:
             raise ValueError(f"kernel inputs must share {q.device}; got {t.device}")
         if not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous")
@@ -53,6 +55,42 @@ def check_tensors(q: torch.Tensor, pools=(), int32=(), others=()) -> None:
     for t in pools:
         if t.data_ptr() % 16:
             raise ValueError("KV pools must be 16-byte aligned")
+
+
+# The int32 counts of the kernels that merge split walks on the card (A-D):
+# slot 0 is B and D's work queue head, slots 1 and 2 the last launch's work
+# items and grid blocks, the rest each split walk's finished-split count.
+_ITEMS, _GRID = 1, 2
+
+# Their scratch per (device index, stream), grown as needed: (float32
+# partials, int32 counts). The kernels' atomicInc wraps the queue head and
+# every split count back to 0 at its last use in a launch, so the counts
+# are zeroed once, when made, and launches on one stream reuse both buffers
+# in order.
+_SCRATCH: dict = {}
+
+
+def scratch(q: torch.Tensor, stream: int, n_part: int, n_counts: int):
+    """The merging kernels' scratch on q's device and ``stream``: at least
+    ``n_part`` float32 partials and ``n_counts`` int32 counts."""
+    key = (q.get_device(), stream)
+    part, counts = _SCRATCH.get(key, (None, None))
+    if part is None or part.numel() < n_part:
+        part = torch.empty(n_part, dtype=torch.float32, device=q.device)
+    if counts is None or counts.numel() < n_counts:
+        counts = torch.zeros(max(n_counts, 4096), dtype=torch.int32, device=q.device)
+    _SCRATCH[key] = part, counts
+    return part, counts
+
+
+def launch_report(device: torch.device) -> dict:
+    """What the last launch of A, B, C or D on ``device``'s current stream
+    derived, as the kernel wrote it: ``work_items`` (the items it ran) and
+    ``grid_blocks``. Waits for the stream."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    counts = _SCRATCH[(idx, torch.cuda.current_stream(idx).cuda_stream)][1]
+    items, grid = counts[_ITEMS:_GRID + 1].tolist()
+    return {"work_items": items, "grid_blocks": grid}
 
 
 def check_scales(k_pages: torch.Tensor, k_scales: torch.Tensor,

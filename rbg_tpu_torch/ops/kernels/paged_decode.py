@@ -1,7 +1,16 @@
-"""Wrapper of the paged decode attention kernel (``csrc/paged_decode.cu``),
-the port of ``rbg_tpu/ops/pallas/paged_attention_kernel.py``
-``paged_attention_pallas``. Its plain PyTorch version is
-``ops/paged_attention.py::paged_attention_plain``."""
+"""Wrapper of the paged decode attention kernel A (``csrc/paged_decode.cu``,
+body in ``csrc/paged_decode.cuh``), the port of
+``rbg_tpu/ops/pallas/paged_attention_kernel.py`` ``paged_attention_pallas``.
+Its plain PyTorch version is ``ops/paged_attention.py::paged_attention_plain``.
+
+Each work item of A (and of C, ``paged_decode_q.py``) is a row, a kv head
+and one of ``ns`` contiguous parts of the row's walk in ``KV_BLOCK``-slot
+blocks, ``ns = min(cap, ceil(blocks / 2))`` from the row's own kv_len and
+``cap = split_cap(B, KV)`` (``csrc/paged_decode.cuh``); the split that
+finishes last merges the others' partials on the card. The kernel takes hd
+in ``HEAD_DIMS``, G <= 16 and a page size that divides ``KV_BLOCK``;
+``check_decode`` refuses anything else with a ``ValueError`` before any
+launch."""
 
 from __future__ import annotations
 
@@ -9,15 +18,20 @@ import ctypes
 
 import torch
 
-from rbg_tpu_torch.ops.kernels import LAUNCHES, check_tensors, dtype_code
+from rbg_tpu_torch.ops.kernels import LAUNCHES, check_tensors, dtype_code, scratch
 from rbg_tpu_torch.ops.kernels.build import check, load_function
 
 MAX_GROUP = 16          # query heads per kv head the shared-memory plan holds
 MAX_HEAD_DIM = 256
+KV_BLOCK = 64           # KV slots per pipeline step; the page size must divide it
+HEAD_DIMS = (32, 64, 128)   # the decode kernels' template instances
+MAX_SPLITS = 16         # the decode kernels' largest cap (pd::kMaxSplits in the source)
+TARGET_ITEMS = 512      # B * KV blocks at which a decode walk no longer splits
+_DONE0 = 3              # first (row, kv head) count in the counts buffer
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
-             _I, _P)
+_ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+             ctypes.c_float, _I, _I, _P)
 
 
 def check_shapes(name: str, q: torch.Tensor, k_pages: torch.Tensor,
@@ -38,32 +52,56 @@ def check_shapes(name: str, q: torch.Tensor, k_pages: torch.Tensor,
 
 
 def check_decode(name: str, q, k_pages, v_pages, page_table, kv_lens):
-    """Decode kernels' argument checks; returns (B, KV, G, hd, page)."""
+    """Decode kernels' argument checks: ``check_shapes``, T == 1, hd in
+    HEAD_DIMS, a page size dividing KV_BLOCK and q 16-byte aligned.
+    Returns (B, KV, G, hd, page)."""
     B, T = q.shape[:2]
     if T != 1:
         raise ValueError(f"{name} takes decode steps (T == 1), got T={T}")
     KV, G, hd, page = check_shapes(name, q, k_pages, v_pages)
+    if hd not in HEAD_DIMS or KV_BLOCK % page:
+        raise ValueError(f"{name} takes hd in {HEAD_DIMS} and a page size dividing "
+                         f"{KV_BLOCK}; got hd={hd} page={page}")
     if page_table.dim() != 2 or page_table.shape[0] != B or kv_lens.shape != (B,):
         raise ValueError("page_table must be [B, P] and kv_lens [B]")
     check_tensors(q, pools=(k_pages, v_pages), int32=(page_table, kv_lens))
+    if q.data_ptr() % 16:
+        raise ValueError(f"{name} needs q 16-byte aligned")
     return B, KV, G, hd, page
+
+
+def split_cap(B: int, KV: int) -> int:
+    """Most parts a row's walk splits into at this launch size: enough for
+    about TARGET_ITEMS blocks, none once B * KV blocks reach it."""
+    return min(MAX_SPLITS, max(1, -(-TARGET_ITEMS // max(1, B * KV))))
+
+
+def decode_scratch(q: torch.Tensor, stream: int, B: int, KV: int, G: int, hd: int,
+                   cap: int):
+    """A and C's share of the merging kernels' scratch on ``stream``:
+    float32 partials [B * KV, cap, G, hd + 4] and a count per (row, kv
+    head) after the first _DONE0."""
+    return scratch(q, stream, B * KV * cap * G * (hd + 4), _DONE0 + B * KV)
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, page_table: torch.Tensor,
                            kv_lens: torch.Tensor) -> torch.Tensor:
     """q [B, 1, H, hd]; pools [NP, page, KV, hd] in q's dtype; page_table
-    [B, P] int32; kv_lens [B] int32. Returns [B, 1, H, hd] in q's dtype."""
+    [B, P] int32; kv_lens [B] int32. Returns [B, 1, H, hd] in q's dtype.
+    Shape limits: ``check_decode``."""
     B, KV, G, hd, page = check_decode("paged_decode", q, k_pages, v_pages,
                                       page_table, kv_lens)
     code = dtype_code(q, k_pages, v_pages)
     out = torch.empty_like(q)
-    fn = load_function("paged_decode", _ARGTYPES)
-    with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                page_table.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
-                B, KV, G, hd, page, page_table.shape[1], hd ** -0.5, code,
-                torch.cuda.current_stream(q.device).cuda_stream)
+    dev = q.get_device()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    cap = split_cap(B, KV)
+    part, counts = decode_scratch(q, stream, B, KV, G, hd, cap)
+    rc = load_function("paged_decode", _ARGTYPES)(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
+        kv_lens.data_ptr(), out.data_ptr(), part.data_ptr(), counts.data_ptr(), B, KV,
+        G, hd, page, page_table.shape[1], cap, hd ** -0.5, code, dev, stream)
     check("paged_decode", rc)
     if B:
         LAUNCHES["paged_decode"] += 1

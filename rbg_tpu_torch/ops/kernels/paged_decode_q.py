@@ -1,8 +1,9 @@
-"""Wrapper of the int8-pool paged decode attention kernel
-(``csrc/paged_decode_q.cu``), the port of
-``rbg_tpu/ops/pallas/paged_attention_kernel.py`` ``paged_attention_pallas_q``.
-Its plain PyTorch version is ``ops/paged_attention.py::paged_attention_plain``
-with scales."""
+"""Wrapper of the int8-pool paged decode attention kernel C
+(``csrc/paged_decode_q.cu``, kernel A's body in ``csrc/paged_decode.cuh``),
+the port of ``rbg_tpu/ops/pallas/paged_attention_kernel.py``
+``paged_attention_pallas_q``. Its plain PyTorch version is
+``ops/paged_attention.py::paged_attention_plain`` with scales. Work items,
+splits and shape limits: ``paged_decode.py``."""
 
 from __future__ import annotations
 
@@ -13,11 +14,12 @@ import torch
 from rbg_tpu_torch.ops.kernels import (LAUNCHES, check_scales, check_tensors,
                                        dtype_code)
 from rbg_tpu_torch.ops.kernels.build import check, load_function
-from rbg_tpu_torch.ops.kernels.paged_decode import check_decode
+from rbg_tpu_torch.ops.kernels.paged_decode import (check_decode, decode_scratch,
+                                                    split_cap)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-             ctypes.c_float, _I, _P)
+_ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+             ctypes.c_float, _I, _I, _P)
 
 
 def paged_decode_attention_q(q: torch.Tensor, k_pages: torch.Tensor,
@@ -33,13 +35,15 @@ def paged_decode_attention_q(q: torch.Tensor, k_pages: torch.Tensor,
     check_tensors(q, others=(k_scales, v_scales))
     code = dtype_code(q, k_pages, v_pages, pool_dtype=torch.int8)
     out = torch.empty_like(q)
-    fn = load_function("paged_decode_q", _ARGTYPES)
-    with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                k_scales.data_ptr(), v_scales.data_ptr(), page_table.data_ptr(),
-                kv_lens.data_ptr(), out.data_ptr(), B, KV, G, hd, page,
-                page_table.shape[1], hd ** -0.5, code,
-                torch.cuda.current_stream(q.device).cuda_stream)
+    dev = q.get_device()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    cap = split_cap(B, KV)
+    part, counts = decode_scratch(q, stream, B, KV, G, hd, cap)
+    rc = load_function("paged_decode_q", _ARGTYPES)(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), k_scales.data_ptr(),
+        v_scales.data_ptr(), page_table.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
+        part.data_ptr(), counts.data_ptr(), B, KV, G, hd, page, page_table.shape[1], cap,
+        hd ** -0.5, code, dev, stream)
     check("paged_decode_q", rc)
     if B:
         LAUNCHES["paged_decode_q"] += 1

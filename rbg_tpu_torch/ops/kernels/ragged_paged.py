@@ -19,18 +19,18 @@ import ctypes
 import torch
 
 from rbg_tpu_torch.ops.kernels import LAUNCHES, check_tensors, dtype_code
+from rbg_tpu_torch.ops.kernels import scratch as _scratch
 from rbg_tpu_torch.ops.kernels.build import check, load_function
-from rbg_tpu_torch.ops.kernels.paged_decode import check_shapes
+from rbg_tpu_torch.ops.kernels.paged_decode import KV_BLOCK, check_shapes
 
 TILE_ROWS = 64          # query rows per block: tile_tokens(G) tokens x G heads
-KV_BLOCK = 64           # KV slots per pipeline step; the page size must divide it
 MAX_ROWS = 1024         # table rows the kernel's shared row counts hold
 HEAD_DIMS = (64, 128)   # the kernel's template instances
 MAX_SPLITS = 4          # items of one tile's walk at most (kMaxSplits in the source)
 # The int32 counts (kHeadSlot.. in the source): the work queue's head, the
 # last launch's work items and grid blocks, then each (tile, kv head)'s
-# finished splits.
-_HEAD, _ITEMS, _GRID, _TILES = 0, 1, 2, 3
+# finished splits (``ops/kernels/__init__.py``).
+_HEAD, _TILES = 0, 3
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -68,38 +68,15 @@ def check_ragged_shapes(name: str, q, k_pages, v_pages, page_table):
     return KV, G, hd, page
 
 
-# Scratch per (device, stream), grown as needed: (float32 partials, int32
-# counts). The kernel's atomicInc wraps the queue head and every split count
-# back to 0 at its last use in a launch, so the counts are zeroed once, when
-# made, and launches on one stream reuse both buffers in order.
-_SCRATCH: dict = {}
-
-
 def scratch(q: torch.Tensor, stream: int, R: int, KV: int, G: int, hd: int):
-    """The kernels' scratch on ``stream``: float32 partials for the
-    cross-block merge, [T * G, KV, MAX_SPLITS, hd + 4] (a split tile's
-    query rows, numbered by live token), and the counts, _TILES + (tiles
-    bound) * KV of them, tiles bound = ceil(T / tile_tokens(G)) + R."""
+    """B and D's share of the merging kernels' scratch on ``stream``
+    (``ops/kernels/__init__.py``): float32 partials for the cross-block
+    merge, [T * G, KV, MAX_SPLITS, hd + 4] (a split tile's query rows,
+    numbered by live token), and the counts, _TILES + (tiles bound) * KV of
+    them, tiles bound = ceil(T / tile_tokens(G)) + R."""
     T = q.shape[1]
-    n_part = T * G * KV * MAX_SPLITS * (hd + 4)
-    n_counts = _TILES + (-(-T // tile_tokens(G)) + R) * KV
-    part, counts = _SCRATCH.get((q.device, stream), (None, None))
-    if part is None or part.numel() < n_part:
-        part = torch.empty(n_part, dtype=torch.float32, device=q.device)
-    if counts is None or counts.numel() < n_counts:
-        counts = torch.zeros(max(n_counts, 4096), dtype=torch.int32, device=q.device)
-    _SCRATCH[(q.device, stream)] = part, counts
-    return part, counts
-
-
-def launch_report(device: torch.device) -> dict:
-    """What the last launch of B or D on ``device``'s current stream
-    derived, as the kernel wrote it: ``work_items`` ((tile split, kv head)
-    items it ran) and ``grid_blocks`` (its persistent blocks). Waits for
-    the stream."""
-    counts = _SCRATCH[(device, torch.cuda.current_stream(device).cuda_stream)][1]
-    items, grid = counts[_ITEMS:_GRID + 1].tolist()
-    return {"work_items": items, "grid_blocks": grid}
+    return _scratch(q, stream, T * G * KV * MAX_SPLITS * (hd + 4),
+                    _TILES + (-(-T // tile_tokens(G)) + R) * KV)
 
 
 def ragged_paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Two trees of the PyTorch/CUDA port in turns on one card: kernels B and D,
-one ragged step of llama3-8b, and the server's TTFT.
+"""Two trees of the PyTorch/CUDA port in turns on one card: kernels A-D,
+one ragged step and one decode step of llama3-8b, and the server's TTFT.
 
     python3 scripts/torch_ab.py BASE_TREE [NEW_TREE]
 
@@ -13,11 +13,17 @@ prints, as JSON lines:
 - ``kernels``: B and D on ``chip_smoke``'s llama3-8b mixed pack: device ms
   per call (``chip_smoke.cuda_ms``, L2 flushed) and host microseconds per
   call (median of 3 runs of 200 calls issued back to back);
+- ``decode``: A and C the same way on ``chip_smoke.decode_case`` at the
+  llama3-8b shape, B = 8 rows of kv_len 2048 .. 65 and a B = 64 bucket of
+  kv_len 64 + 10 i (lengths passed here, so an older tree serves too);
 - ``step``: ``forward_ragged`` at full depth (llama3-8b, random weights from
   seed 0, bf16 pools) on the server's first ragged step (7 + 40 + 64 + 64
   tokens in a 256-token bucket): median wall ms of 10 synchronised steps,
   device ms per step summed over the profiler's kernels, the device's busy
   share, and the eight kernels that take the most device time;
+- ``decode_step``: ``forward_paged`` at full depth, one decode step of B = 8
+  rows over contexts of kv_len 2048 .. 65, on bf16 and on int8 pools: the
+  same readings, plus the device ms of kernel A or C per step;
 - ``server``: ``chip_smoke.server_phase`` (4 concurrent requests, prompts
   of 7, 40, 130 and 300 tokens) over bf16 and then int8 pools.
 
@@ -38,8 +44,10 @@ from torch.profiler import ProfilerActivity, profile
 import chip_smoke as cs
 from rbg_tpu_torch.engine.kvcache import PagedKVCache
 from rbg_tpu_torch.models.config import get_config
-from rbg_tpu_torch.models.llama import forward_ragged
+from rbg_tpu_torch.models.llama import forward_paged, forward_ragged
 from rbg_tpu_torch.ops.kernels.build import build
+from rbg_tpu_torch.ops.kernels.paged_decode import paged_decode_attention
+from rbg_tpu_torch.ops.kernels.paged_decode_q import paged_decode_attention_q
 from rbg_tpu_torch.ops.kernels.ragged_paged import ragged_paged_attention_cuda
 from rbg_tpu_torch.ops.kernels.ragged_paged_q import ragged_paged_attention_q_cuda
 from rbg_tpu_torch.ops.paged_attention import quantize_kv
@@ -68,9 +76,22 @@ flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
 calls = {"B": lambda: ragged_paged_attention_cuda(q, k, v, table, qpos, kv_lens, rows),
          "D": lambda: ragged_paged_attention_q_cuda(q, k8, v8, ks, vs, table, qpos,
                                                     kv_lens, rows)}
-emit("kernels", **{n: {"ms": cs.cuda_ms(torch, f, flush),
-                       "host_us": statistics.median(host_us(f) for _ in range(3))}
-                   for n, f in calls.items()})
+
+def readings(calls):
+    return {n: {"ms": cs.cuda_ms(torch, f, flush),
+                "host_us": statistics.median(host_us(f) for _ in range(3))}
+            for n, f in calls.items()}
+
+emit("kernels", **readings(calls))
+DECODE_LENS = [2048, 1900, 1536, 1200, 1024, 700, 333, 65]
+dec = {}
+for label, lens in (("B8", DECODE_LENS), ("B64", [64 + 10 * i for i in range(64)])):
+    q, k, v, table, _, kv_lens = cs.decode_case(torch, np, 8, 4, 128, lens)
+    (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+    dec[label] = readings({
+        "A": lambda: paged_decode_attention(q, k, v, table, kv_lens),
+        "C": lambda: paged_decode_attention_q(q, k8, v8, ks, vs, table, kv_lens)})
+emit("decode", **dec)
 del q, k, v, k8, v8, flush
 
 params = cs.init_phase(torch, "llama3-8b")
@@ -94,28 +115,53 @@ def step():
     forward_ragged(params, cfg, tok, pos, pos >= 0, rows, kv_lens, table,
                    cache.k_pages, cache.v_pages, max_q_len=64)
 
-for _ in range(3):
-    step()
-torch.cuda.synchronize()
-walls = []
-for _ in range(10):
-    t0 = time.perf_counter()
-    step()
+# Median wall ms of 10 synchronised calls of fn, device ms per call by
+# kernel over 5 more under the profiler.
+def profiled(fn, what, **kw):
+    for _ in range(3):
+        fn()
     torch.cuda.synchronize()
-    walls.append((time.perf_counter() - t0) * 1e3)
-n = 5
-with profile(activities=[ProfilerActivity.CUDA]) as prof:
-    for _ in range(n):
-        step()
-    torch.cuda.synchronize()
-kern = {}
-for e in prof.key_averages():
-    if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
-        kern[e.key[:60]] = kern.get(e.key[:60], 0.0) + e.self_device_time_total / n / 1e3
-wall, dev = statistics.median(walls), sum(kern.values())
-emit("step", wall_ms=wall, wall_ms_runs=walls, device_ms=dev, device_busy_share=dev / wall,
-     top_kernels_ms=sorted(kern.items(), key=lambda kv: -kv[1])[:8])
+    walls = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    n = 5
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kern = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+            kern[e.key[:60]] = kern.get(e.key[:60], 0.0) + e.self_device_time_total / n / 1e3
+    wall, dev = statistics.median(walls), sum(kern.values())
+    attn = sum(ms for key, ms in kern.items() if "paged_decode_kernel" in key)
+    emit(what, **kw, wall_ms=wall, wall_ms_runs=walls, device_ms=dev,
+         decode_kernel_ms=attn, device_busy_share=dev / wall,
+         top_kernels_ms=sorted(kern.items(), key=lambda kv: -kv[1])[:8])
+
+profiled(step, "step")
 del cache
+
+# One decode step of B = 8 rows over contexts of DECODE_LENS slots (the
+# pools' contents do not change the kernels' work).
+pages = [-(-(n + 1) // 16) for n in DECODE_LENS]
+table = torch.zeros(len(pages), max(pages), dtype=torch.int32, device="cuda")
+for r, n in enumerate(pages):
+    table[r, :n] = torch.arange(1 + sum(pages[:r]), 1 + sum(pages[:r + 1]))
+tok = torch.randint(0, cfg.vocab_size, (len(pages), 1), generator=g, device="cuda")
+pos = torch.tensor([[n] for n in DECODE_LENS], dtype=torch.int32, device="cuda")
+kv_lens = pos[:, 0] + 1
+for kv_dtype in ("model", "int8"):
+    cache = PagedKVCache.create(cfg, 1 + sum(pages), 16, device="cuda",
+                                quantize=kv_dtype == "int8")
+    profiled(lambda: forward_paged(params, cfg, tok, pos, pos >= 0, kv_lens, table,
+                                   cache.k_pages, cache.v_pages, k_scales=cache.k_scales,
+                                   v_scales=cache.v_scales),
+             "decode_step", kv_dtype=kv_dtype)
+    del cache
 
 cs.server_phase(torch, np, params, "llama3-8b", cs.LLAMA_KERNELS, card)
 cs.server_phase(torch, np, params, "llama3-8b", cs.INT8_KERNELS, card, kv_dtype="int8")
@@ -153,9 +199,16 @@ def main(argv) -> int:
                 for k in ("B", "D"):
                     keep(which, f"{k}_ms", line[k]["ms"])
                     keep(which, f"{k}_host_us", line[k]["host_us"])
-            elif line.get("what") == "step":
-                keep(which, "step_wall_ms", line["wall_ms"])
-                keep(which, "step_device_ms", line["device_ms"])
+            elif line.get("what") == "decode":
+                for label, calls in line.items():
+                    if label in ("B8", "B64"):
+                        for k, r in calls.items():
+                            keep(which, f"{label}_{k}_ms", r["ms"])
+                            keep(which, f"{label}_{k}_host_us", r["host_us"])
+            elif line.get("what") in ("step", "decode_step"):
+                name = line["what"] + (f"/{line['kv_dtype']}" if "kv_dtype" in line else "")
+                for k in ("wall_ms", "device_ms", "decode_kernel_ms"):
+                    keep(which, f"{name}_{k}", line[k])
             elif line.get("phase") == "server":
                 keep(which, f"ttft_s/{line['kv_dtype']}", line["ttft_s"])
             else:

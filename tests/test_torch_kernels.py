@@ -54,12 +54,34 @@ def _pool(rng, dev, dtype, NP, page, KV, hd):
     return k.to(dev, dtype), v.to(dev, dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("KV,G,hd", [(8, 4, 128), (2, 7, 64), (2, 2, 32)])
-def test_paged_decode_matches_plain(dev, dtype, KV, G, hd):
-    rng = np.random.RandomState(0)
-    page, P = 16, 12
-    kv_lens_l = [1, 15, 16, 17, 100, P * page, 33, 0]
+# The kernels phase's decode rows (chip_smoke.DECODE_LENS).
+DECODE_LENS = [2048, 1900, 1536, 1200, 1024, 700, 333, 65]
+
+
+def _decode_case(case):
+    """(kv_lens, table width P) of a decode case of kernels A and C."""
+    if case == "mixed":
+        return [1, 15, 16, 17, 100, 12 * 16, 33, 0], 12
+    if case == "split":     # rows whose walks split, and a kv_len-0 row
+        return DECODE_LENS + [0], 128
+    if case == "edges":     # one slot, whole KV blocks, one slot past a block edge
+        return [1, 64, 65, 128, 129, 256, 257, 0], 17
+    if case == "long":      # an 8192-slot row in a 512-page table
+        return [8192, 3, 4000], 512
+    assert case == "bucket64"   # B = 64, every other row a bucket pad
+    return [0 if i % 2 else 5 + 11 * i for i in range(64)], 43
+
+
+DECODE_CASES = [(8, 4, 128, "mixed"), (2, 7, 64, "mixed"), (2, 2, 32, "mixed"),
+                (8, 4, 128, "split"), (2, 7, 64, "split"), (1, 16, 128, "split"),
+                (8, 4, 128, "edges"), (2, 7, 64, "edges"), (2, 2, 32, "edges"),
+                (1, 16, 128, "edges"), (8, 4, 128, "long"), (2, 7, 64, "long"),
+                (8, 4, 128, "bucket64"), (2, 7, 64, "bucket64")]
+
+
+def _decode_inputs(rng, dev, dtype, KV, G, hd, case, page=16):
+    """(q, k, v, table, pos, kv_lens) of a decode case, pools in dtype."""
+    kv_lens_l, P = _decode_case(case)
     B = len(kv_lens_l)
     NP = B * P + 1
     k, v = _pool(rng, dev, dtype, NP, page, KV, hd)
@@ -68,13 +90,21 @@ def test_paged_decode_matches_plain(dev, dtype, KV, G, hd):
     kv_lens = torch.tensor(kv_lens_l, dtype=torch.int32, device=dev)
     q = torch.from_numpy(rng.randn(B, 1, KV * G, hd).astype(np.float32)).to(dev, dtype)
     pos = (kv_lens - 1).clamp(min=0)[:, None]
+    return q, k, v, table, pos, kv_lens
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("KV,G,hd,case", DECODE_CASES)
+def test_paged_decode_matches_plain(dev, dtype, KV, G, hd, case):
+    rng = np.random.RandomState(0)
+    q, k, v, table, pos, kv_lens = _decode_inputs(rng, dev, dtype, KV, G, hd, case)
     reset_launches()
     got = paged_attention(q, k, v, table, pos, kv_lens, use_kernels="always")
     torch.cuda.synchronize()
     assert LAUNCHES["paged_decode"] == 1
     ref = paged_attention_plain(q, k, v, table, pos, kv_lens)
     torch.testing.assert_close(got.float(), ref.float(), **_tol(dtype))
-    assert torch.all(got[-1] == 0)      # kv_len 0 gives 0
+    assert torch.all(got[kv_lens == 0] == 0)      # kv_len 0 gives 0
 
 
 def _ragged_case(rng, dev, dtype, specs, KV, G, hd, page=16, P=8, pads=0,
@@ -128,10 +158,11 @@ TILE_LAYOUTS = ["chunk_tiles", "limit_in_block", "tile_exact", "many_rows",
 
 
 def _split_counts_zero():
-    """Kernels B and D leave their work queue and split counts at 0 after a
+    """Kernels A-D leave their work queue and split counts at 0 after a
     launch, ready for the next one on the stream (the slots between hold
     the launch's report)."""
-    from rbg_tpu_torch.ops.kernels.ragged_paged import _HEAD, _SCRATCH, _TILES
+    from rbg_tpu_torch.ops.kernels import _SCRATCH
+    from rbg_tpu_torch.ops.kernels.ragged_paged import _HEAD, _TILES
     return bool(_SCRATCH) and all(
         int(c[_HEAD]) == 0 and int(c[_TILES:].count_nonzero()) == 0
         for _, c in _SCRATCH.values())
@@ -191,20 +222,12 @@ def _quantized(k, v):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("KV,G,hd", [(8, 4, 128), (2, 7, 64), (2, 2, 32)])
-def test_paged_decode_q_matches_plain(dev, dtype, KV, G, hd):
+@pytest.mark.parametrize("KV,G,hd,case", DECODE_CASES)
+def test_paged_decode_q_matches_plain(dev, dtype, KV, G, hd, case):
     """Kernel C against the plain version on the same int8 pool."""
     rng = np.random.RandomState(3)
-    page, P = 16, 12
-    kv_lens_l = [1, 15, 16, 17, 100, P * page, 33, 0]
-    B = len(kv_lens_l)
-    NP = B * P + 1
-    kq, vq, ks, vs = _quantized(*_pool(rng, dev, dtype, NP, page, KV, hd))
-    table = torch.from_numpy((rng.permutation(NP - 1)[:B * P] + 1)
-                             .reshape(B, P).astype(np.int32)).to(dev)
-    kv_lens = torch.tensor(kv_lens_l, dtype=torch.int32, device=dev)
-    q = torch.from_numpy(rng.randn(B, 1, KV * G, hd).astype(np.float32)).to(dev, dtype)
-    pos = (kv_lens - 1).clamp(min=0)[:, None]
+    q, k, v, table, pos, kv_lens = _decode_inputs(rng, dev, dtype, KV, G, hd, case)
+    kq, vq, ks, vs = _quantized(k, v)
     reset_launches()
     got = paged_attention(q, kq, vq, table, pos, kv_lens, use_kernels="always",
                           k_scales=ks, v_scales=vs)
@@ -212,7 +235,70 @@ def test_paged_decode_q_matches_plain(dev, dtype, KV, G, hd):
     assert LAUNCHES["paged_decode_q"] == 1 and LAUNCHES["paged_decode"] == 0
     ref = paged_attention_plain(q, kq, vq, table, pos, kv_lens, ks, vs)
     torch.testing.assert_close(got.float(), ref.float(), **_tol(dtype))
-    assert torch.all(got[-1] == 0)      # kv_len 0 gives 0
+    assert torch.all(got[kv_lens == 0] == 0)      # kv_len 0 gives 0
+
+
+# The kernels phase's decode rows in 64-slot KV blocks: 32, 30, 24, 19, 16,
+# 11, 6 and 2. Each splits into min(cap, ceil(blocks / 2)) walks, cap =
+# min(16, ceil(512 / (B * KV))). At B = 8, KV = 8 the cap is 8: 8 + 8 + 8 +
+# 8 + 8 + 6 + 3 + 1 = 50 items per kv head on a grid of 64 x 8 blocks; at
+# KV = 2 it is 16: 16 + 15 + 12 + 10 + 8 + 6 + 3 + 1 = 71 on 16 x 16 (the
+# grid's rows: min(cap, ceil(ceil(P * 16 / 64) / 2)), the same at P = 128
+# and 512).
+@pytest.mark.parametrize("KV,G,hd,want,grid", [(8, 4, 128, 50, 64 * 8),
+                                               (2, 7, 64, 71, 16 * 16)])
+@pytest.mark.parametrize("pools", ["bf16", "int8"])
+def test_paged_decode_work_items(dev, KV, G, hd, want, grid, pools):
+    """The work items kernels A and C report for the kernels phase's rows,
+    read back from their counts; the same output, bit for bit, in a table
+    4x wider and from a second launch; the split counts back at 0."""
+    from rbg_tpu_torch.ops.kernels import launch_report
+    from rbg_tpu_torch.ops.kernels.paged_decode import paged_decode_attention
+    from rbg_tpu_torch.ops.kernels.paged_decode_q import paged_decode_attention_q
+    rng = np.random.RandomState(14)
+    q, k, v, table, pos, kv_lens = _decode_inputs(rng, dev, torch.bfloat16, KV, G, hd,
+                                                  "split")
+    q, table, pos, kv_lens = q[:-1], table[:-1], pos[:-1], kv_lens[:-1]  # DECODE_LENS
+    if pools == "int8":
+        kq, vq, ks, vs = _quantized(k, v)
+        fn = lambda t: paged_decode_attention_q(q, kq, vq, ks, vs, t, kv_lens)  # noqa: E731
+        ref = paged_attention_plain(q, kq, vq, table, pos, kv_lens, ks, vs)
+    else:
+        fn = lambda t: paged_decode_attention(q, k, v, t, kv_lens)  # noqa: E731
+        ref = paged_attention_plain(q, k, v, table, pos, kv_lens)
+    got = fn(table)
+    assert launch_report(q.device) == {"work_items": want * KV, "grid_blocks": grid}
+    wide = torch.nn.functional.pad(table, (0, 512 - table.shape[1]))
+    assert torch.equal(fn(wide), got)
+    assert launch_report(q.device) == {"work_items": want * KV, "grid_blocks": grid}
+    assert torch.equal(fn(table), got)
+    torch.cuda.synchronize()
+    assert _split_counts_zero()
+    torch.testing.assert_close(got.float(), ref.float(), **_tol(torch.bfloat16))
+
+
+def test_decode_wrappers_refuse_unsupported_shapes(dev):
+    """Kernels A and C take hd 32, 64 or 128, G <= 16 and a page size
+    dividing 64; anything else is a ValueError before any launch, never
+    the plain version."""
+    from rbg_tpu_torch.ops.kernels.paged_decode import paged_decode_attention
+    from rbg_tpu_torch.ops.kernels.paged_decode_q import paged_decode_attention_q
+    rng = np.random.RandomState(15)
+    reset_launches()
+    for KV, G, hd, page in [(2, 2, 96, 16), (2, 2, 64, 12), (1, 17, 64, 16)]:
+        k, v = _pool(rng, dev, torch.bfloat16, 5, page, KV, hd)
+        kq, vq, ks, vs = _quantized(k, v)
+        table = torch.arange(1, 5, dtype=torch.int32, device=dev).reshape(2, 2)
+        lens = torch.tensor([page + 1, 3], dtype=torch.int32, device=dev)
+        q = torch.from_numpy(rng.randn(2, 1, KV * G, hd).astype(np.float32)).to(
+            dev, torch.bfloat16)
+        with pytest.raises(ValueError):
+            paged_decode_attention(q, k, v, table, lens)
+        with pytest.raises(ValueError):
+            paged_decode_attention_q(q, kq, vq, ks, vs, table, lens)
+        with pytest.raises(ValueError):     # the dispatcher does not fall back
+            paged_attention(q, k, v, table, (lens - 1)[:, None], lens)
+    assert LAUNCHES["paged_decode"] == LAUNCHES["paged_decode_q"] == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -262,8 +348,8 @@ def test_ragged_kernel_work_items(dev, KV, G, hd, want, P):
     back from its counts: each row's split follows its own kv_len, so a
     table 4x wider than the longest row (P = 512) gives the same items and
     the same output."""
-    from rbg_tpu_torch.ops.kernels.ragged_paged import (launch_report,
-                                                        ragged_paged_attention_cuda)
+    from rbg_tpu_torch.ops.kernels import launch_report
+    from rbg_tpu_torch.ops.kernels.ragged_paged import ragged_paged_attention_cuda
     rng = np.random.RandomState(13)
     q, k, v, table, qpos, lens, rows = _ragged_case(rng, dev, torch.bfloat16, MIXED_SPEC,
                                                     KV, G, hd, P=128, pads=252)
