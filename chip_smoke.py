@@ -13,16 +13,23 @@ Phases, each printing one JSON line:
              on int8 pools made by the port's quantize_kv; I on B's pack),
              E-H at deepseek-v2-lite (H=16) and deepseek-v3 (H=128) shapes
              (G and H on the same latent pools quantized): error, kernel
-             time, plain time, one PyTorch library call on the same inputs
-             (SDPA on the gathered view, a yardstick the port never calls)
-             and the least time the card could take (bound). A-D and I
-             also give host_us, the host's time per call; A-D give
-             work_items and grid_blocks as the kernel wrote them back, and
-             their time on the same case in a table WIDE_P pages wide
-             (output equal bit for bit); A and C also their kernel's own
-             device time (device_ms, torch.profiler) and a B=64 decode
-             bucket of short rows (bucket64).
-4. llama3-8b at full width and depth, random weights from a seed:
+             time (ms: CUDA events, so whatever wrapper host time the L2
+             flush does not hide counts), the kernel's own device time
+             (device_ms, torch.profiler), plain time, one PyTorch library
+             call on the same inputs (SDPA on the gathered view, a
+             yardstick the port never calls) and the least time the card
+             could take (bound). A-E, G and I also give host_us, the
+             host's time per call; A-E and G give work_items and
+             grid_blocks as the kernel wrote them back, and their time on
+             the same case in a table WIDE_P pages wide (output equal bit
+             for bit); A and C also a B=64 decode bucket of short rows
+             (bucket64).
+4. tiny    — tiny and tiny-moe (float32, hd 32; kernels A, B) through
+             Engine on the card, greedy tokens equal to the CPU port's on
+             the same weights; then ``python -m rbg_tpu_torch.engine.server``
+             with its defaults (tiny on the card), two requests whose greedy
+             tokens equal the CPU port's.
+5. llama3-8b at full width and depth, random weights from a seed:
    engine  — Engine (bf16 pools; kernels A, B): a request steps into
              decode, a second joins so one ragged step holds a decode row
              and a prefill chunk, both run to completion (multi_step 1
@@ -38,12 +45,12 @@ Phases, each printing one JSON line:
    int8    — the same engine script with kv_dtype="int8" (kernels C, D),
              multi_step 4, its two witnesses on int8 pools and the server
              over int8 pools.
-5. deepseek-v2-lite (MLA + MoE) at full width and depth, random weights
+6. deepseek-v2-lite (MLA + MoE) at full width and depth, random weights
    from a seed, after llama3-8b is freed: engine (kernels E, F; multi_step
-   1 and 4), witness and server, as for llama3-8b; then on the same
-   weights over int8 latent pools (kernels G, H): engine (multi_step 4),
-   int8 witness and server.
-6. ragged_ab — rbg_tpu_torch.bench.block_ragged_probe: kernel I against
+   1 and 4), witnesses (ragged_compare and decode_compare) and server, as
+   for llama3-8b; then on the same weights over int8 latent pools
+   (kernels G, H): engine (multi_step 4), int8 witnesses and server.
+7. ragged_ab — rbg_tpu_torch.bench.block_ragged_probe: kernel I against
    kernel B on a prefill-heavy pack, both checked against the plain
    version, then interleaved timed reps.
 
@@ -57,10 +64,14 @@ runs.
 
 import gc
 import json
+import os
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
@@ -377,9 +388,12 @@ def gqa_kernel_cases(torch, np, flush, out):
                     raise AssertionError(f"{name} {model}: output moved with the table width")
                 extra["wide_table"] = dict(P=WIDE_P, **launch_report(q.device),
                                            ms=cuda_ms(torch, lambda: fn(wide), flush))
+            symbol = ("ragged_paged_tokengrid_kernel" if name == "ragged_paged_tokengrid"
+                      else "ragged_paged_kernel")
             out[name].append(dict(
                 model=model, KV=KV, G=G, hd=hd, T=int(q.shape[1]), rows=spec, **extra,
                 max_abs_err=err, ms=cuda_ms(torch, fn, flush),
+                device_ms=device_ms(torch, fn, flush, symbol),
                 plain_ms=cuda_ms(torch, plain, flush, iters=5),
                 library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
                     qh, kg, vg, attn_mask=mask, enable_gqa=True), flush),
@@ -399,9 +413,12 @@ def latent_pools(torch, NP, dc, dr, seed, page=16):
 
 def mla_kernel_cases(torch, np, flush, out):
     """Kernels E and F, and G and H on the same latent pools quantized, at
-    the deepseek-v2-lite and deepseek-v3 shapes."""
+    the deepseek-v2-lite and deepseek-v3 shapes. E and G also give
+    host_us, the work items and grid their launch reported, and the same
+    case in a table WIDE_P pages wide (output equal bit for bit)."""
     import torch.nn.functional as F
 
+    from rbg_tpu_torch.ops.kernels import launch_report
     from rbg_tpu_torch.ops.kernels.paged_mla_decode import paged_mla_decode_attention
     from rbg_tpu_torch.ops.kernels.paged_mla_decode_q import paged_mla_decode_attention_q
     from rbg_tpu_torch.ops.kernels.ragged_paged_mla import ragged_paged_mla_attention_cuda
@@ -436,16 +453,25 @@ def mla_kernel_cases(torch, np, flush, out):
         # E on bf16 latent pools; G on the same pools quantized by quantize_kv.
         for name, elem, fn, plain, view in (
                 ("paged_mla_decode", 2,
-                 lambda: paged_mla_decode_attention(q_lat, q_pe, c, pe, table, kv_lens,
-                                                    scale),
+                 lambda t=table: paged_mla_decode_attention(q_lat, q_pe, c, pe, t, kv_lens,
+                                                            scale),
                  lambda: paged_mla_attention_plain(q_lat, q_pe, c, pe, table, pos,
                                                    kv_lens, scale), (c, pe)),
                 ("paged_mla_decode_q", 1,
-                 lambda: paged_mla_decode_attention_q(q_lat, q_pe, c8, pe8, cs, ps,
-                                                      table, kv_lens, scale),
+                 lambda t=table: paged_mla_decode_attention_q(q_lat, q_pe, c8, pe8, cs, ps,
+                                                              t, kv_lens, scale),
                  lambda: paged_mla_attention_plain(q_lat, q_pe, c8, pe8, table, pos,
                                                    kv_lens, scale, cs, ps), None)):
-            err = max_err_checked(torch, f"{name} {model}", fn(), plain())
+            got = fn()
+            report = launch_report(q_lat.device)
+            err = max_err_checked(torch, f"{name} {model}", got, plain())
+            wt = F.pad(table, (0, WIDE_P - table.shape[1]))
+            if not torch.equal(fn(wt), got):
+                raise AssertionError(f"{name} {model}: output moved with the table width")
+            wide = dict(P=WIDE_P, **launch_report(q_lat.device),
+                        ms=cuda_ms(torch, lambda: fn(wt), flush),
+                        device_ms=device_ms(torch, lambda: fn(wt), flush,
+                                            "paged_mla_decode_kernel"))
             if view is None:        # SDPA on the view dequantized to bf16 beforehand
                 view = (dequantized(c8, cs), dequantized(pe8, ps))
             kg = torch.cat([_gather(view[0], table), _gather(view[1], table)], -1)[:, None]
@@ -455,7 +481,9 @@ def mla_kernel_cases(torch, np, flush, out):
             b_ms, b_by = bound(nbytes, tokens * H * (4 * dc + 2 * dr))
             out[name].append(dict(
                 model=model, H=H, dc=dc, dr=dr, B=B, kv_lens=lens, max_abs_err=err,
+                host_us=host_us(torch, fn), **report, wide_table=wide,
                 ms=cuda_ms(torch, fn, flush),
+                device_ms=device_ms(torch, fn, flush, "paged_mla_decode_kernel"),
                 plain_ms=cuda_ms(torch, plain, flush, iters=5),
                 library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
                     qh, kg, vg, attn_mask=mask, scale=scale, enable_gqa=True), flush),
@@ -511,6 +539,7 @@ def mla_kernel_cases(torch, np, flush, out):
             out[name].append(dict(
                 model=model, H=H, dc=dc, dr=dr, T=T, rows=spec, max_abs_err=err,
                 ms=cuda_ms(torch, fn, flush),
+                device_ms=device_ms(torch, fn, flush, "ragged_paged_mla_kernel"),
                 plain_ms=cuda_ms(torch, plain, flush, iters=5),
                 library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
                     qh, kg, vg, attn_mask=mask, scale=scale, enable_gqa=True), flush),
@@ -559,11 +588,20 @@ def logit_stats(a, b):
             "argmax_agree": float((a.argmax(-1) == b.argmax(-1)).float().mean())}
 
 
-def compare_paths(torch, params, model, kv_dtype, run, phase, tokens):
+def per_draw_ratios(kernel, control, ref, draws):
+    """The control ratio of each of ``draws`` equal runs of compared tokens
+    (a reading of the judged ratio's spread, not a check)."""
+    return [float((k - r).abs().mean() / (c - r).abs().mean())
+            for k, c, r in zip(kernel.chunk(draws), control.chunk(draws), ref.chunk(draws))]
+
+
+def compare_paths(torch, params, model, kv_dtype, run, phase, tokens, draws=1):
     """A witness's judgment: ``run(params, cfg, quantize)`` gives the
-    kernel path's and the plain path's logits of the compared step, each on
+    kernel path's and the plain path's logits of the compared steps, each on
     a pool of its own that the same context wrote. The float32 runs use the
-    same weights cast to float32 one layer at a time.
+    same weights cast to float32 one layer at a time. With ``draws`` > 1
+    the compared tokens are that many equal runs, whose own control ratios
+    are recorded beside the judged one.
 
     Model-dtype pools. float32: kernel and plain differ only in summation
     order, so their logits must agree within F32_LOGIT_ATOL (MoE models:
@@ -589,6 +627,8 @@ def compare_paths(torch, params, model, kv_dtype, run, phase, tokens):
                     "bf16_plain_vs_f32 (control)": logit_stats(p16, r32)})
         ratio = res["bf16_kernel_vs_f32"]["mean"] / res["bf16_plain_vs_f32 (control)"]["mean"]
         res["bf16_mean_ratio_to_control"] = ratio
+        if draws > 1:
+            res["bf16_ratio_per_draw"] = per_draw_ratios(k16, p16, r32, draws)
         tok_max = (k32 - r32).abs().amax(-1)
         if cfg16.num_experts:
             share = float((tok_max <= F32_LOGIT_ATOL).float().mean())
@@ -618,6 +658,8 @@ def compare_paths(torch, params, model, kv_dtype, run, phase, tokens):
         r_16 = (res["bf16_int8_kernel_vs_f32"]["mean"]
                 / res["bf16_int8_plain_vs_f32 (control)"]["mean"])
         res.update(f32_mean_ratio_to_control=r_32, bf16_mean_ratio_to_control=r_16)
+        if draws > 1:
+            res["bf16_ratio_per_draw"] = per_draw_ratios(k8_16, p8_16, r32, draws)
         ok = r_32 <= INT8_VS_CONTROL and r_16 <= INT8_VS_CONTROL
         tol = (f"f32 and bf16: int8 kernel mean |d vs f32 model-dtype pool| <= "
                f"{INT8_VS_CONTROL} x the int8 plain path's")
@@ -678,12 +720,19 @@ def ragged_compare(torch, np, params, model, kv_dtype="model", dev="cuda"):
 
 
 # The decode witness's rows: their context lengths before the compared
-# step. At B = 3 on llama3-8b the first two walks split 9 and 12 ways.
+# step. At B = 3 the first two walks split 9 and 12 ways on llama3-8b
+# (kernels A, C), 16 and 16 ways on deepseek-v2-lite (E, G). The step is
+# taken DECODE_WITNESS_DRAWS times from the same context, each time with
+# other random tokens, so the bf16 halves' mean distances are taken over
+# 3 x 16 tokens: one step's 3 tokens put the control ratio of an MoE
+# model anywhere in a wide spread (each draw's own ratio is recorded).
 DECODE_WITNESS_LENS = [1100, 1500, 65]
+DECODE_WITNESS_DRAWS = 16
 
 
 def decode_compare(torch, np, params, model, kv_dtype="model", dev="cuda"):
-    """forward_paged (one decode step: kernel A, or C on int8 pools) with
+    """forward_paged (one decode step: kernel A, or C on int8 pools; E or G
+    on MLA latent pools) with
     kernels against use_kernels='never' on the same pool, at full width and
     depth, over context that an earlier forward_ragged call wrote: rows of
     DECODE_WITNESS_LENS slots, long enough that their walks split. Limits:
@@ -708,20 +757,26 @@ def decode_compare(torch, np, params, model, kv_dtype="model", dev="cuda"):
     context = (torch.from_numpy(rng.randint(0, V, (1, rows.numel()))).to(dev), pos,
                pos >= 0, rows, ints(lens))
     pos = ints([[n] for n in lens])
-    step = (torch.from_numpy(rng.randint(0, V, (len(lens), 1))).to(dev), pos, pos >= 0,
-            ints([n + 1 for n in lens]))
+    steps = [(torch.from_numpy(rng.randint(0, V, (len(lens), 1))).to(dev), pos, pos >= 0,
+              ints([n + 1 for n in lens])) for _ in range(DECODE_WITNESS_DRAWS)]
 
     def run(p, cfg, quantize):
-        """(kernel logits, plain logits) of the decode step, [B, V]."""
+        """(kernel logits, plain logits) of the decode steps, [draws x B, V]:
+        each step writes its token's slot before it reads it, so every draw
+        sees the same context."""
         c = PagedKVCache.create(cfg, 1 + sum(pages), 16, device=dev, quantize=quantize)
         pools = (c.k_pages, c.v_pages)
         kw = dict(k_scales=c.k_scales, v_scales=c.v_scales)
         forward_ragged(p, cfg, *context, table, *pools, **kw)
-        lk = forward_paged(p, cfg, *step, table, *pools, **kw)
-        lp = forward_paged(p, cfg, *step, table, *pools, use_kernels="never", **kw)
-        return lk[:, 0], lp[:, 0]
+        lk, lp = [], []
+        for step in steps:
+            lk.append(forward_paged(p, cfg, *step, table, *pools, **kw)[:, 0])
+            lp.append(forward_paged(p, cfg, *step, table, *pools, use_kernels="never",
+                                    **kw)[:, 0])
+        return torch.cat(lk), torch.cat(lp)
 
-    compare_paths(torch, params, model, kv_dtype, run, "decode_compare", len(lens))
+    compare_paths(torch, params, model, kv_dtype, run, "decode_compare",
+                  len(lens) * DECODE_WITNESS_DRAWS, draws=DECODE_WITNESS_DRAWS)
 
 
 def check_launches(launches, kernels):
@@ -882,16 +937,111 @@ def server_phase(torch, np, params, model, kernels, card, kv_dtype="model"):
         svc.stop()
 
 
+def params_to(params, dev):
+    return {k: ({n: w.to(dev) for n, w in v.items()} if k == "blocks" else v.to(dev))
+            for k, v in params.items()}
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def tiny_phase(torch, np):
+    """tiny and tiny-moe (float32, hd 32: kernels A and B) on the card.
+    Engine at multi_step 1 and 4 on weights drawn on the CPU: greedy tokens
+    equal to the CPU port's on the same weights, and both kernels launched.
+    Then the server as a user starts it, ``python -m
+    rbg_tpu_torch.engine.server`` with its defaults (tiny on the card,
+    random weights from seed 0), answering two generate requests whose
+    greedy tokens equal the CPU port's on those weights."""
+    from rbg_tpu_torch.engine.config import EngineConfig, SamplingParams
+    from rbg_tpu_torch.engine.engine import Engine
+    from rbg_tpu_torch.engine.protocol import request_once
+    from rbg_tpu_torch.engine.server import build_config, parse_args
+    from rbg_tpu_torch.models.config import get_config
+    from rbg_tpu_torch.models.llama import init_params
+    from rbg_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(0, 256, n).tolist() for n in (5, 40, 23, 70)]
+    sp = SamplingParams(max_new_tokens=16)
+    for model in ("tiny", "tiny-moe"):
+        params = init_params(get_config(model), 0, "cpu")
+        for ms in (1, 4):
+            kw = dict(model=model, num_pages=256, max_seq_len=256, multi_step=ms)
+            want = Engine(EngineConfig(**kw, device="cpu"), params=params).generate(
+                prompts, sp)
+            reset_launches()
+            got = Engine(EngineConfig(**kw), params=params_to(params, "cuda")).generate(
+                prompts, sp)
+            torch.cuda.synchronize()
+            launches = dict(LAUNCHES)
+            check_launches(launches, LLAMA_KERNELS)
+            emit("tiny_engine", model=model, multi_step=ms, tokens=got,
+                 equal_to_cpu=got == want,
+                 launches={k: launches[k] for k in LLAMA_KERNELS})
+            if got != want:
+                raise AssertionError(f"{model} multi_step {ms}: card {got} vs cpu {want}")
+
+    root = Path(__file__).resolve().parent
+    port = free_port()
+    addr = f"127.0.0.1:{port}"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryFile() as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "rbg_tpu_torch.engine.server", "--port", str(port)],
+            cwd=root, env={**os.environ, "PYTHONPATH": str(root)},
+            stdout=subprocess.DEVNULL, stderr=log)
+        try:
+            health = None
+            while not (health and health.get("ok")):
+                if proc.poll() is not None or time.perf_counter() - t0 > 300:
+                    log.seek(0)
+                    raise AssertionError("default server never became healthy: "
+                                         + log.read().decode()[-3000:])
+                try:
+                    health = request_once(addr, {"op": "health"}, timeout=5)
+                except OSError:
+                    time.sleep(0.5)
+            ready_s = time.perf_counter() - t0
+            replies = [request_once(addr, {"op": "generate", "prompt": p,
+                                           "max_new_tokens": 16}, timeout=300)
+                       for p in prompts[:2]]
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    cfg = build_config(parse_args(["--device", "cpu"]))
+    params = params_to(init_params(cfg.model_config, cfg.seed, "cuda"), "cpu")
+    eng = Engine(cfg, params=params)
+    want = [eng.generate([p], sp)[0] for p in prompts[:2]]
+    got = [r.get("tokens") for r in replies]
+    emit("tiny_server", model=cfg.model, device=health.get("device"), ready_s=ready_s,
+         tokens=got, ttft_s=[r.get("ttft_s") for r in replies], equal_to_cpu=got == want)
+    if not str(health.get("device")).startswith("cuda") or got != want:
+        raise AssertionError(f"default server: {health}, card {replies} vs cpu {want}")
+
+
 def ptxas_summary(report):
-    """Per kernel instance of one library: registers, shared memory and
-    spills as ptxas -v printed them."""
-    out, spill = set(), ""
+    """Per kernel instance of one library: its template arguments as
+    mangled (e.g. ``13__nv_bfloat16S1_Li512ELi64``: bf16 queries and pools,
+    512, 64), then registers, shared memory and spills as ptxas -v printed
+    them."""
+    out, entry, spill = {}, "", ""
     for ln in report.splitlines():
-        if "spill stores" in ln:
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            entry = name.split("kernelI", 1)[-1].split("EEv", 1)[0]
+        elif "spill stores" in ln:
             spill = ln.strip()
         elif "Used " in ln:
-            out.add(f"{ln.split('Used ')[1].strip()}; {spill}")
-    return sorted(out)
+            out[entry] = f"{ln.split('Used ')[1].strip()}; {spill}"
+    return out
 
 
 def init_phase(torch, model):
@@ -942,12 +1092,14 @@ def deepseek_phases(torch, np, card):
     params = init_phase(torch, model)
     engine_phase(torch, np, params, model, MLA_KERNELS)
     ragged_compare(torch, np, params, model)
+    decode_compare(torch, np, params, model)
     launches = server_phase(torch, np, params, model, MLA_KERNELS, card)
     launches = {k: launches[k] for k in MLA_KERNELS}
     int8 = engine_phase(torch, np, params, model, MLA_INT8_KERNELS, kv_dtype="int8",
                         multi_steps=(4,))
     launches.update({k: int8[4][1][k] for k in MLA_INT8_KERNELS})
     ragged_compare(torch, np, params, model, kv_dtype="int8")
+    decode_compare(torch, np, params, model, kv_dtype="int8")
     server_phase(torch, np, params, model, MLA_INT8_KERNELS, card, kv_dtype="int8")
     return launches
 
@@ -997,6 +1149,7 @@ def main():
          ptxas={k: ptxas_summary(v) for k, v in reports.items()})
 
     kern = kernels_phase(torch, np)
+    tiny_phase(torch, np)
     launches = llama_phases(torch, np, card)
     gc.collect()
     torch.cuda.empty_cache()

@@ -8,7 +8,7 @@
 // take items from a queue; KV blocks of 64 slots in flight with cp.async;
 // for bf16 both products on the tensor cores (mma.sync m16n8k16) with the
 // softmax in registers; float32 runs the same walk on CUDA-core FMAs.
-// Instances: hd 64 and 128.
+// Instances: hd 32, 64 and 128.
 //
 // C interface (ctypes): pointers and the stream as void*, sizes as int.
 // Returns cudaGetLastError() after the launch.

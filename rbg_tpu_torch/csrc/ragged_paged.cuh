@@ -124,6 +124,9 @@ struct Layout {
   // f32 path: S / P [kRows, kSLd], then m, l, alpha [kRows].
   static constexpr int kBytes = kSOff + (kMma ? 0 : (kRows * kSLd + 3 * kRows) * 4);
   static_assert(kRows == kBN, "Q takes one K tile's room");
+  // After the walk the bf16 path merges its warps' (16 rows, HD + 4)
+  // partials from the start of shared memory, over the free stages.
+  static_assert(!kMma || kWarps * 16 * (HD + 4) * 4 <= kSOff, "the warps' merge fits");
 };
 
 // Causal limit of packed token t (0: the token attends nothing), clamped to
@@ -214,8 +217,11 @@ __device__ __forceinline__ void issue_block(unsigned char* sm, int st, int nb,
                                             const Pages& pg, int kv, int KV) {
   using L = Layout<T, KVT, HD>;
   constexpr int CPR = HD * (int)sizeof(KVT) / 16;  // 16-byte chunks per row
-  constexpr int N = kBN * CPR / L::kThreads;       // chunks of K (and of V) per thread
-  static_assert(N * L::kThreads == kBN * CPR, "whole chunks per thread");
+  constexpr int NC = kBN * CPR;                    // chunks of K (and of V) per block
+  // Chunks per thread: whole, or one for the first NC threads (int8 pools
+  // at hd 32 have 128 chunks for the bf16 path's 256 threads).
+  constexpr int N = (NC + L::kThreads - 1) / L::kThreads;
+  static_assert(NC % L::kThreads == 0 || N == 1, "whole chunks per thread, or at most one");
   constexpr int ld = L::kQuant ? HD : L::LD * (int)sizeof(T);
   unsigned char* kd = L::kQuant ? sm + L::kRawOff + 2 * st * L::kRaw
                                 : sm + L::kKV + 2 * st * L::kTile;
@@ -223,15 +229,17 @@ __device__ __forceinline__ void issue_block(unsigned char* sm, int st, int nb,
   long src[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) {
-    const int c = threadIdx.x + i * L::kThreads;
+    const int c = min((int)threadIdx.x + i * L::kThreads, NC - 1);
     src[i] = (pg.slot_of(nb * kBN + c / CPR) * KV + kv) * HD * (long)sizeof(KVT)
              + (c % CPR) * 16;
   }
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     const int c = threadIdx.x + i * L::kThreads, off = (c / CPR) * ld + (c % CPR) * 16;
-    rbg::cp_async16(kd + off, reinterpret_cast<const unsigned char*>(k_pages) + src[i]);
-    rbg::cp_async16(vd + off, reinterpret_cast<const unsigned char*>(v_pages) + src[i]);
+    if (NC % L::kThreads == 0 || c < NC) {
+      rbg::cp_async16(kd + off, reinterpret_cast<const unsigned char*>(k_pages) + src[i]);
+      rbg::cp_async16(vd + off, reinterpret_cast<const unsigned char*>(v_pages) + src[i]);
+    }
   }
   if constexpr (L::kQuant) {
     float* ks = reinterpret_cast<float*>(sm + L::kScaleOff) + 2 * st * kBN;
@@ -411,6 +419,16 @@ __device__ __forceinline__ void mma_block(MmaState<HD>& st, int nb, int slot0, b
 }
 
 // ---- float32 queries: CUDA-core FMAs ----
+// The P·V columns of thread cx (of 16 per row group): in each of kGroups
+// groups of 16·kVW columns, kVW adjacent ones (float4 at hd 64 and 128,
+// float2 at hd 32), HD / 16 in all.
+template <int HD>
+struct FmaCols {
+  static constexpr int kVW = HD >= 64 ? 4 : 2;
+  static constexpr int kGroups = HD / (16 * kVW);
+  __device__ static int col(int gi, int cx) { return gi * 16 * kVW + cx * kVW; }
+};
+
 template <typename KVT, int HD>
 __device__ __forceinline__ void fma_block(unsigned char* sm, float (&o)[8][HD / 16], int nb,
                                           bool masked, const int (&lim)[4], const float* sk,
@@ -488,8 +506,9 @@ __device__ __forceinline__ void fma_block(unsigned char* sm, float (&o)[8][HD / 
     }
   }
   __syncthreads();
-  // O += P · V: thread (ry, cx) owns rows 8ry .. 8ry+7, columns
-  // 64·gi + 4cx .. +3.
+  // O += P · V: thread (ry, cx) owns rows 8ry .. 8ry+7 and columns
+  // col_of<HD>(gi, cx) .. + kVW - 1 of each column group gi.
+  constexpr int VW = FmaCols<HD>::kVW;
   const int ry = tid >> 4, cx = tid & 15;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -503,15 +522,20 @@ __device__ __forceinline__ void fma_block(unsigned char* sm, float (&o)[8][HD / 
 #pragma unroll
     for (int i = 0; i < 8; ++i) p[i] = ss[(ry * 8 + i) * SLD + j];
 #pragma unroll
-    for (int gi = 0; gi < HD / 64; ++gi) {
-      const float4 v = *reinterpret_cast<const float4*>(sv + j * LD + gi * 64 + cx * 4);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        o[i][gi * 4 + 0] = fmaf(p[i], v.x, o[i][gi * 4 + 0]);
-        o[i][gi * 4 + 1] = fmaf(p[i], v.y, o[i][gi * 4 + 1]);
-        o[i][gi * 4 + 2] = fmaf(p[i], v.z, o[i][gi * 4 + 2]);
-        o[i][gi * 4 + 3] = fmaf(p[i], v.w, o[i][gi * 4 + 3]);
+    for (int gi = 0; gi < FmaCols<HD>::kGroups; ++gi) {
+      float v[VW];
+      const float* vp = sv + j * LD + FmaCols<HD>::col(gi, cx);
+      if constexpr (VW == 4) {
+        const float4 t = *reinterpret_cast<const float4*>(vp);
+        v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+      } else {
+        const float2 t = *reinterpret_cast<const float2*>(vp);
+        v[0] = t.x, v[1] = t.y;
       }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < VW; ++e) o[i][gi * VW + e] = fmaf(p[i], v[e], o[i][gi * VW + e]);
     }
   }
 }
@@ -524,7 +548,7 @@ __device__ __forceinline__ void fma_block(unsigned char* sm, float (&o)[8][HD / 
 // split that finishes last merges them all.
 
 // T: q and output element type; KVT: pool element type (T, or int8_t with
-// f32 scales [NP, page, KV, 1]); HD: head dim (64 or 128).
+// f32 scales [NP, page, KV, 1]); HD: head dim (32, 64 or 128).
 template <typename T, typename KVT, int HD>
 __global__ void __launch_bounds__(Layout<T, KVT, HD>::kThreads, 1)
 ragged_paged_kernel(const T* __restrict__ q, const KVT* __restrict__ k_pages,
@@ -872,16 +896,18 @@ ragged_paged_kernel(const T* __restrict__ q, const KVT* __restrict__ k_pages,
       rbg::cp_async_wait<0>();
       __syncthreads();
       const int ry = tid >> 4, cx = tid & 15;
+      constexpr int VW = FmaCols<HD>::kVW;
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const int r = ry * 8 + i;
         if (r >= nrows) continue;
 #pragma unroll
-        for (int gi = 0; gi < HD / 64; ++gi) {
-          const int c = gi * 64 + cx * 4;
+        for (int gi = 0; gi < FmaCols<HD>::kGroups; ++gi) {
+          const int c = FmaCols<HD>::col(gi, cx);
           const float m = sm_[r] * kLog2e, l = sl[r];
-          finish(r, c, o[i][gi * 4], o[i][gi * 4 + 1], m, l);
-          finish(r, c + 2, o[i][gi * 4 + 2], o[i][gi * 4 + 3], m, l);
+#pragma unroll
+          for (int e = 0; e < VW; e += 2)
+            finish(r, c + e, o[i][gi * VW + e], o[i][gi * VW + e + 1], m, l);
         }
       }
     }
@@ -993,7 +1019,7 @@ int launch_hd(const void* q, const void* k_pages, const void* v_pages, const voi
 }  // namespace rk
 
 // The shapes the kernel takes (the wrapper refuses others first, with a
-// ValueError): hd 64 or 128, 1 <= G <= 16, a page size dividing 64, at most
+// ValueError): hd 32, 64 or 128, 1 <= G <= 16, a page size dividing 64, at most
 // rk::kMaxRows table rows. part: float32 scratch of n_tokens * G * KV *
 // rk::kMaxSplits * (hd + 4); done: int32 counts of rk::kTileSlot0 +
 // (ceil(n_tokens / (64 / G)) + R) * KV, zero when first used.
@@ -1007,6 +1033,10 @@ int launch_ragged(const void* q, const void* k_pages, const void* v_pages,
   if (G < 1 || G > 16 || page < 1 || rk::kBN % page || R < 0 || R > rk::kMaxRows)
     return (int)cudaErrorInvalidValue;
   switch (hd) {
+    case 32:
+      return rk::launch_hd<T, KVT, 32>(q, k_pages, v_pages, k_scales, v_scales, table,
+                                       kv_lens, row_ids, q_pos, out, part, done, n_tokens, R,
+                                       KV, G, page, P, scale, stream);
     case 64:
       return rk::launch_hd<T, KVT, 64>(q, k_pages, v_pages, k_scales, v_scales, table,
                                        kv_lens, row_ids, q_pos, out, part, done, n_tokens, R,

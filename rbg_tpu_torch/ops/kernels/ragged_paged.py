@@ -25,7 +25,7 @@ from rbg_tpu_torch.ops.kernels.paged_decode import KV_BLOCK, check_shapes
 
 TILE_ROWS = 64          # query rows per block: tile_tokens(G) tokens x G heads
 MAX_ROWS = 1024         # table rows the kernel's shared row counts hold
-HEAD_DIMS = (64, 128)   # the kernel's template instances
+HEAD_DIMS = (32, 64, 128)   # the kernel's template instances
 MAX_SPLITS = 4          # items of one tile's walk at most (kMaxSplits in the source)
 # The int32 counts (kHeadSlot.. in the source): the work queue's head, the
 # last launch's work items and grid blocks, then each (tile, kv head)'s

@@ -12,14 +12,32 @@ import torch
 
 from rbg_tpu_torch.ops.kernels import LAUNCHES, check_tensors, dtype_code
 from rbg_tpu_torch.ops.kernels.build import check, load_function
-from rbg_tpu_torch.ops.kernels.paged_mla_decode import check_mla_shapes, head_group
+from rbg_tpu_torch.ops.kernels.paged_mla_decode import check_mla_shapes
 from rbg_tpu_torch.ops.kernels.ragged_paged import check_pack
 
 Q_TILE = 8              # packed tokens per block (kTile in csrc/paged_attn_common.cuh)
+MAX_ROWS = 16           # query rows (tokens x heads) of one block's plan
+SMEM_LIMIT = 232448     # shared memory one block may use on Hopper
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
              _I, ctypes.c_float, _I, _P)
+
+
+def smem_bytes(nq: int, dc: int, dr: int, page: int) -> int:
+    """Shared memory of the MLA plan (``rbg::mla_plan`` + ``smem_bytes``)."""
+    floats = nq * (2 * dc + dr) + page * (dc + dr + 1) + nq * page + 3 * nq + 2 * page
+    return 4 * floats + 4 * 2 * nq
+
+
+def head_group(H: int, tokens: int, dc: int, dr: int, page: int) -> int:
+    """Heads per block: the largest divisor hg of H with tokens·hg <=
+    MAX_ROWS query rows whose plan fits in shared memory."""
+    for hg in range(min(H, max(MAX_ROWS // tokens, 1)), 0, -1):
+        if H % hg == 0 and smem_bytes(tokens * hg, dc, dr, page) <= SMEM_LIMIT:
+            return hg
+    raise ValueError(f"no head group of H={H} fits shared memory at dc={dc}, "
+                     f"dr={dr}, page={page}")
 
 
 def ragged_paged_mla_attention_cuda(q_lat: torch.Tensor, q_pe: torch.Tensor,

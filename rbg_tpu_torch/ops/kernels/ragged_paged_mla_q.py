@@ -13,9 +13,9 @@ import torch
 from rbg_tpu_torch.ops.kernels import (LAUNCHES, check_scales, check_tensors,
                                        dtype_code)
 from rbg_tpu_torch.ops.kernels.build import check, load_function
-from rbg_tpu_torch.ops.kernels.paged_mla_decode import check_mla_shapes, head_group
+from rbg_tpu_torch.ops.kernels.paged_mla_decode import check_mla_shapes
 from rbg_tpu_torch.ops.kernels.ragged_paged import check_pack
-from rbg_tpu_torch.ops.kernels.ragged_paged_mla import Q_TILE
+from rbg_tpu_torch.ops.kernels.ragged_paged_mla import Q_TILE, head_group
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

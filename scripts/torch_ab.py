@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Two trees of the PyTorch/CUDA port in turns on one card: kernels A-D,
-one ragged step and one decode step of llama3-8b, and the server's TTFT.
+"""Two trees of the PyTorch/CUDA port in turns on one card: kernels A-E and
+G, one ragged step and one decode step of llama3-8b, the server's TTFT,
+and one decode step of deepseek-v2-lite.
 
     python3 scripts/torch_ab.py BASE_TREE [NEW_TREE]
 
@@ -10,12 +11,16 @@ base, new, new, base. Each run is a subprocess that imports ``rbg_tpu_torch``
 and ``chip_smoke`` from its own tree, builds that tree's CUDA kernels and
 prints, as JSON lines:
 
-- ``kernels``: B and D on ``chip_smoke``'s llama3-8b mixed pack: device ms
-  per call (``chip_smoke.cuda_ms``, L2 flushed) and host microseconds per
-  call (median of 3 runs of 200 calls issued back to back);
+- ``kernels``: B and D on ``chip_smoke``'s llama3-8b mixed pack: ms per
+  call (``chip_smoke.cuda_ms``, CUDA events, L2 flushed), the kernel's own
+  device ms (``chip_smoke.device_ms``, torch.profiler) and host
+  microseconds per call (median of 3 runs of 200 calls issued back to
+  back);
 - ``decode``: A and C the same way on ``chip_smoke.decode_case`` at the
   llama3-8b shape, B = 8 rows of kv_len 2048 .. 65 and a B = 64 bucket of
-  kv_len 64 + 10 i (lengths passed here, so an older tree serves too);
+  kv_len 64 + 10 i (lengths passed here, so an older tree serves too); E
+  and G at the deepseek-v2-lite shape (H = 16, dc = 512, dr = 64) on the
+  B = 8 rows, G on the same latent pools quantized;
 - ``step``: ``forward_ragged`` at full depth (llama3-8b, random weights from
   seed 0, bf16 pools) on the server's first ragged step (7 + 40 + 64 + 64
   tokens in a 256-token bucket): median wall ms of 10 synchronised steps,
@@ -25,7 +30,11 @@ prints, as JSON lines:
   rows over contexts of kv_len 2048 .. 65, on bf16 and on int8 pools: the
   same readings, plus the device ms of kernel A or C per step;
 - ``server``: ``chip_smoke.server_phase`` (4 concurrent requests, prompts
-  of 7, 40, 130 and 300 tokens) over bf16 and then int8 pools.
+  of 7, 40, 130 and 300 tokens) over bf16 and then int8 pools;
+- ``decode_step`` of deepseek-v2-lite at full depth (random weights from
+  seed 0, after llama3-8b is freed), the same B = 8 rows over bf16 and int8
+  latent pools: the readings above with the device ms of kernel E or G per
+  step.
 
 A last line gives each tree's medians. Needs one CUDA device.
 """
@@ -38,7 +47,7 @@ import sys
 from pathlib import Path
 
 CHILD = """
-import json, statistics, subprocess, time
+import gc, json, statistics, subprocess, time
 import numpy as np, torch
 from torch.profiler import ProfilerActivity, profile
 import chip_smoke as cs
@@ -48,6 +57,8 @@ from rbg_tpu_torch.models.llama import forward_paged, forward_ragged
 from rbg_tpu_torch.ops.kernels.build import build
 from rbg_tpu_torch.ops.kernels.paged_decode import paged_decode_attention
 from rbg_tpu_torch.ops.kernels.paged_decode_q import paged_decode_attention_q
+from rbg_tpu_torch.ops.kernels.paged_mla_decode import paged_mla_decode_attention
+from rbg_tpu_torch.ops.kernels.paged_mla_decode_q import paged_mla_decode_attention_q
 from rbg_tpu_torch.ops.kernels.ragged_paged import ragged_paged_attention_cuda
 from rbg_tpu_torch.ops.kernels.ragged_paged_q import ragged_paged_attention_q_cuda
 from rbg_tpu_torch.ops.paged_attention import quantize_kv
@@ -77,12 +88,13 @@ calls = {"B": lambda: ragged_paged_attention_cuda(q, k, v, table, qpos, kv_lens,
          "D": lambda: ragged_paged_attention_q_cuda(q, k8, v8, ks, vs, table, qpos,
                                                     kv_lens, rows)}
 
-def readings(calls):
+def readings(calls, symbol):
     return {n: {"ms": cs.cuda_ms(torch, f, flush),
+                "device_ms": cs.device_ms(torch, f, flush, symbol),
                 "host_us": statistics.median(host_us(f) for _ in range(3))}
             for n, f in calls.items()}
 
-emit("kernels", **readings(calls))
+emit("kernels", **readings(calls, "ragged_paged_kernel"))
 DECODE_LENS = [2048, 1900, 1536, 1200, 1024, 700, 333, 65]
 dec = {}
 for label, lens in (("B8", DECODE_LENS), ("B64", [64 + 10 * i for i in range(64)])):
@@ -90,9 +102,26 @@ for label, lens in (("B8", DECODE_LENS), ("B64", [64 + 10 * i for i in range(64)
     (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
     dec[label] = readings({
         "A": lambda: paged_decode_attention(q, k, v, table, kv_lens),
-        "C": lambda: paged_decode_attention_q(q, k8, v8, ks, vs, table, kv_lens)})
+        "C": lambda: paged_decode_attention_q(q, k8, v8, ks, vs, table, kv_lens)},
+        "paged_decode_kernel")
+del q, k, v, k8, v8
+# E and G: deepseek-v2-lite's latent decode on the same B = 8 rows.
+pages = [-(-n // 16) for n in DECODE_LENS]
+NP, P = len(pages) * max(pages) + 1, max(pages)
+c, pe, g = cs.latent_pools(torch, NP, 512, 64, 16)
+table = torch.from_numpy((np.random.RandomState(16).permutation(NP - 1)[:len(pages) * P] + 1)
+                         .reshape(len(pages), P).astype(np.int32)).to("cuda")
+kv_lens = torch.tensor(DECODE_LENS, dtype=torch.int32, device="cuda")
+q_lat = torch.randn(len(pages), 1, 16, 512, generator=g, device="cuda").to(torch.bfloat16)
+q_pe = torch.randn(len(pages), 1, 16, 64, generator=g, device="cuda").to(torch.bfloat16)
+(c8, c_s), (pe8, pe_s) = quantize_kv(c), quantize_kv(pe)
+dec["B8"].update(readings({
+    "E": lambda: paged_mla_decode_attention(q_lat, q_pe, c, pe, table, kv_lens, 192 ** -0.5),
+    "G": lambda: paged_mla_decode_attention_q(q_lat, q_pe, c8, pe8, c_s, pe_s, table,
+                                              kv_lens, 192 ** -0.5)},
+    "paged_mla_decode_kernel"))
 emit("decode", **dec)
-del q, k, v, k8, v8, flush
+del c, pe, c8, pe8, q_lat, q_pe, flush
 
 params = cs.init_phase(torch, "llama3-8b")
 cfg = get_config("llama3-8b")
@@ -117,7 +146,7 @@ def step():
 
 # Median wall ms of 10 synchronised calls of fn, device ms per call by
 # kernel over 5 more under the profiler.
-def profiled(fn, what, **kw):
+def profiled(fn, what, attn="paged_decode_kernel", **kw):
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -137,9 +166,9 @@ def profiled(fn, what, **kw):
         if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
             kern[e.key[:60]] = kern.get(e.key[:60], 0.0) + e.self_device_time_total / n / 1e3
     wall, dev = statistics.median(walls), sum(kern.values())
-    attn = sum(ms for key, ms in kern.items() if "paged_decode_kernel" in key)
+    attn_ms = sum(ms for key, ms in kern.items() if attn in key)
     emit(what, **kw, wall_ms=wall, wall_ms_runs=walls, device_ms=dev,
-         decode_kernel_ms=attn, device_busy_share=dev / wall,
+         decode_kernel_ms=attn_ms, device_busy_share=dev / wall,
          top_kernels_ms=sorted(kern.items(), key=lambda kv: -kv[1])[:8])
 
 profiled(step, "step")
@@ -160,11 +189,28 @@ for kv_dtype in ("model", "int8"):
     profiled(lambda: forward_paged(params, cfg, tok, pos, pos >= 0, kv_lens, table,
                                    cache.k_pages, cache.v_pages, k_scales=cache.k_scales,
                                    v_scales=cache.v_scales),
-             "decode_step", kv_dtype=kv_dtype)
+             "decode_step", model="llama3-8b", kv_dtype=kv_dtype)
     del cache
 
 cs.server_phase(torch, np, params, "llama3-8b", cs.LLAMA_KERNELS, card)
 cs.server_phase(torch, np, params, "llama3-8b", cs.INT8_KERNELS, card, kv_dtype="int8")
+
+# deepseek-v2-lite: one decode step on the same rows, llama3-8b freed first.
+del params
+gc.collect()
+torch.cuda.empty_cache()
+params = cs.init_phase(torch, "deepseek-v2-lite")
+cfg = get_config("deepseek-v2-lite")
+tok = torch.randint(0, cfg.vocab_size, (len(pages), 1), generator=g, device="cuda")
+for kv_dtype in ("model", "int8"):
+    cache = PagedKVCache.create(cfg, 1 + sum(pages), 16, device="cuda",
+                                quantize=kv_dtype == "int8")
+    profiled(lambda: forward_paged(params, cfg, tok, pos, pos >= 0, kv_lens, table,
+                                   cache.k_pages, cache.v_pages, k_scales=cache.k_scales,
+                                   v_scales=cache.v_scales),
+             "decode_step", attn="paged_mla_decode_kernel", model="deepseek-v2-lite",
+             kv_dtype=kv_dtype)
+    del cache
 """
 
 
@@ -197,16 +243,17 @@ def main(argv) -> int:
         for line in run_tree(trees[which]):
             if line.get("what") == "kernels":
                 for k in ("B", "D"):
-                    keep(which, f"{k}_ms", line[k]["ms"])
-                    keep(which, f"{k}_host_us", line[k]["host_us"])
+                    for x in ("ms", "device_ms", "host_us"):
+                        keep(which, f"{k}_{x}", line[k][x])
             elif line.get("what") == "decode":
                 for label, calls in line.items():
                     if label in ("B8", "B64"):
                         for k, r in calls.items():
-                            keep(which, f"{label}_{k}_ms", r["ms"])
-                            keep(which, f"{label}_{k}_host_us", r["host_us"])
+                            for x in ("ms", "device_ms", "host_us"):
+                                keep(which, f"{label}_{k}_{x}", r[x])
             elif line.get("what") in ("step", "decode_step"):
-                name = line["what"] + (f"/{line['kv_dtype']}" if "kv_dtype" in line else "")
+                name = "/".join([line["what"]] + [line[k] for k in ("model", "kv_dtype")
+                                                  if k in line])
                 for k in ("wall_ms", "device_ms", "decode_kernel_ms"):
                     keep(which, f"{name}_{k}", line[k])
             elif line.get("phase") == "server":

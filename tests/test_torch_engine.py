@@ -165,6 +165,27 @@ def test_unsupported_configs_raise(bad):
         Engine(EngineConfig(**{**BASE, **bad}), device="cpu")
 
 
+@pytest.mark.parametrize("page_size,device,refused", [
+    (128, None, True), (24, "cuda", True), (48, "cuda:0", True),
+    (128, "cpu", False), (32, "cuda", False), (8, None, False)])
+def test_page_size_checked_at_start_up_for_the_card(page_size, device, refused):
+    """On CUDA (the default device) the page size must divide the 64-slot
+    KV block of kernels A-D: EngineConfig.validate refuses it at start-up,
+    reading the device string without touching a card. The CPU serves any
+    page size."""
+    cfg = EngineConfig(**{**BASE, "page_size": page_size}, num_pages=64, device=device)
+    if refused:
+        with pytest.raises(ValueError, match="page_size"):
+            cfg.validate()
+    else:
+        cfg.validate()
+    if device == "cpu":     # the plain versions serve it
+        out = Engine(cfg).generate(_prompts(5, (7, 30)), SamplingParams(max_new_tokens=4))
+        assert [len(o) for o in out] == [4, 4]
+    with pytest.raises(ValueError, match="page_size"):     # a CUDA engine is refused first
+        Engine(EngineConfig(**{**BASE, "page_size": 96}), device="cuda")
+
+
 def test_mla_int8_latent_pools_serve():
     """tiny-mla with kv_dtype='int8' builds int8 latent pools with f32
     scales [L, NP, page, 1, 1] and serves a request."""

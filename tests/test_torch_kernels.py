@@ -168,8 +168,12 @@ def _split_counts_zero():
         for _, c in _SCRATCH.values())
 
 
+# (KV, G, hd): llama3-8b, qwen2-0.5b, tiny and tiny-moe.
+RAGGED_SHAPES = [(8, 4, 128), (2, 7, 64), (2, 2, 32)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("KV,G,hd", [(8, 4, 128), (2, 7, 64)])
+@pytest.mark.parametrize("KV,G,hd", RAGGED_SHAPES)
 @pytest.mark.parametrize("layout", ["straddle", "three_in_tile", "pads",
                                     "shuffled", "empty_row", *TILE_LAYOUTS])
 def test_ragged_matches_plain(dev, dtype, KV, G, hd, layout):
@@ -302,7 +306,7 @@ def test_decode_wrappers_refuse_unsupported_shapes(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("KV,G,hd", [(8, 4, 128), (2, 7, 64)])
+@pytest.mark.parametrize("KV,G,hd", RAGGED_SHAPES)
 @pytest.mark.parametrize("layout", ["straddle", "shuffled", "empty_row",
                                     *TILE_LAYOUTS])
 def test_ragged_q_matches_plain(dev, dtype, KV, G, hd, layout):
@@ -367,15 +371,14 @@ def test_ragged_kernel_work_items(dev, KV, G, hd, want, P):
 
 
 def test_ragged_wrappers_refuse_unsupported_shapes(dev):
-    """Kernels B and D take hd 64 or 128, a page size dividing 64 and at
-    most MAX_ROWS table rows; anything else is a ValueError before any
+    """Kernels B and D take hd 32, 64 or 128, a page size dividing 64 and
+    at most MAX_ROWS table rows; anything else is a ValueError before any
     launch, never the plain version."""
     from rbg_tpu_torch.ops.kernels.ragged_paged import (MAX_ROWS,
                                                         ragged_paged_attention_cuda)
     from rbg_tpu_torch.ops.kernels.ragged_paged_q import ragged_paged_attention_q_cuda
     rng = np.random.RandomState(12)
-    cases = [_ragged_case(rng, dev, torch.bfloat16, [(3, 9), (1, 5)], 2, 2, 32),
-             _ragged_case(rng, dev, torch.bfloat16, [(3, 9), (1, 5)], 2, 2, 64,
+    cases = [_ragged_case(rng, dev, torch.bfloat16, [(3, 9), (1, 5)], 2, 2, 64,
                           page=24, P=2),
              _ragged_case(rng, dev, torch.bfloat16, [(1, 3)] * (MAX_ROWS + 1), 1, 2,
                           64, P=1)]
@@ -405,14 +408,28 @@ def _latent_pools(rng, dev, dtype, NP, page, dc, dr):
     return c.to(dev, dtype), pe.to(dev, dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,dc,dr", MLA_SHAPES)
-def test_paged_mla_decode_matches_plain(dev, dtype, H, dc, dr):
-    """Kernel E against the plain version: edge lengths 0, 1 and around a
-    page boundary, and a full table."""
-    rng = np.random.RandomState(5)
-    page, P = 16, 8
-    kv_lens_l = [1, 15, 16, 17, 100, P * page, 33, 0]
+def _mla_decode_case(case):
+    """(kv_lens, page size, table width P) of a decode case of kernels E
+    and G (32-slot latent blocks)."""
+    if case == "edges":     # lengths 0, 1, around a page and a block edge, a full table
+        return [1, 15, 16, 17, 100, 8 * 16, 33, 0], 16, 8
+    if case == "split":     # the kernels phase's rows: walks split up to 16 ways
+        return DECODE_LENS + [0], 16, 128
+    if case == "page24":    # blocks span pages of a size that is not a power of two
+        return [1, 23, 24, 25, 500, 31, 33, 0], 24, 24
+    if case == "page128":   # pages larger than a block
+        return [1, 127, 129, 700, 2000, 0], 128, 16
+    assert case == "long"   # an 8192-slot row in a 512-page table
+    return [8192, 3, 4000], 16, 512
+
+
+MLA_DECODE_CASES = ["edges", "split", "page24", "page128", "long"]
+
+
+def _mla_decode_inputs(rng, dev, dtype, H, dc, dr, case):
+    """(q_lat, q_pe, c, pe, table, pos, kv_lens) of a decode case, latent
+    pools in dtype."""
+    kv_lens_l, page, P = _mla_decode_case(case)
     B = len(kv_lens_l)
     NP = B * P + 1
     c, pe = _latent_pools(rng, dev, dtype, NP, page, dc, dr)
@@ -422,15 +439,27 @@ def test_paged_mla_decode_matches_plain(dev, dtype, H, dc, dr):
     q_lat = torch.from_numpy(rng.randn(B, 1, H, dc).astype(np.float32)).to(dev, dtype)
     q_pe = torch.from_numpy(rng.randn(B, 1, H, dr).astype(np.float32)).to(dev, dtype)
     pos = (kv_lens - 1).clamp(min=0)[:, None]
+    return q_lat, q_pe, c, pe, table, pos, kv_lens
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,dc,dr", MLA_SHAPES)
+@pytest.mark.parametrize("case", MLA_DECODE_CASES)
+def test_paged_mla_decode_matches_plain(dev, dtype, H, dc, dr, case):
+    """Kernel E against the plain version: edge lengths, split walks, page
+    sizes that are not powers of two or exceed a block, a long row."""
+    rng = np.random.RandomState(5)
+    q_lat, q_pe, c, pe, table, pos, kv_lens = _mla_decode_inputs(rng, dev, dtype, H, dc,
+                                                                  dr, case)
     scale = (128 + dr) ** -0.5
     reset_launches()
     got = paged_mla_attention(q_lat, q_pe, c, pe, table, pos, kv_lens, scale,
                               use_kernels="always")
     torch.cuda.synchronize()
-    assert LAUNCHES["paged_mla_decode"] == 1
+    assert LAUNCHES["paged_mla_decode"] == 1 and _split_counts_zero()
     ref = paged_mla_attention_plain(q_lat, q_pe, c, pe, table, pos, kv_lens, scale)
     torch.testing.assert_close(got.float(), ref.float(), **_mla_tol(dtype))
-    assert torch.all(got[-1] == 0)      # kv_len 0 gives 0
+    assert torch.all(got[kv_lens == 0] == 0)      # kv_len 0 gives 0
 
 
 def _mla_ragged_case(rng, dev, dtype, specs, H, dc, dr, page=16, P=8, pads=0,
@@ -499,31 +528,95 @@ MLA_Q_SHAPES = [(16, 512, 64), (4, 64, 16)]
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("H,dc,dr", MLA_Q_SHAPES)
-def test_paged_mla_decode_q_matches_plain(dev, dtype, H, dc, dr):
+@pytest.mark.parametrize("case", MLA_DECODE_CASES)
+def test_paged_mla_decode_q_matches_plain(dev, dtype, H, dc, dr, case):
     """Kernel G against the plain version on the same int8 latent pools:
-    lengths 0, 1, around a page boundary and a full table."""
+    E's cases."""
     rng = np.random.RandomState(8)
-    page, P = 16, 8
-    kv_lens_l = [1, 15, 16, 17, 100, P * page, 33, 0]
-    B = len(kv_lens_l)
-    NP = B * P + 1
-    cq, pq, cs, ps = _quantized_latents(*_latent_pools(rng, dev, dtype, NP, page, dc, dr))
-    table = torch.from_numpy((rng.permutation(NP - 1)[:B * P] + 1)
-                             .reshape(B, P).astype(np.int32)).to(dev)
-    kv_lens = torch.tensor(kv_lens_l, dtype=torch.int32, device=dev)
-    q_lat = torch.from_numpy(rng.randn(B, 1, H, dc).astype(np.float32)).to(dev, dtype)
-    q_pe = torch.from_numpy(rng.randn(B, 1, H, dr).astype(np.float32)).to(dev, dtype)
-    pos = (kv_lens - 1).clamp(min=0)[:, None]
+    q_lat, q_pe, c, pe, table, pos, kv_lens = _mla_decode_inputs(rng, dev, dtype, H, dc,
+                                                                  dr, case)
+    cq, pq, cs, ps = _quantized_latents(c, pe)
     scale = (128 + dr) ** -0.5
     reset_launches()
     got = paged_mla_attention(q_lat, q_pe, cq, pq, table, pos, kv_lens, scale,
                               use_kernels="always", c_scales=cs, pe_scales=ps)
     torch.cuda.synchronize()
     assert LAUNCHES["paged_mla_decode_q"] == 1 and LAUNCHES["paged_mla_decode"] == 0
+    assert _split_counts_zero()
     ref = paged_mla_attention_plain(q_lat, q_pe, cq, pq, table, pos, kv_lens, scale,
                                     cs, ps)
     torch.testing.assert_close(got.float(), ref.float(), **_mla_tol(dtype))
-    assert torch.all(got[-1] == 0)      # kv_len 0 gives 0
+    assert torch.all(got[kv_lens == 0] == 0)      # kv_len 0 gives 0
+
+
+# The kernels phase's decode rows in 32-slot latent blocks: 64, 60, 48, 38,
+# 32, 22, 11 and 3. Each splits into min(cap, ceil(blocks / 2)) walks, cap =
+# min(16, SMs // (B * head groups)): on 132 SMs 16 at H = 16 (16 + 16 + 16 +
+# 16 + 16 + 11 + 6 + 2 = 99 items on 8 x 16 blocks) and 2 at H = 128 (2 per
+# row and head group: 128 items on 64 x 2 blocks).
+@pytest.mark.parametrize("H", [16, 128])
+@pytest.mark.parametrize("pools", ["bf16", "int8"])
+def test_paged_mla_decode_work_items(dev, H, pools):
+    """The work items kernels E and G report for the kernels phase's rows,
+    read back from their counts; the same output, bit for bit, in a table
+    4x wider and from a second launch; the split counts back at 0."""
+    from rbg_tpu_torch.ops.kernels import launch_report
+    from rbg_tpu_torch.ops.kernels.paged_mla_decode import (paged_mla_decode_attention,
+                                                            split_cap)
+    from rbg_tpu_torch.ops.kernels.paged_mla_decode_q import paged_mla_decode_attention_q
+    rng = np.random.RandomState(16)
+    dc, dr, scale = 512, 64, 192 ** -0.5
+    q_lat, q_pe, c, pe, table, pos, kv_lens = _mla_decode_inputs(
+        rng, dev, torch.bfloat16, H, dc, dr, "split")
+    q_lat, q_pe, table, pos, kv_lens = q_lat[:-1], q_pe[:-1], table[:-1], pos[:-1], kv_lens[:-1]
+    B, groups = len(DECODE_LENS), H // 16
+    if pools == "int8":
+        cq, pq, cs, ps = _quantized_latents(c, pe)
+        fn = lambda t: paged_mla_decode_attention_q(q_lat, q_pe, cq, pq, cs, ps, t,  # noqa: E731
+                                                    kv_lens, scale)
+        ref = paged_mla_attention_plain(q_lat, q_pe, cq, pq, table, pos, kv_lens, scale,
+                                        cs, ps)
+    else:
+        fn = lambda t: paged_mla_decode_attention(q_lat, q_pe, c, pe, t, kv_lens,  # noqa: E731
+                                                  scale)
+        ref = paged_mla_attention_plain(q_lat, q_pe, c, pe, table, pos, kv_lens, scale)
+    cap = split_cap(q_lat.get_device(), B, groups)
+    want = groups * sum(min(cap, -(-(-(-n // 32)) // 2)) for n in DECODE_LENS)
+    grid = B * groups * min(cap, 128 * 16 // 32 // 2)
+    if torch.cuda.get_device_properties(dev).multi_processor_count == 132:
+        assert (want, grid) == {16: (99, 128), 128: (128, 128)}[H]
+    got = fn(table)
+    assert launch_report(q_lat.device) == {"work_items": want, "grid_blocks": grid}
+    wide = torch.nn.functional.pad(table, (0, 512 - table.shape[1]))
+    assert torch.equal(fn(wide), got)
+    assert launch_report(q_lat.device)["work_items"] == want
+    assert torch.equal(fn(table), got)
+    torch.cuda.synchronize()
+    assert _split_counts_zero()
+    torch.testing.assert_close(got.float(), ref.float(), **_tol(torch.bfloat16))
+
+
+def test_mla_decode_wrappers_refuse_unsupported_shapes(dev):
+    """Kernels E and G take decode steps at (dc, dr) = (512, 64) or
+    (64, 16); anything else is a ValueError before any launch, never the
+    plain version."""
+    from rbg_tpu_torch.ops.kernels.paged_mla_decode import paged_mla_decode_attention
+    from rbg_tpu_torch.ops.kernels.paged_mla_decode_q import paged_mla_decode_attention_q
+    rng = np.random.RandomState(17)
+    reset_launches()
+    for H, dc, dr, T in [(4, 128, 32, 1), (4, 64, 64, 1), (16, 512, 64, 2)]:
+        q_lat, q_pe, c, pe, table, pos, kv_lens = _mla_decode_inputs(
+            rng, dev, torch.bfloat16, H, dc, dr, "edges")
+        q_lat, q_pe = q_lat.expand(-1, T, -1, -1), q_pe.expand(-1, T, -1, -1)
+        cq, pq, cs, ps = _quantized_latents(c, pe)
+        with pytest.raises(ValueError):
+            paged_mla_decode_attention(q_lat, q_pe, c, pe, table, kv_lens, 0.1)
+        with pytest.raises(ValueError):
+            paged_mla_decode_attention_q(q_lat, q_pe, cq, pq, cs, ps, table, kv_lens, 0.1)
+        if T == 1:      # the dispatcher does not fall back
+            with pytest.raises(ValueError):
+                paged_mla_attention(q_lat, q_pe, c, pe, table, pos, kv_lens, 0.1)
+    assert LAUNCHES["paged_mla_decode"] == LAUNCHES["paged_mla_decode_q"] == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -618,6 +711,35 @@ def test_block_ragged_probe_on_the_card(dev):
     out = block_ragged_probe()
     assert out["measurable"] and out["bit_identical"], out
     assert out["tokengrid_calls_per_s"] > 0 and out["block_ragged_calls_per_s"] > 0
+
+
+def _params_on(params, dev):
+    return {k: ({n: w.to(dev) for n, w in v.items()} if k == "blocks" else v.to(dev))
+            for k, v in params.items()}
+
+
+@pytest.mark.parametrize("model", ["tiny", "tiny-moe"])
+@pytest.mark.parametrize("multi_step", [1, 4])
+def test_engine_serves_tiny_models_on_the_card(dev, model, multi_step):
+    """tiny and tiny-moe (hd 32, float32) serve on the card through Engine:
+    ragged steps launch kernel B, decode windows kernel A, and the greedy
+    tokens equal the CPU port's on the same weights."""
+    from rbg_tpu_torch.engine.config import EngineConfig, SamplingParams
+    from rbg_tpu_torch.engine.engine import Engine
+    from rbg_tpu_torch.models.config import get_config
+    from rbg_tpu_torch.models.llama import init_params
+    params = init_params(get_config(model), 0, "cpu")
+    rng = np.random.RandomState(18)
+    prompts = [rng.randint(0, 256, n).tolist() for n in (5, 40, 23, 70)]
+    sp = SamplingParams(max_new_tokens=12)
+    kw = dict(model=model, num_pages=64, max_seq_len=256, prefill_chunk=16,
+              multi_step=multi_step)
+    want = Engine(EngineConfig(**kw, device="cpu"), params=params).generate(prompts, sp)
+    reset_launches()
+    got = Engine(EngineConfig(**kw), params=_params_on(params, dev), device=dev).generate(
+        prompts, sp)
+    assert LAUNCHES["ragged_paged"] > 0 and LAUNCHES["paged_decode"] > 0
+    assert got == want
 
 
 def test_gumbel_noise_on_the_card_equals_the_cpu(dev):

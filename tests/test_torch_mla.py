@@ -95,6 +95,44 @@ def test_paged_mla_plain_matches_pallas_interpret(H, dc, dr):
     assert np.all(got[0] == 0) and np.all(ref[0] == 0)
 
 
+@pytest.mark.parametrize("page", [1, 24, 40])
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16_pools", "int8_pools"])
+def test_paged_mla_plain_any_page_size_matches_pallas(page, quantized):
+    """Kernels E and G take any page size (their 32-slot latent blocks look
+    up each slot's page): the plain version they are held to on the card
+    agrees with the TPU originals at page sizes that do not divide 32."""
+    q_lat, q_pe, c, pe, table, pos, lens = _paged_case(8, B=3, P=4, page=page)
+    lens = np.asarray([1, 2 * page + 1, 4 * page], np.int32)
+    pos = (lens - 1)[:, None].astype(np.int32)
+    scales = ()
+    if quantized:
+        c, cs, pe, ps = _quantize(c, pe)
+        scales = (cs, ps)
+    case = (q_lat, q_pe, c, pe, table, pos, lens)
+    got = paged_mla_attention_plain(*map(t, case), SCALE, *map(t, scales)).numpy()
+    kernel = paged_mla_attention_pallas_q if quantized else paged_mla_attention_pallas
+    ref = np.asarray(kernel(*map(jnp.asarray, case), SCALE, *map(jnp.asarray, scales),
+                            interpret=True))
+    np.testing.assert_allclose(got, ref, atol=ATOL, rtol=ATOL)
+
+
+def test_mla_decode_wrappers_refuse_other_latent_widths():
+    """E and G have (dc, dr) = (512, 64) and (64, 16) instances; other
+    widths are a ValueError naming them, raised before the tensors are
+    looked at (so also here, on the CPU)."""
+    from rbg_tpu_torch.ops.kernels.paged_mla_decode import (
+        LATENT_DIMS, paged_mla_decode_attention)
+    from rbg_tpu_torch.ops.kernels.paged_mla_decode_q import paged_mla_decode_attention_q
+    assert LATENT_DIMS == ((512, 64), (64, 16))
+    for dc, dr in [(128, 32), (512, 16), (64, 64)]:
+        q_lat, q_pe, c, pe, table, pos, lens = map(t, _paged_case(9, dc=dc, dr=dr))
+        c8, cs, pe8, ps = map(t, _quantize(c.numpy(), pe.numpy()))
+        with pytest.raises(ValueError, match=r"\(dc, dr\)"):
+            paged_mla_decode_attention(q_lat, q_pe, c, pe, table, lens, SCALE)
+        with pytest.raises(ValueError, match=r"\(dc, dr\)"):
+            paged_mla_decode_attention_q(q_lat, q_pe, c8, pe8, cs, ps, table, lens, SCALE)
+
+
 def _quantize(*arrays):
     out = []
     for a in arrays:
