@@ -18,17 +18,19 @@ Phases, each printing one JSON line:
              (device_ms, torch.profiler), plain time, one PyTorch library
              call on the same inputs (SDPA on the gathered view, a
              yardstick the port never calls) and the least time the card
-             could take (bound). A-E, G and I also give host_us, the
-             host's time per call; A-E and G give work_items and
-             grid_blocks as the kernel wrote them back, and their time on
-             the same case in a table WIDE_P pages wide (output equal bit
-             for bit); A and C also a B=64 decode bucket of short rows
-             (bucket64).
-4. tiny    — tiny and tiny-moe (float32, hd 32; kernels A, B) through
-             Engine on the card, greedy tokens equal to the CPU port's on
-             the same weights; then ``python -m rbg_tpu_torch.engine.server``
-             with its defaults (tiny on the card), two requests whose greedy
-             tokens equal the CPU port's.
+             could take (bound). Every kernel also gives host_us, the
+             host's time per call; A-H give work_items and grid_blocks as
+             the kernel wrote them back, and their time on the same case in
+             a table WIDE_P pages wide (output equal bit for bit); A and C
+             also a B=64 decode bucket of short rows (bucket64); A-D also
+             the llama3-8b case at page size 128 (page128: pages larger
+             than their 64-slot KV block).
+4. tiny    — tiny and tiny-moe (float32, hd 32; kernels A, B), tiny-mla
+             (float32 latents; kernels E, F) and tiny at page size 128
+             through Engine on the card, greedy tokens equal to the CPU
+             port's on the same weights; then ``python -m
+             rbg_tpu_torch.engine.server`` with its defaults (tiny on the
+             card), two requests whose greedy tokens equal the CPU port's.
 5. llama3-8b at full width and depth, random weights from a seed:
    engine  — Engine (bf16 pools; kernels A, B): a request steps into
              decode, a second joins so one ragged step holds a decode row
@@ -141,20 +143,30 @@ def host_us(torch, fn, n=200):
     return t
 
 
-def device_ms(torch, fn, flush, kernel, n=20):
-    """Mean device time of the kernel named ``kernel`` over the launches
-    the profiler recorded in n calls of ``fn`` (torch.profiler, L2 flushed
-    before each call): the kernel's own time, without the wrapper's host
-    time that cuda_ms also counts where the flush does not hide it."""
+def device_ms(torch, fn, flush, kernel, n=20, tries=3):
+    """Mean device time of the kernel named ``kernel`` over n calls of
+    ``fn``, each launching it once (torch.profiler, L2 flushed before each
+    call): the kernel's own time, without the wrapper's host time that
+    cuda_ms also counts where the flush does not hide it. A profile that
+    did not record exactly n launches of the kernel is discarded and taken
+    again; after ``tries`` such profiles this raises, so no partial or
+    empty reading is ever returned."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages()
-          if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
-    return sum(e.self_device_time_total for e in ev) / max(1, sum(e.count for e in ev)) / 1e3
+    seen = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
+        count = sum(e.count for e in ev)
+        if count == n:
+            return sum(e.self_device_time_total for e in ev) / n / 1e3
+        seen.append(count)
+    raise RuntimeError(f"device_ms: the profiler recorded {seen} launches of {kernel!r} "
+                       f"in {tries} profiles of {n} calls, never {n}")
 
 
 def bound(bytes_moved, flops):
@@ -250,12 +262,12 @@ def padded_queries(torch, q, qpos, rows, R, Tm=64):
     return qp, pp
 
 
-def decode_kernel_cases(torch, np, flush, model, KV, G, hd, lens, wide=False):
+def decode_kernel_cases(torch, np, flush, model, KV, G, hd, lens, wide=False, page=16):
     """Kernels A and C (on the same pools quantized) against their plain
-    versions on one decode case: {name: record}, each with host_us and the
-    kernel's own report of its launch (work_items, grid_blocks); with
-    ``wide`` also the same case in a table WIDE_P pages wide, whose output
-    must be the same bit for bit."""
+    versions on one decode case at page size ``page``: {name: record}, each
+    with host_us and the kernel's own report of its launch (work_items,
+    grid_blocks); with ``wide`` also the same case in a table WIDE_P pages
+    wide, whose output must be the same bit for bit."""
     import torch.nn.functional as F
 
     from rbg_tpu_torch.ops.kernels import launch_report
@@ -264,12 +276,12 @@ def decode_kernel_cases(torch, np, flush, model, KV, G, hd, lens, wide=False):
     from rbg_tpu_torch.ops.paged_attention import (gather_kv, paged_attention_plain,
                                                    quantize_kv)
 
-    q, k, v, table, pos, kv_lens = decode_case(torch, np, KV, G, hd, lens)
+    q, k, v, table, pos, kv_lens = decode_case(torch, np, KV, G, hd, lens, page)
     (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
-    B, S, tokens = len(lens), table.shape[1] * 16, sum(lens)
+    B, S, tokens = len(lens), table.shape[1] * page, sum(lens)
     qh = q.permute(0, 2, 1, 3)                                       # [B,H,1,hd]
     mask = (torch.arange(S, device="cuda")[None, :] < kv_lens[:, None])[:, None, None]
-    meta = pages_of(lens) * 4 + B * 4
+    meta = pages_of(lens, page) * 4 + B * 4
     flops = 4 * tokens * KV * G * hd
     out = {}
     for name, elem, fn, plain, kv_pair in (
@@ -282,7 +294,7 @@ def decode_kernel_cases(torch, np, flush, model, KV, G, hd, lens, wide=False):
              None)):
         got = fn()
         report = launch_report(q.device)
-        err = max_err_checked(torch, f"{name} {model} B={B}", got, plain())
+        err = max_err_checked(torch, f"{name} {model} B={B} page {page}", got, plain())
         extra = {}
         if wide:
             wt = F.pad(table, (0, WIDE_P - table.shape[1]))
@@ -299,7 +311,7 @@ def decode_kernel_cases(torch, np, flush, model, KV, G, hd, lens, wide=False):
                   + (2 * tokens * KV * 4 if elem == 1 else 0))
         b_ms, b_by = bound(nbytes, flops)
         out[name] = dict(
-            model=model, KV=KV, G=G, hd=hd, B=B, kv_lens=lens, max_abs_err=err,
+            model=model, KV=KV, G=G, hd=hd, B=B, kv_lens=lens, page=page, max_abs_err=err,
             host_us=host_us(torch, fn), **report, **extra, ms=cuda_ms(torch, fn, flush),
             device_ms=device_ms(torch, fn, flush, "paged_decode_kernel"),
             plain_ms=cuda_ms(torch, plain, flush, iters=5),
@@ -312,8 +324,17 @@ def decode_kernel_cases(torch, np, flush, model, KV, G, hd, lens, wide=False):
     return out
 
 
-def gqa_kernel_cases(torch, np, flush, out):
-    """Kernels A-D and I at the llama3-8b and qwen2-0.5b shapes."""
+# The sub-records a page-128 case (kernels A-D) adds to its page-16 record.
+PAGE128_KEYS = ("page", "max_abs_err", "ms", "device_ms", "host_us", "work_items",
+                "grid_blocks")
+
+
+def ragged_kernel_cases(torch, np, flush, model, KV, G, hd, names, page=16):
+    """Kernels B and D (on the same pools quantized) and I (B's function on
+    a token grid) against their plain versions on the mixed pack at page
+    size ``page``: {name: record} for ``names``. B and D also give the
+    kernel's own report of its launch and the same pack in a table WIDE_P
+    pages wide (output equal bit for bit)."""
     import torch.nn.functional as F
 
     from rbg_tpu_torch.ops.kernels import launch_report
@@ -324,6 +345,77 @@ def gqa_kernel_cases(torch, np, flush, out):
     from rbg_tpu_torch.ops.paged_attention import gather_kv, quantize_kv
     from rbg_tpu_torch.ops.ragged_paged_attention import ragged_paged_attention_plain
 
+    spec = RAGGED_SPEC
+    q, k, v, table, qpos, kv_lens, rows = ragged_case(torch, np, KV, G, hd, spec, page)
+    (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+    R, S = len(spec), table.shape[1] * page
+    qp, pp = padded_queries(torch, q, qpos, rows, R)
+    slot = torch.arange(S, device="cuda")
+    mask = ((slot[None, None] <= pp[:, :, None])
+            & (slot[None, None] < kv_lens[:, None, None]))[:, None]
+    qh = qp.permute(0, 2, 1, 3)
+    lim = torch.minimum(kv_lens[rows.long()], qpos[0] + 1).clamp(min=0)
+    flops = 4 * int(lim.sum()) * KV * G * hd
+    row_extent = sum(kv for _, kv in spec)          # each row's pages once
+    meta = pages_of([kv for _, kv in spec], page) * 4 + rows.numel() * 8 + R * 4
+    out = {}
+    for name, elem, fn, plain, kv_pair in (
+            ("ragged_paged", 2,
+             lambda t=table: ragged_paged_attention_cuda(q, k, v, t, qpos, kv_lens, rows),
+             lambda: ragged_paged_attention_plain(q, k, v, table, qpos, kv_lens,
+                                                  rows, 64), (k, v)),
+            ("ragged_paged_q", 1,
+             lambda t=table: ragged_paged_attention_q_cuda(q, k8, v8, ks, vs, t, qpos,
+                                                           kv_lens, rows),
+             lambda: ragged_paged_attention_plain(q, k8, v8, table, qpos, kv_lens,
+                                                  rows, 64, ks, vs), None),
+            ("ragged_paged_tokengrid", 2,
+             lambda: ragged_paged_attention_tokengrid_cuda(q, k, v, table, qpos,
+                                                           kv_lens, rows),
+             lambda: ragged_paged_attention_plain(q, k, v, table, qpos, kv_lens,
+                                                  rows, 64), (k, v))):
+        if name not in names:
+            continue
+        err = max_err_checked(torch, f"{name} {model} page {page}", fn(), plain())
+        if kv_pair is None:
+            kv_pair = ((k8.float() * ks).to(torch.bfloat16),
+                       (v8.float() * vs).to(torch.bfloat16))
+        kg = gather_kv(kv_pair[0], table).permute(0, 2, 1, 3).contiguous()
+        vg = gather_kv(kv_pair[1], table).permute(0, 2, 1, 3).contiguous()
+        nbytes = (2 * row_extent * KV * hd * elem + 2 * q.numel() * 2 + meta
+                  + (2 * row_extent * KV * 4 if elem == 1 else 0))
+        b_ms, b_by = bound(nbytes, flops)
+        extra = {"host_us": host_us(torch, fn)}
+        if name != "ragged_paged_tokengrid":
+            # The kernel's own report of its last launch, then the same
+            # pack in a wider table: the same items and the same output.
+            got = fn()
+            extra.update(launch_report(q.device))
+            wide = F.pad(table, (0, WIDE_P - table.shape[1]))
+            if not torch.equal(fn(wide), got):
+                raise AssertionError(f"{name} {model}: output moved with the table width")
+            extra["wide_table"] = dict(P=WIDE_P, **launch_report(q.device),
+                                       ms=cuda_ms(torch, lambda: fn(wide), flush))
+        symbol = ("ragged_paged_tokengrid_kernel" if name == "ragged_paged_tokengrid"
+                  else "ragged_paged_kernel")
+        out[name] = dict(
+            model=model, KV=KV, G=G, hd=hd, T=int(q.shape[1]), rows=spec, page=page, **extra,
+            max_abs_err=err, ms=cuda_ms(torch, fn, flush),
+            device_ms=device_ms(torch, fn, flush, symbol),
+            plain_ms=cuda_ms(torch, plain, flush, iters=5),
+            library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                qh, kg, vg, attn_mask=mask, enable_gqa=True), flush),
+            library="sdpa, padded [R, 64] batch on the gathered bf16 view" + (
+                " dequantized beforehand" if elem == 1 else ""),
+            bound_ms=b_ms, bound_by=b_by)
+        del kg, vg
+    return out
+
+
+def gqa_kernel_cases(torch, np, flush, out):
+    """Kernels A-D and I at the llama3-8b and qwen2-0.5b shapes (page 16);
+    A-D also at page 128 on llama3-8b (a page larger than their 64-slot
+    KV block), as a ``page128`` sub-record."""
     shapes = {"llama3-8b": (8, 4, 128), "qwen2-0.5b": (2, 7, 64)}
     for model, (KV, G, hd) in shapes.items():
         # -- A and C: decode, B=8, kv_len up to 2048; then a B=64 bucket --
@@ -337,71 +429,20 @@ def gqa_kernel_cases(torch, np, flush, out):
                                    "max_abs_err", "ms", "device_ms", "library_ms", "bound_ms",
                                    "bound_by", "plain_ms", "host_us", "work_items",
                                    "grid_blocks")}}
-            out[name].append(rec)
-
         # -- B, D and I (B's function on a token grid): the mixed pack --
-        spec = RAGGED_SPEC
-        q, k, v, table, qpos, kv_lens, rows = ragged_case(torch, np, KV, G, hd, spec)
-        (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
-        R, S = len(spec), table.shape[1] * 16
-        qp, pp = padded_queries(torch, q, qpos, rows, R)
-        slot = torch.arange(S, device="cuda")
-        mask = ((slot[None, None] <= pp[:, :, None])
-                & (slot[None, None] < kv_lens[:, None, None]))[:, None]
-        qh = qp.permute(0, 2, 1, 3)
-        lim = torch.minimum(kv_lens[rows.long()], qpos[0] + 1).clamp(min=0)
-        flops = 4 * int(lim.sum()) * KV * G * hd
-        row_extent = sum(kv for _, kv in spec)          # each row's pages once
-        meta = pages_of([kv for _, kv in spec]) * 4 + rows.numel() * 8 + R * 4
-        for name, elem, fn, plain, kv_pair in (
-                ("ragged_paged", 2,
-                 lambda t=table: ragged_paged_attention_cuda(q, k, v, t, qpos, kv_lens, rows),
-                 lambda: ragged_paged_attention_plain(q, k, v, table, qpos, kv_lens,
-                                                      rows, 64), (k, v)),
-                ("ragged_paged_q", 1,
-                 lambda t=table: ragged_paged_attention_q_cuda(q, k8, v8, ks, vs, t, qpos,
-                                                               kv_lens, rows),
-                 lambda: ragged_paged_attention_plain(q, k8, v8, table, qpos, kv_lens,
-                                                      rows, 64, ks, vs), None),
-                ("ragged_paged_tokengrid", 2,
-                 lambda: ragged_paged_attention_tokengrid_cuda(q, k, v, table, qpos,
-                                                               kv_lens, rows),
-                 lambda: ragged_paged_attention_plain(q, k, v, table, qpos, kv_lens,
-                                                      rows, 64), (k, v))):
-            err = max_err_checked(torch, f"{name} {model}", fn(), plain())
-            if kv_pair is None:
-                kv_pair = ((k8.float() * ks).to(torch.bfloat16),
-                           (v8.float() * vs).to(torch.bfloat16))
-            kg = gather_kv(kv_pair[0], table).permute(0, 2, 1, 3).contiguous()
-            vg = gather_kv(kv_pair[1], table).permute(0, 2, 1, 3).contiguous()
-            nbytes = (2 * row_extent * KV * hd * elem + 2 * q.numel() * 2 + meta
-                      + (2 * row_extent * KV * 4 if elem == 1 else 0))
-            b_ms, b_by = bound(nbytes, flops)
-            extra = {"host_us": host_us(torch, fn)}
-            if name != "ragged_paged_tokengrid":
-                # The kernel's own report of its last launch, then the same
-                # pack in a wider table: the same items and the same output.
-                got = fn()
-                extra.update(launch_report(q.device))
-                wide = F.pad(table, (0, WIDE_P - table.shape[1]))
-                if not torch.equal(fn(wide), got):
-                    raise AssertionError(f"{name} {model}: output moved with the table width")
-                extra["wide_table"] = dict(P=WIDE_P, **launch_report(q.device),
-                                           ms=cuda_ms(torch, lambda: fn(wide), flush))
-            symbol = ("ragged_paged_tokengrid_kernel" if name == "ragged_paged_tokengrid"
-                      else "ragged_paged_kernel")
-            out[name].append(dict(
-                model=model, KV=KV, G=G, hd=hd, T=int(q.shape[1]), rows=spec, **extra,
-                max_abs_err=err, ms=cuda_ms(torch, fn, flush),
-                device_ms=device_ms(torch, fn, flush, symbol),
-                plain_ms=cuda_ms(torch, plain, flush, iters=5),
-                library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                    qh, kg, vg, attn_mask=mask, enable_gqa=True), flush),
-                library="sdpa, padded [R, 64] batch on the gathered bf16 view" + (
-                    " dequantized beforehand" if elem == 1 else ""),
-                bound_ms=b_ms, bound_by=b_by))
-            del kg, vg
-        del qp
+        ragged = ragged_kernel_cases(torch, np, flush, model, KV, G, hd,
+                                     ("ragged_paged", "ragged_paged_q",
+                                      "ragged_paged_tokengrid"))
+        recs = {**decode, **ragged}
+        if model == "llama3-8b":
+            big = {**decode_kernel_cases(torch, np, flush, model, KV, G, hd, DECODE_LENS,
+                                         page=128),
+                   **ragged_kernel_cases(torch, np, flush, model, KV, G, hd,
+                                         ("ragged_paged", "ragged_paged_q"), page=128)}
+            for name, rec in big.items():
+                recs[name]["page128"] = {k: rec[k] for k in PAGE128_KEYS}
+        for name, rec in recs.items():
+            out[name].append(rec)
 
 
 def latent_pools(torch, NP, dc, dr, seed, page=16):
@@ -413,9 +454,9 @@ def latent_pools(torch, NP, dc, dr, seed, page=16):
 
 def mla_kernel_cases(torch, np, flush, out):
     """Kernels E and F, and G and H on the same latent pools quantized, at
-    the deepseek-v2-lite and deepseek-v3 shapes. E and G also give
-    host_us, the work items and grid their launch reported, and the same
-    case in a table WIDE_P pages wide (output equal bit for bit)."""
+    the deepseek-v2-lite and deepseek-v3 shapes. Each also gives host_us,
+    the work items and grid its launch reported, and the same case in a
+    table WIDE_P pages wide (output equal bit for bit)."""
     import torch.nn.functional as F
 
     from rbg_tpu_torch.ops.kernels import launch_report
@@ -515,19 +556,28 @@ def mla_kernel_cases(torch, np, flush, out):
         # F on bf16 latent pools; H on the same pools quantized by quantize_kv.
         for name, elem, fn, plain, view in (
                 ("ragged_paged_mla", 2,
-                 lambda: ragged_paged_mla_attention_cuda(q_lat, q_pe, c, pe, table, qpos,
-                                                         kv_lens, rows, scale),
+                 lambda t=table: ragged_paged_mla_attention_cuda(q_lat, q_pe, c, pe, t, qpos,
+                                                                 kv_lens, rows, scale),
                  lambda: ragged_paged_mla_attention_plain(q_lat, q_pe, c, pe, table,
                                                           qpos, kv_lens, rows, scale,
                                                           max_q_len=64), (c, pe)),
                 ("ragged_paged_mla_q", 1,
-                 lambda: ragged_paged_mla_attention_q_cuda(q_lat, q_pe, c8, pe8, cs, ps,
-                                                           table, qpos, kv_lens, rows,
-                                                           scale),
+                 lambda t=table: ragged_paged_mla_attention_q_cuda(q_lat, q_pe, c8, pe8, cs,
+                                                                   ps, t, qpos, kv_lens,
+                                                                   rows, scale),
                  lambda: ragged_paged_mla_attention_plain(q_lat, q_pe, c8, pe8, table,
                                                           qpos, kv_lens, rows, scale, cs,
                                                           ps, max_q_len=64), None)):
-            err = max_err_checked(torch, f"{name} {model}", fn(), plain())
+            got = fn()
+            report = launch_report(q_lat.device)
+            err = max_err_checked(torch, f"{name} {model}", got, plain())
+            wt = F.pad(table, (0, WIDE_P - table.shape[1]))
+            if not torch.equal(fn(wt), got):
+                raise AssertionError(f"{name} {model}: output moved with the table width")
+            wide = dict(P=WIDE_P, **launch_report(q_lat.device),
+                        ms=cuda_ms(torch, lambda: fn(wt), flush),
+                        device_ms=device_ms(torch, lambda: fn(wt), flush,
+                                            "ragged_paged_mla_kernel"))
             if view is None:        # SDPA on the view dequantized to bf16 beforehand
                 view = (dequantized(c8, cs), dequantized(pe8, ps))
             kg = torch.cat([_gather(view[0], table), _gather(view[1], table)], -1)[:, None]
@@ -538,6 +588,7 @@ def mla_kernel_cases(torch, np, flush, out):
             b_ms, b_by = bound(nbytes, int(lim.sum()) * H * (4 * dc + 2 * dr))
             out[name].append(dict(
                 model=model, H=H, dc=dc, dr=dr, T=T, rows=spec, max_abs_err=err,
+                host_us=host_us(torch, fn), **report, wide_table=wide,
                 ms=cuda_ms(torch, fn, flush),
                 device_ms=device_ms(torch, fn, flush, "ragged_paged_mla_kernel"),
                 plain_ms=cuda_ms(torch, plain, flush, iters=5),
@@ -949,9 +1000,11 @@ def free_port():
 
 
 def tiny_phase(torch, np):
-    """tiny and tiny-moe (float32, hd 32: kernels A and B) on the card.
-    Engine at multi_step 1 and 4 on weights drawn on the CPU: greedy tokens
-    equal to the CPU port's on the same weights, and both kernels launched.
+    """tiny and tiny-moe (float32, hd 32: kernels A and B), tiny-mla
+    (float32 latents: kernels E and F) and tiny at page size 128 on the
+    card. Engine at multi_step 1 and 4 on weights drawn on the CPU: greedy
+    tokens equal to the CPU port's on the same weights, and both kernels
+    of the model's path launched.
     Then the server as a user starts it, ``python -m
     rbg_tpu_torch.engine.server`` with its defaults (tiny on the card,
     random weights from seed 0), answering two generate requests whose
@@ -967,10 +1020,12 @@ def tiny_phase(torch, np):
     rng = np.random.RandomState(3)
     prompts = [rng.randint(0, 256, n).tolist() for n in (5, 40, 23, 70)]
     sp = SamplingParams(max_new_tokens=16)
-    for model in ("tiny", "tiny-moe"):
+    for model, page in (("tiny", 16), ("tiny-moe", 16), ("tiny-mla", 16), ("tiny", 128)):
         params = init_params(get_config(model), 0, "cpu")
+        kernels = MLA_KERNELS if model == "tiny-mla" else LLAMA_KERNELS
         for ms in (1, 4):
-            kw = dict(model=model, num_pages=256, max_seq_len=256, multi_step=ms)
+            kw = dict(model=model, num_pages=256, max_seq_len=256, multi_step=ms,
+                      page_size=page)
             want = Engine(EngineConfig(**kw, device="cpu"), params=params).generate(
                 prompts, sp)
             reset_launches()
@@ -978,12 +1033,12 @@ def tiny_phase(torch, np):
                 prompts, sp)
             torch.cuda.synchronize()
             launches = dict(LAUNCHES)
-            check_launches(launches, LLAMA_KERNELS)
-            emit("tiny_engine", model=model, multi_step=ms, tokens=got,
-                 equal_to_cpu=got == want,
-                 launches={k: launches[k] for k in LLAMA_KERNELS})
+            check_launches(launches, kernels)
+            emit("tiny_engine", model=model, page_size=page, multi_step=ms, tokens=got,
+                 equal_to_cpu=got == want, launches={k: launches[k] for k in kernels})
             if got != want:
-                raise AssertionError(f"{model} multi_step {ms}: card {got} vs cpu {want}")
+                raise AssertionError(f"{model} page {page} multi_step {ms}: card {got} "
+                                     f"vs cpu {want}")
 
     root = Path(__file__).resolve().parent
     port = free_port()

@@ -38,12 +38,14 @@
 //    The split that sees the count reach ns - 1 merges all ns partials in
 //    split order, so the output bits do not depend on which split finished
 //    first (nor on P). ns == 1 writes the output directly.
-// 3. A pipeline of 64-slot KV blocks (64 / page pages; the wrapper refuses
-//    a page size that does not divide 64). A stage holds one block's K and
-//    V rows of the kv head, copied with 16-byte cp.async (int8 pools: their
+// 3. A pipeline of 64-slot KV blocks. A stage holds one block's K and V
+//    rows of the kv head, copied with 16-byte cp.async (int8 pools: their
 //    per-slot scales with 4-byte copies); each thread reads the page ids
-//    its copies need from the table row as the walk goes, so a row of any
-//    length the table holds works. kStages blocks are in flight (3 for
+//    its copies need from the table row as the walk goes (rbg::PageMap:
+//    table[slot / page] at offset slot % page, a shift for a power-of-two
+//    page size, a division otherwise), so a block may span parts of pages
+//    of any size or lie inside one page, and a row of any length the table
+//    holds works. kStages blocks are in flight (3 for
 //    bf16 pools, 4 for int8 pools' half-size stages, 2 for f32 queries).
 //    Slots past the row's last page repeat it: masked, but finite. Only a
 //    split's last block can reach past len, and only it masks.
@@ -124,8 +126,7 @@ template <typename T, typename KVT, int HD>
 __device__ __forceinline__ void issue_block(unsigned char* sm, int st, int nb,
                                             const KVT* k_pages, const KVT* v_pages,
                                             const float* k_scales, const float* v_scales,
-                                            const int* trow, int last, int pshift, int kv,
-                                            int KV) {
+                                            const rbg::PageMap& pmap, int kv, int KV) {
   using L = Layout<T, KVT, HD>;
   constexpr int CPR = HD * (int)sizeof(KVT) / 16;  // 16-byte chunks per row
   constexpr int N = kBN * CPR / kThreads;          // chunks of K (and of V) per thread
@@ -133,16 +134,20 @@ __device__ __forceinline__ void issue_block(unsigned char* sm, int st, int nb,
   constexpr int ld = L::kQuant ? HD : L::LD * (int)sizeof(T);
   unsigned char* kd = L::kQuant ? sm + L::kRawOff + 2 * st * L::kRaw : sm + 2 * st * L::kTile;
   unsigned char* vd = kd + (L::kQuant ? L::kRaw : L::kTile);
-  auto slot_of = [&](int s) -> long {  // pool slot of walk slot s
-    const long phys = trow[min(s >> pshift, last)];
-    return (phys << pshift) + (s & ((1 << pshift) - 1));
-  };
   long src[N];
+  auto sources = [&](auto pow2) {
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const int c = threadIdx.x + i * kThreads;
-    src[i] = (slot_of(nb * kBN + c / CPR) * KV + kv) * HD * (long)sizeof(KVT) + (c % CPR) * 16;
-  }
+    for (int i = 0; i < N; ++i) {
+      const int c = threadIdx.x + i * kThreads;
+      src[i] = (pmap.template slot_in<decltype(pow2)::value>(nb * kBN + c / CPR) * KV + kv) * HD
+                   * (long)sizeof(KVT)
+               + (c % CPR) * 16;
+    }
+  };
+  if (pmap.pshift >= 0)
+    sources(std::true_type{});
+  else
+    sources(std::false_type{});
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     const int c = threadIdx.x + i * kThreads, off = (c / CPR) * ld + (c % CPR) * 16;
@@ -153,7 +158,7 @@ __device__ __forceinline__ void issue_block(unsigned char* sm, int st, int nb,
     float* ks = reinterpret_cast<float*>(sm + L::kScaleOff) + 2 * st * kBN;
     const int r = threadIdx.x;
     if (r < kBN) {
-      const long i = slot_of(nb * kBN + r) * KV + kv;
+      const long i = pmap.slot(nb * kBN + r) * KV + kv;
       rbg::cp_async4(ks + r, k_scales + i);
       rbg::cp_async4(ks + kBN + r, v_scales + i);
     }
@@ -257,14 +262,6 @@ __device__ __forceinline__ void fma_block(unsigned char* sm, float (&o)[HD / 8],
   }
 }
 
-__device__ __forceinline__ void store4(float* d, float4 v) {
-  *reinterpret_cast<float4*>(d) = v;
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* d, float4 v) {
-  reinterpret_cast<__nv_bfloat162*>(d)[0] = __floats2bfloat162_rn(v.x, v.y);
-  reinterpret_cast<__nv_bfloat162*>(d)[1] = __floats2bfloat162_rn(v.z, v.w);
-}
-
 // T: q and output element type; KVT: pool element type (T, or int8_t with
 // f32 scales [NP, page, KV, 1]); HD: head dim (32, 64 or 128). Two blocks
 // per SM is the register target (the bf16 hd-128 stages fit two per SM):
@@ -276,7 +273,7 @@ paged_decode_kernel(const T* __restrict__ q, const KVT* __restrict__ k_pages,
                     const float* __restrict__ v_scales, const int* __restrict__ table,
                     const int* __restrict__ kv_lens, T* __restrict__ out,
                     float* __restrict__ part, int* __restrict__ counts, int B, int KV, int G,
-                    int page, int P, int cap, float scale) {
+                    int page, int pshift, int P, int cap, float scale) {
   using L = Layout<T, KVT, HD>;
   constexpr int S = L::kStages, CLD = L::kCLd;
   extern __shared__ __align__(16) unsigned char sm[];
@@ -310,11 +307,11 @@ paged_decode_kernel(const T* __restrict__ q, const KVT* __restrict__ k_pages,
   const int nkb = (len + kBN - 1) / kBN, ns = splits_of(nkb, cap);
   if (split >= ns) return;
   const int kb0 = split * nkb / ns, nblk = (split + 1) * nkb / ns - kb0;
-  const int pshift = __ffs(page) - 1;
-  const int* trow = table + (long)b * P;
+  rbg::PageMap pmap{table + (long)b * P, 0, page, pshift};
+  pmap.last = pmap.last_of(len);
   auto issue = [&](int st, int i) {
-    issue_block<T, KVT, HD>(sm, st, kb0 + i, k_pages, v_pages, k_scales, v_scales, trow,
-                            (len - 1) >> pshift, pshift, kv, KV);
+    issue_block<T, KVT, HD>(sm, st, kb0 + i, k_pages, v_pages, k_scales, v_scales, pmap, kv,
+                            KV);
   };
 #pragma unroll
   for (int st = 0; st < S; ++st) {
@@ -485,7 +482,7 @@ paged_decode_kernel(const T* __restrict__ q, const KVT* __restrict__ k_pages,
           a.w = fmaf(w, v.w, a.w);
         }
         const float inv = 1.f / fmaxf(l, 1e-30f);
-        store4(dst + r * HD + c, make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv));
+        rbg::store4(dst + r * HD + c, make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv));
       }
     }
   }
@@ -513,14 +510,14 @@ int launch_hd(const void* q, const void* k_pages, const void* v_pages, const voi
       static_cast<const KVT*>(v_pages), static_cast<const float*>(k_scales),
       static_cast<const float*>(v_scales), static_cast<const int*>(table),
       static_cast<const int*>(kv_lens), static_cast<T*>(out), static_cast<float*>(part),
-      static_cast<int*>(counts), B, KV, G, page, P, cap, scale);
+      static_cast<int*>(counts), B, KV, G, page, rbg::page_shift(page), P, cap, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace pd
 
 // The shapes the kernel takes (the wrapper refuses others first, with a
-// ValueError): hd 32, 64 or 128, 1 <= G <= 16, a page size dividing 64,
+// ValueError): hd 32, 64 or 128, 1 <= G <= 16, any page size,
 // 1 <= cap <= pd::kMaxSplits. part: float32 scratch of B * KV * cap * G *
 // (hd + 4); counts: int32 of pd::kDoneSlot0 + B * KV, zero when first used.
 // The launch goes to device `dev` (q's, whose stream `stream` is); the
@@ -532,7 +529,7 @@ int launch_decode(const void* q, const void* k_pages, const void* v_pages,
                   int G, int hd, int page, int P, int cap, float scale, int dev,
                   cudaStream_t stream) {
   if (B == 0) return 0;
-  if (G < 1 || G > pd::kRows || page < 1 || pd::kBN % page || cap < 1 ||
+  if (G < 1 || G > pd::kRows || page < 1 || cap < 1 ||
       cap > pd::kMaxSplits || dev < 0 || dev >= pd::kMaxDevices)
     return (int)cudaErrorInvalidValue;
   int cur = 0;

@@ -45,12 +45,13 @@
 // 3. Staging. A stage is one block of kBN = 32 slots: its c rows and pe
 //    rows, copied with 16-byte cp.async: four stages (three blocks in
 //    flight during a step) for bf16 queries and for int8 pools' raw
-//    stages, two for f32 queries over f32 pools. Each slot's page
-//    id comes from the table row (a shift when the page size is a power of
-//    two, a division otherwise), so blocks span pages of any size. int8
-//    pools stage the raw bytes (and the two scales per slot) and convert
-//    each block into one tile of the query's type in shared memory, which
-//    is exact. One 32-slot bf16 [c | pe] block at deepseek widths is 37 KB;
+//    stages, two for f32 queries over f32 pools. Each slot's page id comes
+//    from the table row (rbg::PageMap: a shift when the page size is a
+//    power of two, a division otherwise), so blocks span pages of any size.
+//    int8 pools stage the raw bytes (and the two scales per slot) and
+//    convert each block into one tile of the query's type in shared memory,
+//    which is exact (issue_block and convert_block also stage kernels F
+//    and H, ragged_paged_mla.cuh). One 32-slot bf16 [c | pe] block at deepseek widths is 37 KB;
 //    E's bf16 plan holds 162 KB, G's 134 KB, the f32 plans 185 KB: one
 //    block per SM (__launch_bounds__(128, 1)).
 // 4. bf16 queries (the served dtype): four warps, products on the tensor
@@ -126,38 +127,20 @@ struct Layout {
   static constexpr int kStateOff =
       kWorkOff + (kMma ? kRedBytes + 2 * kRows * kPLd * 2 : kRows * (kDQ + kSLd) * 4);
   static constexpr int kBytes = kStateOff + (4 * kRows + kRows * kMaxSplits) * 4;
+  static constexpr int kThreads = pm::kThreads;
   static_assert(DC % 64 == 0 && DR % 16 == 0, "dc splits over four warps in 16-wide k steps");
   static_assert(kThreads == 4 * kBN, "four threads stage each slot");
 };
 
-// Slot s of a row's walk as a pool slot: its page's id from the table row
-// (clamped to the row's last page: slots past len are masked but finite).
-struct PageMap {
-  const int* trow;
-  int last, page, pshift;  // pshift < 0: page not a power of two
-
-  __device__ __forceinline__ long slot(int s) const {
-    int i, off;
-    if (pshift >= 0) {
-      i = s >> pshift;
-      off = s & (page - 1);
-    } else {
-      i = s / page;
-      off = s - i * page;
-    }
-    return (long)__ldg(trow + min(i, last)) * page + off;
-  }
-};
-
-// Copy latent block nb (walk slots nb·kBN ..) into stage st: thread t copies
-// part t % 4 of slot row t / 4's 16-byte chunks of c and of pe (int8 pools:
-// and the slot's two scales).
-template <typename T, typename KVT, int DC, int DR>
+// Copy latent block nb (walk slots nb·kBN ..) into stage st of layout L
+// (E and G's, or F and H's in ragged_paged_mla.cuh): each slot row is
+// L::kThreads / kBN threads' share of 16-byte chunks of c and of pe (int8
+// pools: and the slot's two scales).
+template <typename L, typename KVT, int DC, int DR>
 __device__ __forceinline__ void issue_block(unsigned char* sm, int st, int nb, const KVT* c_pages,
                                             const KVT* pe_pages, const float* c_scales,
-                                            const float* pe_scales, const PageMap& pmap) {
-  using L = Layout<T, KVT, DC, DR>;
-  constexpr int TPR = kThreads / kBN;
+                                            const float* pe_scales, const rbg::PageMap& pmap) {
+  constexpr int TPR = L::kThreads / kBN;
   constexpr int CC = DC * (int)sizeof(KVT) / 16, CP = DR * (int)sizeof(KVT) / 16;
   const int r = threadIdx.x / TPR, part = threadIdx.x % TPR;
   const long slot = pmap.slot(nb * kBN + r);
@@ -196,15 +179,15 @@ __device__ __forceinline__ void issue_block(unsigned char* sm, int st, int nb, c
   }
 }
 
-// int8 pools: raw stage st's c and pe rows as T in the converted tile.
-template <typename T, int DC, int DR>
+// int8 pools: raw stage st of layout L's c and pe rows as T in the
+// converted tile.
+template <typename L, typename T, int DC, int DR>
 __device__ __forceinline__ void convert_block(unsigned char* sm, int st) {
-  using L = Layout<T, int8_t, DC, DR>;
   constexpr int CC = DC / 16, CP = DR / 16;
   const unsigned char* raw = sm + L::kRawOff + st * L::kRaw;
   T* tc = reinterpret_cast<T*>(sm);
   T* tp = reinterpret_cast<T*>(sm + L::kCTile);
-  for (int c = threadIdx.x; c < kBN * (CC + CP); c += kThreads) {
+  for (int c = threadIdx.x; c < kBN * (CC + CP); c += L::kThreads) {
     if (c < kBN * CC) {
       const int r = c / CC, ch = c % CC;
       rk::store_i8x16(tc + r * L::LDC + ch * 16,
@@ -217,12 +200,131 @@ __device__ __forceinline__ void convert_block(unsigned char* sm, int st) {
   }
 }
 
-__device__ __forceinline__ void store4(float* d, float4 v) {
-  *reinterpret_cast<float4*>(d) = v;
+// One softmax step of row r = threadIdx.x / 8 over slots q4 .. q4 + 3 of
+// latent block nb from its scores s (log2 units); slots at or past the
+// row's limit lim get p = 0 when the block is masked. The row's running
+// max and sum (m_run, l_run) are kept alike by its eight threads; alpha, m
+// and l go to s_alpha, s_m, s_l[r]. Returns p in s (times cs for int8
+// pools, whose denominator keeps p).
+template <bool kQuant>
+__device__ __forceinline__ void softmax4(float (&s)[4], int nb, bool masked, int q4, int lim,
+                                         const float* cs, float& m_run, float& l_run,
+                                         float* s_alpha, float* s_m, float* s_l) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if (masked && nb * kBN + q4 + e >= lim) s[e] = rbg::kNegInf;
+  float mx = fmaxf(fmaxf(s[0], s[1]), fmaxf(s[2], s[3]));
+#pragma unroll
+  for (int o = 1; o < 8; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  const float m_new = fmaxf(m_run, mx), alpha = exp2f(m_run - m_new);
+  float sum = 0.f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float p = (!masked || s[e] > rbg::kNegInf) ? exp2f(s[e] - m_new) : 0.f;
+    sum += p;
+    s[e] = kQuant ? p * cs[q4 + e] : p;
+  }
+#pragma unroll
+  for (int o = 1; o < 8; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+  m_run = m_new;
+  l_run = l_run * alpha + sum;
+  if ((threadIdx.x & 7) == 0) {
+    const int r = threadIdx.x >> 3;
+    s_alpha[r] = alpha;
+    s_m[r] = m_run;
+    s_l[r] = l_run;
+  }
 }
-__device__ __forceinline__ void store4(__nv_bfloat16* d, float4 v) {
-  reinterpret_cast<__nv_bfloat162*>(d)[0] = __floats2bfloat162_rn(v.x, v.y);
-  reinterpret_cast<__nv_bfloat162*>(d)[1] = __floats2bfloat162_rn(v.z, v.w);
+
+// f32 queries (kernels E and F): one latent block staged by layout L on
+// CUDA cores for kRows query rows whose [q_lat | q_pe] rows (stride LDQ)
+// are f32 in shared memory at sq. S: thread (warp w, lane j) scores slot j
+// against rows 4w .. 4w + 3 (two accumulators per row for c, one for pe)
+// into ss [kRows][L::kSLd], scaled (int8 pools: s = (S_c·cs + S_pe·ps)·
+// scale); the softmax step of row threadIdx.x / 8 (limit lim) turns the
+// scores into P; O += P · c, thread (r0, cq) owning rows r0 + RS·i and
+// columns 4cq .. 4cq + 3. Synchronises the block between the steps.
+template <typename L, int DC, int DR, int LDQ>
+__device__ __forceinline__ void fma_block(float (&o)[kRows * DC / 4 / kThreads][4],
+                                          const float* tc, const float* tp, const float* sq,
+                                          float* ss, const float* cs, float sl2, int nb,
+                                          bool masked, int lim, float& m_run, float& l_run,
+                                          float* s_alpha, float* s_m, float* s_l) {
+  constexpr int SLD = L::kSLd, CQ = DC / 4, RS = kThreads / CQ;
+  const int tid = threadIdx.x;
+  {
+    const int j = tid & 31, rg = (tid >> 5) * 4;
+    float ac[4][2], ap[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) ac[r][0] = ac[r][1] = ap[r] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < DC; d += 8) {
+      const float4 k0 = *reinterpret_cast<const float4*>(tc + j * L::LDC + d);
+      const float4 k1 = *reinterpret_cast<const float4*>(tc + j * L::LDC + d + 4);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float4 x = *reinterpret_cast<const float4*>(sq + (rg + r) * LDQ + d);
+        const float4 y = *reinterpret_cast<const float4*>(sq + (rg + r) * LDQ + d + 4);
+        ac[r][0] = fmaf(x.x, k0.x, ac[r][0]);
+        ac[r][0] = fmaf(x.y, k0.y, ac[r][0]);
+        ac[r][0] = fmaf(x.z, k0.z, ac[r][0]);
+        ac[r][0] = fmaf(x.w, k0.w, ac[r][0]);
+        ac[r][1] = fmaf(y.x, k1.x, ac[r][1]);
+        ac[r][1] = fmaf(y.y, k1.y, ac[r][1]);
+        ac[r][1] = fmaf(y.z, k1.z, ac[r][1]);
+        ac[r][1] = fmaf(y.w, k1.w, ac[r][1]);
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < DR; d += 4) {
+      const float4 k = *reinterpret_cast<const float4*>(tp + j * L::LDP + d);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float4 x = *reinterpret_cast<const float4*>(sq + (rg + r) * LDQ + DC + d);
+        ap[r] = fmaf(x.x, k.x, ap[r]);
+        ap[r] = fmaf(x.y, k.y, ap[r]);
+        ap[r] = fmaf(x.z, k.z, ap[r]);
+        ap[r] = fmaf(x.w, k.w, ap[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float c = ac[r][0] + ac[r][1];
+      ss[(rg + r) * SLD + j] = (L::kQuant ? c * cs[j] + ap[r] * cs[kBN + j] : c + ap[r]) * sl2;
+    }
+  }
+  __syncthreads();
+  {
+    const int r = tid >> 3, q4 = (tid & 7) * 4;
+    float s[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[e] = ss[r * SLD + q4 + e];
+    softmax4<L::kQuant>(s, nb, masked, q4, lim, cs, m_run, l_run, s_alpha, s_m, s_l);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ss[r * SLD + q4 + e] = s[e];
+  }
+  __syncthreads();
+  const int cq = tid % CQ, r0 = tid / CQ;
+#pragma unroll
+  for (int i = 0; i < kRows / RS; ++i) {
+    const float a = s_alpha[r0 + RS * i];
+    o[i][0] *= a;
+    o[i][1] *= a;
+    o[i][2] *= a;
+    o[i][3] *= a;
+  }
+#pragma unroll 4
+  for (int j = 0; j < kBN; ++j) {
+    const float4 v = *reinterpret_cast<const float4*>(tc + j * L::LDC + 4 * cq);
+#pragma unroll
+    for (int i = 0; i < kRows / RS; ++i) {
+      const float p = ss[(r0 + RS * i) * SLD + j];
+      o[i][0] = fmaf(p, v.x, o[i][0]);
+      o[i][1] = fmaf(p, v.y, o[i][1]);
+      o[i][2] = fmaf(p, v.z, o[i][2]);
+      o[i][3] = fmaf(p, v.w, o[i][3]);
+    }
+  }
 }
 
 // T: q and output element type; KVT: latent pool element type (T, or int8_t
@@ -270,11 +372,11 @@ paged_mla_decode_kernel(const T* __restrict__ q_lat, const T* __restrict__ q_pe,
   const int nkb = (len + kBN - 1) / kBN, ns = splits_of(nkb, cap);
   if (split >= ns) return;
   const int kb0 = split * nkb / ns, nblk = (split + 1) * nkb / ns - kb0;
-  const PageMap pmap{table + (long)b * P, pshift >= 0 ? (len - 1) >> pshift : (len - 1) / page,
-                     page, pshift};
+  rbg::PageMap pmap{table + (long)b * P, 0, page, pshift};
+  pmap.last = pmap.last_of(len);
   auto issue = [&](int i) {  // step i's block into its stage (an empty group past the split)
     if (i < nblk)
-      issue_block<T, KVT, DC, DR>(sm, i % S, kb0 + i, c_pages, pe_pages, c_scales, pe_scales,
+      issue_block<L, KVT, DC, DR>(sm, i % S, kb0 + i, c_pages, pe_pages, c_scales, pe_scales,
                                   pmap);
     rbg::cp_async_commit();
   };
@@ -288,7 +390,7 @@ paged_mla_decode_kernel(const T* __restrict__ q_lat, const T* __restrict__ q_pe,
     __syncthreads();
     issue(i + S - 1);
     if constexpr (L::kQuant) {
-      convert_block<T, DC, DR>(sm, i % S);
+      convert_block<L, T, DC, DR>(sm, i % S);
       __syncthreads();
       return reinterpret_cast<const T*>(sm);
     } else {
@@ -309,35 +411,6 @@ paged_mla_decode_kernel(const T* __restrict__ q_lat, const T* __restrict__ q_pe,
   // The running max (log2 units) and sum of softmax row r, kept alike by
   // the eight threads that take its softmax.
   float m_run = rbg::kNegInf, l_run = 0.f;
-  // One softmax step for row r = tid / 8 over slots q4 .. q4 + 3 of block
-  // nb from its scores s; writes alpha, m and l, returns p (times cs for
-  // int8 pools, whose denominator keeps p).
-  auto softmax4 = [&](float (&s)[4], int nb, bool masked, int q4, const float* cs) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (masked && nb * kBN + q4 + e >= len) s[e] = rbg::kNegInf;
-    float mx = fmaxf(fmaxf(s[0], s[1]), fmaxf(s[2], s[3]));
-#pragma unroll
-    for (int o = 1; o < 8; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    const float m_new = fmaxf(m_run, mx), alpha = exp2f(m_run - m_new);
-    float sum = 0.f;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float p = (!masked || s[e] > rbg::kNegInf) ? exp2f(s[e] - m_new) : 0.f;
-      sum += p;
-      s[e] = L::kQuant ? p * cs[q4 + e] : p;
-    }
-#pragma unroll
-    for (int o = 1; o < 8; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    m_run = m_new;
-    l_run = l_run * alpha + sum;
-    if ((tid & 7) == 0) {
-      const int r = tid >> 3;
-      s_alpha[r] = alpha;
-      s_m[r] = m_run;
-      s_l[r] = l_run;
-    }
-  };
   // The split's result for head r < nh, columns c, c + 1: out when the row's
   // walk is one split, else a partial of the merge (m and l once per row).
   auto finish2 = [&](int r, int c, float o0, float o1, bool ml) {
@@ -452,7 +525,7 @@ paged_mla_decode_kernel(const T* __restrict__ q_lat, const T* __restrict__ q_pe,
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           s[e] = (L::kQuant ? s[e] * cs[q4 + e] + t[e] * cs[kBN + q4 + e] : s[e]) * sl2;
-        softmax4(s, nb, masked, q4, cs);
+        softmax4<L::kQuant>(s, nb, masked, q4, len, cs, m_run, l_run, s_alpha, s_m, s_l);
         uint32_t hi[2], lo[2];
         rbg::split_bf16x2(s[0], s[1], hi[0], lo[0]);
         rbg::split_bf16x2(s[2], s[3], hi[1], lo[1]);
@@ -502,7 +575,7 @@ paged_mla_decode_kernel(const T* __restrict__ q_lat, const T* __restrict__ q_pe,
                   warp == 0 && dt == 0 && tig == 0);
     }
   } else {
-    constexpr int DQ = L::kDQ, SLD = L::kSLd;
+    constexpr int DQ = L::kDQ;
     constexpr int CQ = DC / 4, RS = kThreads / CQ;  // P·V: column quads, row stride
     float* sq = reinterpret_cast<float*>(sm + L::kWorkOff);  // Q [kRows][DQ]
     float* ss = sq + kRows * DQ;                              // S, then P [kRows][SLD]
@@ -521,82 +594,8 @@ paged_mla_decode_kernel(const T* __restrict__ q_lat, const T* __restrict__ q_pe,
       const float* tp = tc + L::kCTile / 4;
       const int nb = kb0 + i;
       const bool masked = (nb + 1) * kBN > len;
-      const float* cs = scales_of(i);
-      // S: thread (warp w, lane j) scores slot j against heads 4w .. 4w + 3,
-      // two accumulators per head for c, one for pe.
-      {
-        const int j = tid & 31, rg = (tid >> 5) * 4;
-        float ac[4][2], ap[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) ac[r][0] = ac[r][1] = ap[r] = 0.f;
-#pragma unroll 2
-        for (int d = 0; d < DC; d += 8) {
-          const float4 k0 = *reinterpret_cast<const float4*>(tc + j * L::LDC + d);
-          const float4 k1 = *reinterpret_cast<const float4*>(tc + j * L::LDC + d + 4);
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const float4 x = *reinterpret_cast<const float4*>(sq + (rg + r) * DQ + d);
-            const float4 y = *reinterpret_cast<const float4*>(sq + (rg + r) * DQ + d + 4);
-            ac[r][0] = fmaf(x.x, k0.x, ac[r][0]);
-            ac[r][0] = fmaf(x.y, k0.y, ac[r][0]);
-            ac[r][0] = fmaf(x.z, k0.z, ac[r][0]);
-            ac[r][0] = fmaf(x.w, k0.w, ac[r][0]);
-            ac[r][1] = fmaf(y.x, k1.x, ac[r][1]);
-            ac[r][1] = fmaf(y.y, k1.y, ac[r][1]);
-            ac[r][1] = fmaf(y.z, k1.z, ac[r][1]);
-            ac[r][1] = fmaf(y.w, k1.w, ac[r][1]);
-          }
-        }
-#pragma unroll
-        for (int d = 0; d < DR; d += 4) {
-          const float4 k = *reinterpret_cast<const float4*>(tp + j * L::LDP + d);
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const float4 x = *reinterpret_cast<const float4*>(sq + (rg + r) * DQ + DC + d);
-            ap[r] = fmaf(x.x, k.x, ap[r]);
-            ap[r] = fmaf(x.y, k.y, ap[r]);
-            ap[r] = fmaf(x.z, k.z, ap[r]);
-            ap[r] = fmaf(x.w, k.w, ap[r]);
-          }
-        }
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float c = ac[r][0] + ac[r][1];
-          ss[(rg + r) * SLD + j] = (L::kQuant ? c * cs[j] + ap[r] * cs[kBN + j] : c + ap[r]) * sl2;
-        }
-      }
-      __syncthreads();
-      {
-        const int r = tid >> 3, q4 = (tid & 7) * 4;
-        float s[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[e] = ss[r * SLD + q4 + e];
-        softmax4(s, nb, masked, q4, cs);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) ss[r * SLD + q4 + e] = s[e];
-      }
-      __syncthreads();
-      // O += P · c: thread (r0, cq) owns heads r0 + RS·i, columns 4cq .. + 3.
-#pragma unroll
-      for (int i = 0; i < kRows / RS; ++i) {
-        const float a = s_alpha[r0 + RS * i];
-        o[i][0] *= a;
-        o[i][1] *= a;
-        o[i][2] *= a;
-        o[i][3] *= a;
-      }
-#pragma unroll 4
-      for (int j = 0; j < kBN; ++j) {
-        const float4 v = *reinterpret_cast<const float4*>(tc + j * L::LDC + 4 * cq);
-#pragma unroll
-        for (int i = 0; i < kRows / RS; ++i) {
-          const float p = ss[(r0 + RS * i) * SLD + j];
-          o[i][0] = fmaf(p, v.x, o[i][0]);
-          o[i][1] = fmaf(p, v.y, o[i][1]);
-          o[i][2] = fmaf(p, v.z, o[i][2]);
-          o[i][3] = fmaf(p, v.w, o[i][3]);
-        }
-      }
+      fma_block<L, DC, DR, DQ>(o, tc, tp, sq, ss, scales_of(i), sl2, nb, masked, len, m_run,
+                               l_run, s_alpha, s_m, s_l);
     }
     rbg::cp_async_wait<0>();
 #pragma unroll
@@ -659,7 +658,7 @@ paged_mla_decode_kernel(const T* __restrict__ q_lat, const T* __restrict__ q_pe,
           }
         }
         const float inv = s_inv[r];
-        store4(dst + r * DC + c, make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv));
+        rbg::store4(dst + r * DC + c, make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv));
       }
     }
   }
@@ -681,7 +680,6 @@ int launch_dims(const void* q_lat, const void* q_pe, const void* c_pages, const 
     ready[dev] = true;
   }
   const int NG = (H + kRows - 1) / kRows;
-  const int pshift = (page & (page - 1)) ? -1 : __builtin_ctz((unsigned)page);
   const long nkb = ((long)P * page + kBN - 1) / kBN;
   const int gy = (int)max(1L, min((long)cap, (nkb + kMinSplitBlocks - 1) / kMinSplitBlocks));
   paged_mla_decode_kernel<T, KVT, DC, DR><<<dim3(B * NG, gy), kThreads, L::kBytes, stream>>>(
@@ -689,8 +687,8 @@ int launch_dims(const void* q_lat, const void* q_pe, const void* c_pages, const 
       static_cast<const KVT*>(c_pages), static_cast<const KVT*>(pe_pages),
       static_cast<const float*>(c_scales), static_cast<const float*>(pe_scales),
       static_cast<const int*>(table), static_cast<const int*>(kv_lens), static_cast<T*>(out),
-      static_cast<float*>(part), static_cast<int*>(counts), B, H, NG, page, pshift, P, cap,
-      scale);
+      static_cast<float*>(part), static_cast<int*>(counts), B, H, NG, page,
+      rbg::page_shift(page), P, cap, scale);
   return (int)cudaGetLastError();
 }
 

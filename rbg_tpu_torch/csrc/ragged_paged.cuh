@@ -30,14 +30,18 @@
 // first. For its item a block collects the row's live tokens of rank
 // [j·TM, j·TM + TM) in packed order with an ordered ballot/popc scan. So
 // pads never enter a tile, a decode token is a one-token tile, and a long
-// walk runs on several SMs at once. Every block also writes the zeros of the dead
+// walk runs on several SMs at once. The derivation and the scan (Items,
+// gather_tokens) also serve the MLA kernels F and H (ragged_paged_mla.cuh).
+// Every block also writes the zeros of the dead
 // (token, kv head) pairs (pads, kv_len-0 rows) in its grid-stride share.
 // Block 0 records the launch's work items and grid size in the counts
 // buffer (kItemsSlot, kGridSlot), where the wrapper reads them back.
 //
-// The walk goes in KV blocks of kBN = 64 slots (64 / page pages; the
-// wrapper refuses a page size that does not divide 64) up to the tile's
-// largest limit, its page ids staged once in shared memory. Each block's
+// The walk goes in KV blocks of kBN = 64 slots up to the tile's largest
+// limit, its page ids staged once in shared memory. Each slot's page is
+// table[slot / page] at offset slot % page (rbg::PageMap: a shift for a
+// power-of-two page size, a division otherwise), so a block may span parts
+// of pages of any size or lie inside one page. Each block's
 // K and V slices of the kv head are copied into shared memory with
 // cp.async, several blocks in flight, so block n+1 loads while block n is
 // computed. Only blocks reaching past the tile's smallest limit apply the
@@ -139,15 +143,6 @@ __device__ __forceinline__ int live_limit(int t, const int* row_ids, const int* 
   return max(0, min(min(kv_lens[r], pos + 1), cap));
 }
 
-// KV blocks of row r's walk (its kv_len clamped to the table's cap slots)
-// and the number of items it splits into.
-__device__ __forceinline__ int row_kv_blocks(const int* kv_lens, int r, int cap) {
-  return (min(kv_lens[r], cap) + kBN - 1) / kBN;
-}
-__device__ __forceinline__ int splits_of(int nkb) {
-  return max(1, min(kMaxSplits, (nkb + kMinSplitBlocks - 1) / kMinSplitBlocks));
-}
-
 // Block-wide exclusive prefix sum of one value per thread (NW warps);
 // *total = the sum.
 template <int NW>
@@ -191,18 +186,238 @@ __device__ __forceinline__ int block_rank(bool flag, int* s_warp, int* total) {
   return off + __popc(b & ((1u << lane) - 1u));
 }
 
+// ---- The work items of the block-ragged kernels (B and D here, F and H
+// in ragged_paged_mla.cuh), derived alike by every block of a launch ----
+// A tile is (row, up to tm of the row's live tokens, head slice), tm from
+// the kernel's query rows. Row r's walk of nkb = ceil(len / BN) blocks (its
+// own kv_len, clamped to the table's cap slots) splits into
+//   ns(r) = min(cap, MaxSplits, ceil(nkb / MinSplitBlocks))
+// items per tile, split s taking blocks [s·ceil(nkb / ns), ..). A launch's
+// items form a queue by split level, the highest first: only long rows
+// have the high levels, so the longest walks start first. Thread t owns a
+// run of rows [r0, r1). Shared memory holds each row's live tokens (s_cnt)
+// and splits (s_ns) and the plan's header s (the items of each level, the
+// split cap). A thread's bases (its rows' first tile, first
+// live token of a splitting row, and first item in every level) live
+// where kShared says:
+// - registers (kernels B and D): found once per launch, so drawing an item
+//   costs no block scan;
+// - shared memory (kernels F and H, whose walk needs every register): the
+//   tile and live bases in s, the level base rescanned (one block scan)
+//   when an item is drawn.
+template <int NT, int BN, int MaxSplits, int MinSplitBlocks, bool kShared>
+struct Items {
+  static constexpr int NW = NT / 32;
+  static constexpr int kCap = MaxSplits, kTileBase = MaxSplits + 1, kLiveBase = kTileBase + NT,
+                       kInts = kShared ? kLiveBase + NT : kTileBase;
+  int* s;                // the plan, [kInts] in shared memory
+  unsigned char* s_ns;   // each row's splits (0: no live token), [R] in shared memory
+  int R;
+  // Registers (!kShared): this thread's bases.
+  int tile_base = 0, live_base = 0, lvl[kShared ? 1 : MaxSplits] = {};
+
+  __device__ __forceinline__ int r0() const {
+    return min(R, (int)threadIdx.x * ((R + NT - 1) / NT));
+  }
+  __device__ __forceinline__ int r1() const { return min(R, r0() + (R + NT - 1) / NT); }
+  // The launch's split cap (derive's; readable by every thread after the
+  // barrier that follows derive).
+  __device__ __forceinline__ int cap() const { return s[kCap]; }
+  __device__ __forceinline__ static int kv_blocks(const int* kv_lens, int r, int cap_slots) {
+    return (min(kv_lens[r], cap_slots) + BN - 1) / BN;
+  }
+  // This thread's items at split level l (its rows' tiles that split more
+  // than l ways).
+  __device__ __forceinline__ int at_level(int l, const int* s_cnt, int tm) const {
+    int n = 0;
+#pragma unroll 1
+    for (int r = r0(), e = r1(); r < e; ++r)
+      if (l < s_ns[r]) n += (s_cnt[r] + tm - 1) / tm;
+    return n;
+  }
+
+  // Live tokens per row into s_cnt (loads of 4 tokens per thread in flight
+  // at once), then tiles, the split cap, each row's splits, the bases and
+  // the levels' items. Each tile and split is `slices` items (kv heads,
+  // head slices). `target`: the items a launch aims at, the split cap
+  // ceil(target / (tiles · slices)) (0: MaxSplits). Returns the item count
+  // to every thread.
+  __device__ int derive(int* s_cnt, int* s_warp, int n_tokens, int tm, const int* row_ids,
+                        const int* q_pos, const int* kv_lens, int cap_slots, int slices,
+                        int target) {
+    const int tid = threadIdx.x;
+    for (int r = tid; r < R; r += NT) s_cnt[r] = 0;
+    __syncthreads();
+    for (int t0 = 0; t0 < n_tokens; t0 += 4 * NT) {
+      int r[4], lim[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int t = t0 + k * NT + tid;
+        r[k] = -1;
+        lim[k] = t < n_tokens ? live_limit(t, row_ids, q_pos, kv_lens, R, cap_slots, &r[k]) : 0;
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (lim[k] > 0) atomicAdd(&s_cnt[r[k]], 1);
+    }
+    __syncthreads();
+    int my_tiles = 0;
+#pragma unroll 1
+    for (int r = r0(), e = r1(); r < e; ++r) my_tiles += (s_cnt[r] + tm - 1) / tm;
+    int n_tiles, total;
+    const int tb = block_scan<NW>(my_tiles, s_warp, &n_tiles);
+    const int all = n_tiles * slices;
+    const int cap = target > 0 && all > 0 ? min(MaxSplits, max(1, (target + all - 1) / all))
+                                          : MaxSplits;
+    // Each row's splits (read only by this thread until find's scan), the
+    // live tokens of this thread's splitting rows and, in registers, its
+    // items at every level.
+    int my_live = 0;
+#pragma unroll 1
+    for (int r = r0(), e = r1(); r < e; ++r) {
+      const int nkb = kv_blocks(kv_lens, r, cap_slots);
+      const int ns = s_cnt[r] ? max(1, min(cap, (nkb + MinSplitBlocks - 1) / MinSplitBlocks)) : 0;
+      s_ns[r] = ns;
+      my_live += ns > 1 ? s_cnt[r] : 0;
+      if constexpr (!kShared) {
+        const int nt = (s_cnt[r] + tm - 1) / tm;
+#pragma unroll
+        for (int l = 0; l < MaxSplits; ++l) lvl[l] += l < ns ? nt : 0;
+      }
+    }
+    const int lb = block_scan<NW>(my_live, s_warp, &total);
+    if constexpr (kShared) {
+      s[kTileBase + tid] = tb;
+      s[kLiveBase + tid] = lb;
+    } else {
+      tile_base = tb;
+      live_base = lb;
+    }
+    int n = 0;
+    if constexpr (kShared) {
+      for (int l = 0; l < MaxSplits; ++l) {
+        block_scan<NW>(at_level(l, s_cnt, tm), s_warp, &total);
+        if (tid == 0) s[l] = total;
+        n += total;
+      }
+    } else {
+#pragma unroll
+      for (int l = 0; l < MaxSplits; ++l) {
+        lvl[l] = block_scan<NW>(lvl[l], s_warp, &total);  // now this thread's base in level l
+        if (tid == 0) s[l] = total;
+        n += total;
+      }
+    }
+    if (tid == 0) s[kCap] = cap;
+    return n;
+  }
+
+  // Item k of the queue (0 <= k < the item count): its split level,
+  // returned to every thread; the thread owning its row writes s_item[0..3]
+  // = row, the tile's index in the row, ns, the tile's id, s_item[6] = the
+  // tile's first live token among the live tokens of the rows that split
+  // (its partials' first row, when ns > 1), s_item[7] = blocks per split.
+  // Every thread of the block calls it; the caller synchronises before
+  // reading s_item.
+  __device__ int find(int k, const int* s_cnt, int* s_warp, int tm, const int* kv_lens,
+                      int cap_slots, int* s_item) const {
+    int split = -1;
+    for (int l = MaxSplits - 1; l >= 0 && split < 0; --l) {
+      if (k < s[l])
+        split = l;
+      else
+        k -= s[l];
+    }
+    const int tid = threadIdx.x;
+    int base, bt, bl;
+    if constexpr (kShared) {
+      int total;
+      base = block_scan<NW>(at_level(split, s_cnt, tm), s_warp, &total);
+      // The slots' address from a fresh read of the thread index, so that
+      // none is held in a register across the caller's walk.
+      const int t = rbg::thread_index();
+      bt = s[kTileBase + t];
+      bl = s[kLiveBase + t];
+    } else {
+      base = 0;
+#pragma unroll
+      for (int l = 0; l < MaxSplits; ++l) base = l == split ? lvl[l] : base;
+      bt = tile_base;
+      bl = live_base;
+    }
+#pragma unroll 1
+    for (int r = r0(), e = r1(); r < e; ++r) {
+      const int nt = (s_cnt[r] + tm - 1) / tm, ns = s_ns[r];
+      if (split < ns) {
+        if (k >= base && k < base + nt) {
+          s_item[0] = r;
+          s_item[1] = k - base;
+          s_item[2] = ns;
+          s_item[3] = bt + k - base;
+          s_item[6] = bl + (k - base) * tm;
+          s_item[7] = (kv_blocks(kv_lens, r, cap_slots) + ns - 1) / ns;
+        }
+        base += nt;
+      }
+      bt += nt;
+      bl += ns > 1 ? s_cnt[r] : 0;
+    }
+    return split;
+  }
+};
+
+// The live tokens of `row` of rank [lo, lo + ntok) in packed order, into
+// s_tok (their indices) and s_lim (their limits), by an ordered
+// ballot/popc scan over the pack; the next NT tokens load while these are
+// ranked. The caller synchronises before reading them.
+template <int NT>
+__device__ void gather_tokens(int row, int lo, int ntok, int n_tokens, const int* row_ids,
+                              const int* q_pos, const int* kv_lens, int R, int cap_slots,
+                              int* s_tok, int* s_lim, int* s_warp) {
+  const int tid = threadIdx.x;
+  int nr = -1;
+  int nl = tid < n_tokens ? live_limit(tid, row_ids, q_pos, kv_lens, R, cap_slots, &nr) : 0;
+#pragma unroll 1
+  for (int t0 = 0, seen = 0; t0 < n_tokens && seen < lo + ntok; t0 += NT) {
+    const int t = t0 + tid, r = nr, lim = nl;
+    nr = -1;
+    nl = t + NT < n_tokens ? live_limit(t + NT, row_ids, q_pos, kv_lens, R, cap_slots, &nr) : 0;
+    const bool hit = lim > 0 && r == row;
+    int n;
+    const int rank = seen + block_rank<NT / 32>(hit, s_warp, &n);
+    if (hit && rank >= lo && rank < lo + ntok) {
+      s_tok[rank - lo] = t;
+      s_lim[rank - lo] = lim;
+    }
+    seen += n;
+  }
+}
+
 // Where the walk's page ids come from: shared memory for the first
-// kPidCap pages (loaded once per block), the table row past them.
+// kPidCap pages (loaded once per block), the table row past them; each
+// slot's page index and offset from rbg::PageMap (any page size).
 struct Pages {
   const int* s_pid;
-  const int* trow;
-  int last;    // the walk's last page
-  int pshift;  // page size 1 << pshift
+  rbg::PageMap map;
 
+  // On the path of a page size that is (kPow2) or is not a power of two,
+  // as rbg::PageMap::slot_in.
+  template <bool kPow2>
+  __device__ __forceinline__ long slot_in(int slot) const {
+    int i, off;
+    if constexpr (kPow2) {
+      i = slot >> map.pshift;
+      off = slot & (map.page - 1);
+    } else {
+      i = slot / map.page;
+      off = slot - i * map.page;
+    }
+    i = min(i, map.last);
+    const long phys = i < kPidCap ? s_pid[i] : map.trow[i];
+    return kPow2 ? (phys << map.pshift) + off : phys * map.page + off;
+  }
   __device__ __forceinline__ long slot_of(int slot) const {
-    const int i = min(slot >> pshift, last);
-    const long phys = i < kPidCap ? s_pid[i] : trow[i];
-    return (phys << pshift) + (slot & ((1 << pshift) - 1));
+    return map.pshift >= 0 ? slot_in<true>(slot) : slot_in<false>(slot);
   }
 };
 
@@ -227,12 +442,19 @@ __device__ __forceinline__ void issue_block(unsigned char* sm, int st, int nb,
                                 : sm + L::kKV + 2 * st * L::kTile;
   unsigned char* vd = kd + (L::kQuant ? L::kRaw : L::kTile);
   long src[N];
+  auto sources = [&](auto pow2) {
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const int c = min((int)threadIdx.x + i * L::kThreads, NC - 1);
-    src[i] = (pg.slot_of(nb * kBN + c / CPR) * KV + kv) * HD * (long)sizeof(KVT)
-             + (c % CPR) * 16;
-  }
+    for (int i = 0; i < N; ++i) {
+      const int c = min((int)threadIdx.x + i * L::kThreads, NC - 1);
+      src[i] = (pg.template slot_in<decltype(pow2)::value>(nb * kBN + c / CPR) * KV + kv) * HD
+                   * (long)sizeof(KVT)
+               + (c % CPR) * 16;
+    }
+  };
+  if (pg.map.pshift >= 0)
+    sources(std::true_type{});
+  else
+    sources(std::false_type{});
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     const int c = threadIdx.x + i * L::kThreads, off = (c / CPR) * ld + (c % CPR) * 16;
@@ -543,9 +765,10 @@ __device__ __forceinline__ void fma_block(unsigned char* sm, float (&o)[8][HD / 
 // Cross-block merge of a tile's splits: a split block's partial results
 // (per query row: o unnormalised, then m in log2 units and l; HD + 4
 // floats) go to part[live row, kv, split], where the live row of query row
-// r of a tile is (its first live token's index among all live tokens) * G
-// + r, so the scratch holds T * G * KV * kMaxSplits such rows at most; the
-// split that finishes last merges them all.
+// r of a tile is (its first live token's index among the live tokens of
+// the rows that split) * G + r, so the scratch holds T * G * KV *
+// kMaxSplits such rows at most; the split that finishes last merges them
+// all.
 
 // T: q and output element type; KVT: pool element type (T, or int8_t with
 // f32 scales [NP, page, KV, 1]); HD: head dim (32, 64 or 128).
@@ -557,7 +780,7 @@ ragged_paged_kernel(const T* __restrict__ q, const KVT* __restrict__ k_pages,
                     const int* __restrict__ kv_lens, const int* __restrict__ row_ids,
                     const int* __restrict__ q_pos, T* __restrict__ out,
                     float* __restrict__ part, int* __restrict__ done, int n_tokens, int R,
-                    int KV, int G, int page, int P, float scale) {
+                    int KV, int G, int page, int pshift, int P, float scale) {
   using L = Layout<T, KVT, HD>;
   constexpr int S = L::kStages, NT = L::kThreads, CLD = HD + 4;  // o, then m, l
   extern __shared__ __align__(16) unsigned char sm[];
@@ -567,6 +790,9 @@ ragged_paged_kernel(const T* __restrict__ q, const KVT* __restrict__ k_pages,
   __shared__ int s_lim[kRows];
   __shared__ int s_warp[kMaxWarps];
   __shared__ int s_item[8];
+  using Plan = Items<NT, kBN, kMaxSplits, kMinSplitBlocks, false>;
+  __shared__ int s_plan[Plan::kInts];
+  __shared__ unsigned char s_ns[kMaxRows];
   const int tid = threadIdx.x;
   const int tm = kRows / G, cap = P * page;
 
@@ -580,45 +806,10 @@ ragged_paged_kernel(const T* __restrict__ q, const KVT* __restrict__ k_pages,
     for (int c = 0; c < G * HD * (int)sizeof(T) / 16; ++c) o[c] = make_uint4(0u, 0u, 0u, 0u);
   }
 
-  // The work items: live tokens per row (loads of 4 tokens per thread in
-  // flight at once); per row ceil(count / TM) tiles, each split
-  // splits_of(row's KV blocks) ways. The queue hands out
-  // items by split level, the highest first: only long rows have the high
-  // levels, so the longest walks start first.
-  for (int r = tid; r < R; r += NT) s_cnt[r] = 0;
-  __syncthreads();
-  for (int t0 = 0; t0 < n_tokens; t0 += 4 * NT) {
-    int r[4], lim[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int t = t0 + k * NT + tid;
-      r[k] = -1;
-      lim[k] = t < n_tokens ? live_limit(t, row_ids, q_pos, kv_lens, R, cap, &r[k]) : 0;
-    }
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      if (lim[k] > 0) atomicAdd(&s_cnt[r[k]], 1);
-  }
-  __syncthreads();
-  const int per = (R + NT - 1) / NT;
-  const int r0 = min(R, tid * per), r1 = min(R, r0 + per);
-  int my_tiles = 0, my_live = 0, lvl[kMaxSplits] = {};
-  for (int r = r0; r < r1; ++r) {
-    const int nt = (s_cnt[r] + tm - 1) / tm;
-    const int ns = nt ? splits_of(row_kv_blocks(kv_lens, r, cap)) : 0;
-    my_tiles += nt;
-    my_live += s_cnt[r];
-#pragma unroll
-    for (int l = 0; l < kMaxSplits; ++l) lvl[l] += l < ns ? nt : 0;
-  }
-  int total, n_items = 0, lvl_total[kMaxSplits];
-  const int tile_base = block_scan<L::kWarps>(my_tiles, s_warp, &total);
-  const int live_base = block_scan<L::kWarps>(my_live, s_warp, &total);
-#pragma unroll
-  for (int l = 0; l < kMaxSplits; ++l) {
-    lvl[l] = block_scan<L::kWarps>(lvl[l], s_warp, &lvl_total[l]);  // now this thread's base
-    n_items += lvl_total[l];
-  }
+  // The work items (Items): per row ceil(live tokens / TM) tiles, each
+  // split by the row's own KV blocks, every kv head alike.
+  Plan it{s_plan, s_ns, R};
+  const int n_items = it.derive(s_cnt, s_warp, n_tokens, tm, row_ids, q_pos, kv_lens, cap, KV, 0);
   if (blockIdx.x == 0 && tid == 0) {
     done[kItemsSlot] = n_items * KV;
     done[kGridSlot] = (int)gridDim.x;
@@ -635,59 +826,13 @@ ragged_paged_kernel(const T* __restrict__ q, const KVT* __restrict__ k_pages,
     const int qi = s_item[5];
     if (qi >= n_items * KV) break;  // the same for every thread of the block
     const int kv = qi % KV;
-    // Level (split) of the item, its index k in the level, then its row:
-    // the k-th tile among the rows with more than `split` splits.
-    int split = -1, k = qi / KV, base = 0;
-#pragma unroll
-    for (int l = kMaxSplits - 1; l >= 0; --l) {
-      if (split < 0) {
-        if (k < lvl_total[l]) {
-          split = l;
-          base = lvl[l];
-        } else {
-          k -= lvl_total[l];
-        }
-      }
-    }
-    for (int r = r0, bt = tile_base, bl = live_base; r < r1; ++r) {
-      const int nt = (s_cnt[r] + tm - 1) / tm;
-      const int nkb = nt ? row_kv_blocks(kv_lens, r, cap) : 0, ns = nt ? splits_of(nkb) : 0;
-      if (split < ns) {
-        if (k >= base && k < base + nt) {
-          s_item[0] = r;
-          s_item[1] = k - base;
-          s_item[2] = ns;
-          s_item[3] = bt + k - base;
-          s_item[6] = bl + (k - base) * tm;  // the tile's first live token
-          s_item[7] = (nkb + ns - 1) / ns;   // KV blocks per split
-        }
-        base += nt;
-      }
-      bt += nt;
-      bl += s_cnt[r];
-    }
+    const int split = it.find(qi / KV, s_cnt, s_warp, tm, kv_lens, cap, s_item);
     __syncthreads();
     const int row = s_item[0], lo = s_item[1] * tm, ns = s_item[2], tile_id = s_item[3];
     const int live0 = s_item[6], split_kb = s_item[7];
     const int ntok = min(tm, s_cnt[row] - lo), nrows = ntok * G;
-    // The row's live tokens of rank [lo, lo + ntok), in packed order; the
-    // next NT tokens load while these are ranked.
-    {
-      int nr = -1, nl = tid < n_tokens ? live_limit(tid, row_ids, q_pos, kv_lens, R, cap, &nr) : 0;
-      for (int t0 = 0, seen = 0; t0 < n_tokens && seen < lo + ntok; t0 += NT) {
-        const int t = t0 + tid, r = nr, lim = nl;
-        nr = -1;
-        nl = t + NT < n_tokens ? live_limit(t + NT, row_ids, q_pos, kv_lens, R, cap, &nr) : 0;
-        const bool hit = lim > 0 && r == row;
-        int n;
-        const int rank = seen + block_rank<L::kWarps>(hit, s_warp, &n);
-        if (hit && rank >= lo && rank < lo + ntok) {
-          s_tok[rank - lo] = t;
-          s_lim[rank - lo] = lim;
-        }
-        seen += n;
-      }
-    }
+    gather_tokens<NT>(row, lo, ntok, n_tokens, row_ids, q_pos, kv_lens, R, cap, s_tok, s_lim,
+                      s_warp);
     __syncthreads();
     // The tile's smallest and largest limits (every warp alike).
     int lmin = INT_MAX, lmax = 0;
@@ -710,9 +855,9 @@ ragged_paged_kernel(const T* __restrict__ q, const KVT* __restrict__ k_pages,
     const int kb0 = split * split_kb, kb1 = min((lmax + kBN - 1) / kBN, kb0 + split_kb);
     const int nblk = max(0, kb1 - kb0);
     const int* trow = table + (long)row * P;
-    const int pshift = __ffs(page) - 1;
-    const Pages pg{s_pid, trow, (lmax - 1) >> pshift, pshift};
-    for (int i = tid; i <= min(pg.last, kPidCap - 1); i += NT) s_pid[i] = trow[i];
+    Pages pg{s_pid, rbg::PageMap{trow, 0, page, pshift}};
+    pg.map.last = pg.map.last_of(lmax);
+    for (int i = tid; i <= min(pg.map.last, kPidCap - 1); i += NT) s_pid[i] = trow[i];
     __syncthreads();
     auto issue = [&](int st, int b) {
       issue_block<T, KVT, HD>(sm, st, kb0 + b, k_pages, v_pages, k_scales, v_scales, pg, kv,
@@ -1012,14 +1157,14 @@ int launch_hd(const void* q, const void* k_pages, const void* v_pages, const voi
       static_cast<const float*>(v_scales), static_cast<const int*>(table),
       static_cast<const int*>(kv_lens), static_cast<const int*>(row_ids),
       static_cast<const int*>(q_pos), static_cast<T*>(out), static_cast<float*>(part),
-      static_cast<int*>(done), n_tokens, R, KV, G, page, P, scale);
+      static_cast<int*>(done), n_tokens, R, KV, G, page, rbg::page_shift(page), P, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace rk
 
 // The shapes the kernel takes (the wrapper refuses others first, with a
-// ValueError): hd 32, 64 or 128, 1 <= G <= 16, a page size dividing 64, at most
+// ValueError): hd 32, 64 or 128, 1 <= G <= 16, any page size, at most
 // rk::kMaxRows table rows. part: float32 scratch of n_tokens * G * KV *
 // rk::kMaxSplits * (hd + 4); done: int32 counts of rk::kTileSlot0 +
 // (ceil(n_tokens / (64 / G)) + R) * KV, zero when first used.
@@ -1030,7 +1175,7 @@ int launch_ragged(const void* q, const void* k_pages, const void* v_pages,
                   void* out, void* part, void* done, int n_tokens, int R, int KV, int G,
                   int hd, int page, int P, float scale, cudaStream_t stream) {
   if (n_tokens == 0) return 0;
-  if (G < 1 || G > 16 || page < 1 || rk::kBN % page || R < 0 || R > rk::kMaxRows)
+  if (G < 1 || G > 16 || page < 1 || R < 0 || R > rk::kMaxRows)
     return (int)cudaErrorInvalidValue;
   switch (hd) {
     case 32:

@@ -1,4 +1,5 @@
-// Block-ragged MLA latent attention for Hopper over int8 latent pools.
+// Block-ragged MLA latent attention for Hopper over int8 latent pools:
+// kernel H.
 //
 // Replaces the TPU kernel rbg_tpu/ops/pallas/ragged_attention_kernel.py
 // `ragged_paged_mla_attention_pallas_q` (`_block_ragged_mla_kernel_q`):
@@ -6,15 +7,15 @@
 // [NP, page, 1, 1] each (the c scale on the latent score term and on the
 // values, the pe scale on the RoPE term).
 //
-// Bound: as F, on half the page bytes plus 8 B of scales per slot. Design:
-// F's tile-leader plan with heads split across blocks
-// (ragged_paged_mla.cuh), the page load templated on the pool's element
-// type. As in kernel G, a slot's two scales are applied while its page is
-// staged to f32 in shared memory (c part times cs[i], pe part times
-// ps[i]), so the score, softmax and value steps run exactly as in F and no
-// page is dequantized into device memory.
+// Bound: as F, on half the latent bytes plus 8 B of scales per slot.
+// Design: F's body (ragged_paged_mla.cuh). Each block stages the raw int8
+// bytes and the two scales per slot and converts the block into one tile
+// of the query's type in shared memory (exact); the scales fold as the
+// reference folds them, s = (S_c·cs + S_pe·ps)·scale, P·cs feeds P·c and
+// the denominator keeps p. No page is dequantized into device memory.
 //
-// C interface (ctypes): pointers and the stream as void*, sizes as int.
+// C interface (ctypes): pointers and the stream as void*, sizes as int
+// (part_rows as long).
 // Returns cudaGetLastError() after the launch.
 
 #include "ragged_paged_mla.cuh"
@@ -22,17 +23,17 @@
 extern "C" {
 
 // dtype: queries and output, 0 = float32, 1 = bfloat16; pools int8,
-// scales f32. hg: heads per block, a divisor of H.
+// scales f32. part, part_rows, counts, device: as ragged_paged_mla.
 int ragged_paged_mla_q(const void* q_lat, const void* q_pe, const void* c_pages,
                        const void* pe_pages, const void* c_scales, const void* pe_scales,
                        const void* table, const void* kv_lens, const void* row_ids,
-                       const void* q_pos, void* out, int n_tokens, int R, int H, int hg,
-                       int dc, int dr, int page, int P, float scale, int dtype,
-                       void* stream) {
+                       const void* q_pos, void* out, void* part, long part_rows, void* counts,
+                       int n_tokens, int R, int H, int dc, int dr, int page, int P,
+                       float scale, int dtype, int device, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch_ragged_mla<float, int8_t>(q_lat, q_pe, c_pages, pe_pages, c_scales, pe_scales, table, kv_lens, row_ids, q_pos, out, n_tokens, R, H, hg, dc, dr, page, P, scale, s);
-    case 1: return launch_ragged_mla<__nv_bfloat16, int8_t>(q_lat, q_pe, c_pages, pe_pages, c_scales, pe_scales, table, kv_lens, row_ids, q_pos, out, n_tokens, R, H, hg, dc, dr, page, P, scale, s);
+    case 0: return launch_ragged_mla<float, int8_t>(q_lat, q_pe, c_pages, pe_pages, c_scales, pe_scales, table, kv_lens, row_ids, q_pos, out, part, part_rows, counts, n_tokens, R, H, dc, dr, page, P, scale, device, s);
+    case 1: return launch_ragged_mla<__nv_bfloat16, int8_t>(q_lat, q_pe, c_pages, pe_pages, c_scales, pe_scales, table, kv_lens, row_ids, q_pos, out, part, part_rows, counts, n_tokens, R, H, dc, dr, page, P, scale, device, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -47,8 +47,8 @@ ragged_paged_tokengrid_kernel(const T* __restrict__ q, const T* __restrict__ k_p
   }
   __syncthreads();
   if (limit > 0) {
-    rbg::attend_row(sm, pl, G, limit, table + (long)row * P, P, k_pages, v_pages,
-                    (const float*)nullptr, (const float*)nullptr, kv, KV, scale);
+    rbg::attend_row(sm, pl, G, limit, table + (long)row * P, P, k_pages, v_pages, kv, KV,
+                    scale);
   }
   for (int i = threadIdx.x; i < G * hd; i += blockDim.x) {
     out[base + i] = rbg::from_f32<T>(sm.acc[i] / fmaxf(sm.l[i / hd], 1e-30f));

@@ -16,7 +16,6 @@ from typing import Optional, Tuple
 import torch
 
 from rbg_tpu_torch.models.config import ModelConfig, get_config
-from rbg_tpu_torch.ops.kernels.paged_decode import KV_BLOCK
 
 
 def resolve_device(device=None) -> torch.device:
@@ -68,11 +67,9 @@ class EngineConfig:
     def max_pages_per_seq(self) -> int:
         return (self.max_seq_len + self.page_size - 1) // self.page_size
 
-    def validate(self, device=None) -> None:
+    def validate(self) -> None:
         """Refuse what the port cannot serve, before anything is built.
-        ``device`` (default: ``self.device``; None means the card) is read
-        as a string, never touched: on CUDA the page size must divide
-        ``KV_BLOCK``, as kernels A-D's blocks of that many slots need."""
+        Every page size serves, on the card and on the CPU alike."""
         if self.max_batch > max(self.decode_buckets):
             raise ValueError("max_batch exceeds largest decode bucket")
         if self.num_pages < 2:
@@ -81,11 +78,6 @@ class EngineConfig:
             raise ValueError("multi_step must be >= 1")
         if self.page_size < 1:
             raise ValueError("page_size must be >= 1")
-        dev = self.device if device is None else device
-        if (dev is None or str(dev).startswith("cuda")) and KV_BLOCK % self.page_size:
-            raise ValueError(f"page_size {self.page_size} does not divide {KV_BLOCK}, "
-                             f"the KV block of kernels A-D; the card serves page "
-                             f"sizes dividing it (ROADMAP queue 3)")
         if self.kv_dtype not in ("model", "int8"):
             raise ValueError(f"kv_dtype {self.kv_dtype!r} not in (model, int8)")
         if self.speculative != "off":

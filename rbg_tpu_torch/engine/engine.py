@@ -70,7 +70,7 @@ class Request:
 class Engine:
     def __init__(self, cfg: EngineConfig, params: Optional[dict] = None,
                  device=None):
-        cfg.validate(device)
+        cfg.validate()
         self.cfg = cfg
         self.mcfg = cfg.model_config
         self.device = resolve_device(device if device is not None else cfg.device)

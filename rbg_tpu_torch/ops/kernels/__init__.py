@@ -57,10 +57,10 @@ def check_tensors(q: torch.Tensor, pools=(), int32=(), others=()) -> None:
             raise ValueError("KV pools must be 16-byte aligned")
 
 
-# The int32 counts of the kernels that merge split walks on the card (A-E,
-# G): slot 0 is B and D's work queue head, slots 1 and 2 the last launch's
-# work items and grid blocks, the rest each split walk's finished-split
-# count.
+# The int32 counts of the kernels that merge split walks on the card (A-H):
+# slot 0 is the ragged kernels' (B, D, F, H) work queue head, slots 1 and 2
+# the last launch's work items and grid blocks, the rest each split walk's
+# finished-split count.
 _ITEMS, _GRID = 1, 2
 
 # Their scratch per (device index, stream), grown as needed: (float32
@@ -85,8 +85,8 @@ def scratch(q: torch.Tensor, stream: int, n_part: int, n_counts: int):
 
 
 def launch_report(device: torch.device) -> dict:
-    """What the last launch of A, B, C, D, E or G on ``device``'s current stream
-    derived, as the kernel wrote it: ``work_items`` (the items it ran) and
+    """What the last launch of A-H on ``device``'s current stream derived,
+    as the kernel wrote it: ``work_items`` (the items it ran) and
     ``grid_blocks``. Waits for the stream."""
     idx = device.index if device.index is not None else torch.cuda.current_device()
     counts = _SCRATCH[(idx, torch.cuda.current_stream(idx).cuda_stream)][1]

@@ -8,7 +8,8 @@ and one of ``ns`` contiguous parts of the row's walk in ``KV_BLOCK``-slot
 blocks, ``ns = min(cap, ceil(blocks / 2))`` from the row's own kv_len and
 ``cap = split_cap(B, KV)`` (``csrc/paged_decode.cuh``); the split that
 finishes last merges the others' partials on the card. The kernel takes hd
-in ``HEAD_DIMS``, G <= 16 and a page size that divides ``KV_BLOCK``;
+in ``HEAD_DIMS``, G <= 16 and any page size (each slot's page is looked up
+as the walk goes, so a block may span parts of pages or lie inside one);
 ``check_decode`` refuses anything else with a ``ValueError`` before any
 launch."""
 
@@ -23,7 +24,7 @@ from rbg_tpu_torch.ops.kernels.build import check, load_function
 
 MAX_GROUP = 16          # query heads per kv head the shared-memory plan holds
 MAX_HEAD_DIM = 256
-KV_BLOCK = 64           # KV slots per pipeline step; the page size must divide it
+KV_BLOCK = 64           # KV slots per pipeline step (any page size)
 HEAD_DIMS = (32, 64, 128)   # the decode kernels' template instances
 MAX_SPLITS = 16         # the decode kernels' largest cap (pd::kMaxSplits in the source)
 TARGET_ITEMS = 512      # B * KV blocks at which a decode walk no longer splits
@@ -53,15 +54,13 @@ def check_shapes(name: str, q: torch.Tensor, k_pages: torch.Tensor,
 
 def check_decode(name: str, q, k_pages, v_pages, page_table, kv_lens):
     """Decode kernels' argument checks: ``check_shapes``, T == 1, hd in
-    HEAD_DIMS, a page size dividing KV_BLOCK and q 16-byte aligned.
-    Returns (B, KV, G, hd, page)."""
+    HEAD_DIMS and q 16-byte aligned. Returns (B, KV, G, hd, page)."""
     B, T = q.shape[:2]
     if T != 1:
         raise ValueError(f"{name} takes decode steps (T == 1), got T={T}")
     KV, G, hd, page = check_shapes(name, q, k_pages, v_pages)
-    if hd not in HEAD_DIMS or KV_BLOCK % page:
-        raise ValueError(f"{name} takes hd in {HEAD_DIMS} and a page size dividing "
-                         f"{KV_BLOCK}; got hd={hd} page={page}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{name} takes hd in {HEAD_DIMS}; got hd={hd}")
     if page_table.dim() != 2 or page_table.shape[0] != B or kv_lens.shape != (B,):
         raise ValueError("page_table must be [B, P] and kv_lens [B]")
     check_tensors(q, pools=(k_pages, v_pages), int32=(page_table, kv_lens))

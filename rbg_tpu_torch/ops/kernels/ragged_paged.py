@@ -8,9 +8,9 @@ Each work item of B (and of D, ``ragged_paged_q.py``) is a row, up to
 ``tile_tokens(G)`` of that row's live tokens, a kv head and one of up to
 ``MAX_SPLITS`` parts of the row's walk; the kernel derives the items and
 splits from the pack on the card, each row's from its own kv_len.
-The kernel takes hd in ``HEAD_DIMS``, G <= 16, a page size that divides
-``KV_BLOCK`` and at most ``MAX_ROWS`` table rows; ``check_ragged_shapes``
-refuses anything else with a ``ValueError`` before any launch."""
+The kernel takes hd in ``HEAD_DIMS``, G <= 16, any page size and at most
+``MAX_ROWS`` table rows; ``check_ragged_shapes`` refuses anything else with
+a ``ValueError`` before any launch."""
 
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ import torch
 from rbg_tpu_torch.ops.kernels import LAUNCHES, check_tensors, dtype_code
 from rbg_tpu_torch.ops.kernels import scratch as _scratch
 from rbg_tpu_torch.ops.kernels.build import check, load_function
-from rbg_tpu_torch.ops.kernels.paged_decode import KV_BLOCK, check_shapes
+from rbg_tpu_torch.ops.kernels.paged_decode import check_shapes
 
 TILE_ROWS = 64          # query rows per block: tile_tokens(G) tokens x G heads
 MAX_ROWS = 1024         # table rows the kernel's shared row counts hold
@@ -59,10 +59,9 @@ def check_ragged_shapes(name: str, q, k_pages, v_pages, page_table):
     aligned for their vector loads. Returns (KV, G, hd, page)."""
     KV, G, hd, page = check_shapes(name, q, k_pages, v_pages)
     R = page_table.shape[0]
-    if hd not in HEAD_DIMS or KV_BLOCK % page or R > MAX_ROWS:
-        raise ValueError(f"{name} takes hd in {HEAD_DIMS}, a page size dividing "
-                         f"{KV_BLOCK} and at most {MAX_ROWS} table rows; got "
-                         f"hd={hd} page={page} R={R}")
+    if hd not in HEAD_DIMS or R > MAX_ROWS:
+        raise ValueError(f"{name} takes hd in {HEAD_DIMS} and at most {MAX_ROWS} "
+                         f"table rows; got hd={hd} R={R}")
     if q.data_ptr() % 16:
         raise ValueError(f"{name} needs q 16-byte aligned")
     return KV, G, hd, page
@@ -72,7 +71,7 @@ def scratch(q: torch.Tensor, stream: int, R: int, KV: int, G: int, hd: int):
     """B and D's share of the merging kernels' scratch on ``stream``
     (``ops/kernels/__init__.py``): float32 partials for the cross-block
     merge, [T * G, KV, MAX_SPLITS, hd + 4] (a split tile's query rows,
-    numbered by live token), and the counts, _TILES + (tiles bound) * KV of
+    numbered by live token of the rows that split), and the counts, _TILES + (tiles bound) * KV of
     them, tiles bound = ceil(T / tile_tokens(G)) + R."""
     T = q.shape[1]
     return _scratch(q, stream, T * G * KV * MAX_SPLITS * (hd + 4),

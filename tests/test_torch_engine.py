@@ -165,25 +165,19 @@ def test_unsupported_configs_raise(bad):
         Engine(EngineConfig(**{**BASE, **bad}), device="cpu")
 
 
-@pytest.mark.parametrize("page_size,device,refused", [
-    (128, None, True), (24, "cuda", True), (48, "cuda:0", True),
-    (128, "cpu", False), (32, "cuda", False), (8, None, False)])
-def test_page_size_checked_at_start_up_for_the_card(page_size, device, refused):
-    """On CUDA (the default device) the page size must divide the 64-slot
-    KV block of kernels A-D: EngineConfig.validate refuses it at start-up,
-    reading the device string without touching a card. The CPU serves any
-    page size."""
+@pytest.mark.parametrize("page_size,device", [
+    (128, None), (24, "cuda"), (48, "cuda:0"), (128, "cpu"), (32, "cuda"), (8, None),
+    (96, "cpu")])
+def test_page_size_checked_at_start_up_for_the_card(page_size, device):
+    """Every page size is accepted at start-up, on the card's device
+    strings (None means the card) as on the CPU: kernels A-H look up each
+    slot's page, so their KV blocks may span pages of any size.
+    EngineConfig.validate reads no device; the CPU serves the page size."""
     cfg = EngineConfig(**{**BASE, "page_size": page_size}, num_pages=64, device=device)
-    if refused:
-        with pytest.raises(ValueError, match="page_size"):
-            cfg.validate()
-    else:
-        cfg.validate()
+    cfg.validate()
     if device == "cpu":     # the plain versions serve it
         out = Engine(cfg).generate(_prompts(5, (7, 30)), SamplingParams(max_new_tokens=4))
         assert [len(o) for o in out] == [4, 4]
-    with pytest.raises(ValueError, match="page_size"):     # a CUDA engine is refused first
-        Engine(EngineConfig(**{**BASE, "page_size": 96}), device="cuda")
 
 
 def test_mla_int8_latent_pools_serve():

@@ -59,7 +59,17 @@ DECODE_LENS = [2048, 1900, 1536, 1200, 1024, 700, 333, 65]
 
 
 def _decode_case(case):
-    """(kv_lens, table width P) of a decode case of kernels A and C."""
+    """(kv_lens, table width P, page size) of a decode case of kernels A
+    and C."""
+    if case == "page24":    # 64-slot blocks span pages of a size not dividing 64
+        return [1, 23, 24, 25, 64, 65, 500, 0], 24, 24
+    if case == "page128":   # pages larger than a block
+        return [1, 64, 127, 129, 700, 2000, 0], 16, 128
+    return _decode_case16(case) + (16,)
+
+
+def _decode_case16(case):
+    """(kv_lens, table width P) of a decode case at page size 16."""
     if case == "mixed":
         return [1, 15, 16, 17, 100, 12 * 16, 33, 0], 12
     if case == "split":     # rows whose walks split, and a kv_len-0 row
@@ -76,12 +86,14 @@ DECODE_CASES = [(8, 4, 128, "mixed"), (2, 7, 64, "mixed"), (2, 2, 32, "mixed"),
                 (8, 4, 128, "split"), (2, 7, 64, "split"), (1, 16, 128, "split"),
                 (8, 4, 128, "edges"), (2, 7, 64, "edges"), (2, 2, 32, "edges"),
                 (1, 16, 128, "edges"), (8, 4, 128, "long"), (2, 7, 64, "long"),
-                (8, 4, 128, "bucket64"), (2, 7, 64, "bucket64")]
+                (8, 4, 128, "bucket64"), (2, 7, 64, "bucket64"),
+                (8, 4, 128, "page24"), (2, 7, 64, "page24"), (2, 2, 32, "page24"),
+                (8, 4, 128, "page128"), (2, 7, 64, "page128"), (2, 2, 32, "page128")]
 
 
-def _decode_inputs(rng, dev, dtype, KV, G, hd, case, page=16):
+def _decode_inputs(rng, dev, dtype, KV, G, hd, case):
     """(q, k, v, table, pos, kv_lens) of a decode case, pools in dtype."""
-    kv_lens_l, P = _decode_case(case)
+    kv_lens_l, P, page = _decode_case(case)
     B = len(kv_lens_l)
     NP = B * P + 1
     k, v = _pool(rng, dev, dtype, NP, page, KV, hd)
@@ -149,12 +161,16 @@ def _tile_layout(layout, G):
         return [(160, 600), (1, 20)], dict(P=38)
     if layout == "wide_table":      # a table 4096 slots wide; rows of 1000 and 37
         return [(64, 1000), (1, 37)], dict(P=256)
+    if layout == "page24":          # 64-slot blocks span pages of a size not dividing 64
+        return [(40, 300), (1, 50), (3, 24), (tm, 65)], dict(page=24, P=13)
+    if layout == "page128":         # pages larger than a block
+        return [(64, 700), (1, 129), (2, 130), (1, 1)], dict(page=128, P=6)
     assert layout == "bucket_pads"  # more pads than tokens (a power-of-two bucket)
     return [(3, 20), (1, 9)], dict(pads=28)
 
 
 TILE_LAYOUTS = ["chunk_tiles", "limit_in_block", "tile_exact", "many_rows",
-                "bucket_pads", "split_empty", "wide_table"]
+                "bucket_pads", "split_empty", "wide_table", "page24", "page128"]
 
 
 def _split_counts_zero():
@@ -282,14 +298,14 @@ def test_paged_decode_work_items(dev, KV, G, hd, want, grid, pools):
 
 
 def test_decode_wrappers_refuse_unsupported_shapes(dev):
-    """Kernels A and C take hd 32, 64 or 128, G <= 16 and a page size
-    dividing 64; anything else is a ValueError before any launch, never
-    the plain version."""
+    """Kernels A and C take hd 32, 64 or 128 and G <= 16 (any page size);
+    anything else is a ValueError before any launch, never the plain
+    version."""
     from rbg_tpu_torch.ops.kernels.paged_decode import paged_decode_attention
     from rbg_tpu_torch.ops.kernels.paged_decode_q import paged_decode_attention_q
     rng = np.random.RandomState(15)
     reset_launches()
-    for KV, G, hd, page in [(2, 2, 96, 16), (2, 2, 64, 12), (1, 17, 64, 16)]:
+    for KV, G, hd, page in [(2, 2, 96, 16), (2, 2, 48, 12), (1, 17, 64, 16)]:
         k, v = _pool(rng, dev, torch.bfloat16, 5, page, KV, hd)
         kq, vq, ks, vs = _quantized(k, v)
         table = torch.arange(1, 5, dtype=torch.int32, device=dev).reshape(2, 2)
@@ -371,14 +387,14 @@ def test_ragged_kernel_work_items(dev, KV, G, hd, want, P):
 
 
 def test_ragged_wrappers_refuse_unsupported_shapes(dev):
-    """Kernels B and D take hd 32, 64 or 128, a page size dividing 64 and
-    at most MAX_ROWS table rows; anything else is a ValueError before any
-    launch, never the plain version."""
+    """Kernels B and D take hd 32, 64 or 128 and at most MAX_ROWS table
+    rows (any page size); anything else is a ValueError before any launch,
+    never the plain version."""
     from rbg_tpu_torch.ops.kernels.ragged_paged import (MAX_ROWS,
                                                         ragged_paged_attention_cuda)
     from rbg_tpu_torch.ops.kernels.ragged_paged_q import ragged_paged_attention_q_cuda
     rng = np.random.RandomState(12)
-    cases = [_ragged_case(rng, dev, torch.bfloat16, [(3, 9), (1, 5)], 2, 2, 64,
+    cases = [_ragged_case(rng, dev, torch.bfloat16, [(3, 9), (1, 5)], 2, 2, 96,
                           page=24, P=2),
              _ragged_case(rng, dev, torch.bfloat16, [(1, 3)] * (MAX_ROWS + 1), 1, 2,
                           64, P=1)]
@@ -486,31 +502,52 @@ def _mla_ragged_case(rng, dev, dtype, specs, H, dc, dr, page=16, P=8, pads=0,
             torch.from_numpy(rows).to(dev))
 
 
+# (H, dc, dr) of kernels F and H: deepseek-v2-lite, deepseek-v3's head
+# count, tiny-mla.
+RAGGED_MLA_SHAPES = [(16, 512, 64), (128, 512, 64), (4, 64, 16)]
+
+
+def _mla_layout(layout):
+    """(specs, _mla_ragged_case kwargs) of a pack for kernels F and H."""
+    if layout == "straddle":        # a prefill row across tiles + decodes, pads
+        return [(12, 12), (1, 9), (20, 100)], dict(pads=5)
+    if layout == "three_in_tile":
+        return [(1, 9), (1, 21), (1, 33), (2, 6), (3, 7)], {}
+    if layout == "pads":            # an all-pad tail after the real tokens
+        return [(2, 9), (1, 13)], dict(pads=13)
+    if layout == "shuffled":        # rows are not contiguous runs
+        return [(5, 15), (1, 21), (1, 4), (3, 40)], dict(
+            order=lambda n: np.random.RandomState(7).permutation(n))
+    if layout == "empty_row":       # a row with kv_len 0 (bucket padding)
+        return [(3, 30), (1, 5), (0, 0)], {}
+    if layout == "split":           # walks split up to 8 ways, a chunk over a long row
+        return [(1, 2048), (24, 1000), (1, 300)], dict(P=128, pads=7)
+    if layout == "page24":          # 32-slot blocks span pages of a size not dividing 32
+        return [(20, 300), (1, 50), (3, 24), (1, 1)], dict(page=24, P=13)
+    if layout == "page128":         # pages larger than a block
+        return [(18, 700), (1, 129), (2, 130)], dict(page=128, P=6)
+    assert layout == "long"         # an 8192-slot row in a 512-page table
+    return [(1, 8192), (5, 4000), (1, 3)], dict(P=512)
+
+
+MLA_LAYOUTS = ["straddle", "three_in_tile", "pads", "shuffled", "empty_row", "split",
+               "page24", "page128", "long"]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,dc,dr", [(16, 512, 64), (4, 64, 16)])
-@pytest.mark.parametrize("layout", ["straddle", "three_in_tile", "pads",
-                                    "shuffled", "empty_row"])
+@pytest.mark.parametrize("H,dc,dr", RAGGED_MLA_SHAPES)
+@pytest.mark.parametrize("layout", MLA_LAYOUTS)
 def test_ragged_mla_matches_plain(dev, dtype, H, dc, dr, layout):
-    """Kernel F against the plain version on B's layouts."""
+    """Kernel F against the plain version: B's layouts, split walks, page
+    sizes that are not powers of two or exceed a block, a long row."""
     rng = np.random.RandomState(6)
-    kw = {}
-    if layout == "straddle":
-        specs = [(12, 12), (1, 9), (20, 100)]
-    elif layout == "three_in_tile":
-        specs = [(1, 9), (1, 21), (1, 33), (2, 6), (3, 7)]
-    elif layout == "pads":
-        specs, kw = [(2, 9), (1, 13)], dict(pads=13)
-    elif layout == "shuffled":
-        specs = [(5, 15), (1, 21), (1, 4), (3, 40)]
-        kw = dict(order=lambda n: np.random.RandomState(7).permutation(n))
-    else:
-        specs = [(3, 30), (1, 5), (0, 0)]
+    specs, kw = _mla_layout(layout)
     case = _mla_ragged_case(rng, dev, dtype, specs, H, dc, dr, **kw)
     scale = (128 + dr) ** -0.5
     reset_launches()
     got = ragged_paged_mla_attention(*case, scale, use_kernels="always")
     torch.cuda.synchronize()
-    assert LAUNCHES["ragged_paged_mla"] == 1
+    assert LAUNCHES["ragged_paged_mla"] == 1 and _split_counts_zero()
     ref = ragged_paged_mla_attention_plain(*case, scale)
     torch.testing.assert_close(got.float(), ref.float(), **_mla_tol(dtype))
     qpos = case[5]
@@ -620,20 +657,15 @@ def test_mla_decode_wrappers_refuse_unsupported_shapes(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,dc,dr", MLA_Q_SHAPES)
-@pytest.mark.parametrize("layout", ["straddle", "shuffled", "empty_row"])
+@pytest.mark.parametrize("H,dc,dr", RAGGED_MLA_SHAPES)
+@pytest.mark.parametrize("layout", ["straddle", "shuffled", "empty_row", "split", "page24",
+                                    "page128", "long"])
 def test_ragged_mla_q_matches_plain(dev, dtype, H, dc, dr, layout):
     """Kernel H against the plain version on the same int8 latent pools:
-    a row across tiles with pads, non-contiguous rows, a kv_len-0 row."""
+    a row across tiles with pads, non-contiguous rows, a kv_len-0 row,
+    split walks, page sizes 24 and 128, a long row."""
     rng = np.random.RandomState(9)
-    kw = {}
-    if layout == "straddle":
-        specs, kw = [(12, 12), (1, 9), (20, 100)], dict(pads=5)
-    elif layout == "shuffled":
-        specs = [(5, 15), (1, 21), (1, 4), (3, 40)]
-        kw = dict(order=lambda n: np.random.RandomState(7).permutation(n))
-    else:
-        specs = [(3, 30), (1, 5), (0, 0)]
+    specs, kw = _mla_layout(layout)
     case = list(_mla_ragged_case(rng, dev, dtype, specs, H, dc, dr, **kw))
     case[2], case[3], cs, ps = _quantized_latents(case[2], case[3])
     scale = (128 + dr) ** -0.5
@@ -642,10 +674,106 @@ def test_ragged_mla_q_matches_plain(dev, dtype, H, dc, dr, layout):
                                      c_scales=cs, pe_scales=ps)
     torch.cuda.synchronize()
     assert LAUNCHES["ragged_paged_mla_q"] == 1 and LAUNCHES["ragged_paged_mla"] == 0
+    assert _split_counts_zero()
     ref = ragged_paged_mla_attention_plain(*case, scale, cs, ps)
     torch.testing.assert_close(got.float(), ref.float(), **_mla_tol(dtype))
     qpos = case[5]
     assert torch.all(got[0, qpos[0] < 0] == 0)
+
+
+@pytest.mark.parametrize("H", [16, 128])
+@pytest.mark.parametrize("pools", ["bf16", "int8"])
+def test_ragged_mla_work_items(dev, H, pools):
+    """The work items kernels F and H report for the kernels phase's mixed
+    pack (252 pads), read back from their counts: each row's split follows
+    its own kv_len, so a table 4x wider gives the same items and the same
+    output bits; the queue and split counts are back at 0."""
+    from rbg_tpu_torch.ops.kernels import launch_report
+    from rbg_tpu_torch.ops.kernels.ragged_paged_mla import ragged_paged_mla_attention_cuda
+    from rbg_tpu_torch.ops.kernels.ragged_paged_mla_q import (
+        ragged_paged_mla_attention_q_cuda)
+    rng = np.random.RandomState(19)
+    dc, dr, scale = 512, 64, 192 ** -0.5
+    case = list(_mla_ragged_case(rng, dev, torch.bfloat16, MIXED_SPEC, H, dc, dr, P=128,
+                                 pads=252))
+    q_lat, q_pe, c, pe, table, qpos, lens, rows = case
+    if pools == "int8":
+        cq, pq, cs, ps = _quantized_latents(c, pe)
+        fn = lambda t: ragged_paged_mla_attention_q_cuda(  # noqa: E731
+            q_lat, q_pe, cq, pq, cs, ps, t, qpos, lens, rows, scale)
+        ref = ragged_paged_mla_attention_plain(q_lat, q_pe, cq, pq, table, qpos, lens, rows,
+                                               scale, cs, ps)
+    else:
+        fn = lambda t: ragged_paged_mla_attention_cuda(  # noqa: E731
+            q_lat, q_pe, c, pe, t, qpos, lens, rows, scale)
+        ref = ragged_paged_mla_attention_plain(q_lat, q_pe, c, pe, table, qpos, lens, rows,
+                                               scale)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    got = fn(table)
+    rep = launch_report(q_lat.device)
+    if sms == 132:      # the H100: splits capped at ceil(2 x 132 / (tiles x slices))
+        assert rep["work_items"] == {16: 189, 128: 520}[H]
+    assert rep["work_items"] >= 1
+    assert 1 <= rep["grid_blocks"] <= sms
+    wide = torch.nn.functional.pad(table, (0, 512 - table.shape[1]))
+    assert torch.equal(fn(wide), got)
+    assert launch_report(q_lat.device) == rep
+    torch.cuda.synchronize()
+    assert _split_counts_zero()
+    torch.testing.assert_close(got.float(), ref.float(), **_tol(torch.bfloat16))
+    assert torch.all(got[0, qpos[0] < 0] == 0)
+
+
+@pytest.mark.parametrize("H,specs", [(128, [(64, 2048)] * 8 + [(1, 8192)]),
+                                     (16, [(1, 8192)] * 4)])
+def test_ragged_mla_partials_bounded(dev, H, specs):
+    """F's partials scratch, from fresh: a 513-token deepseek-v3 pack (no
+    split is worth its traffic) and four long decode rows (all split) each
+    leave it at most min(2 x 2 x SMs x 64, T x H x 8) rows of dc + 4 (the
+    launcher's bound, one bf16 block per SM at dc = 512), where it held
+    T x H x 8 rows whatever split; the output agrees with the plain
+    version."""
+    from rbg_tpu_torch.ops.kernels import _SCRATCH
+    from rbg_tpu_torch.ops.kernels.ragged_paged_mla import ragged_paged_mla_attention_cuda
+    rng = np.random.RandomState(23)
+    dc, dr, scale = 512, 64, 192 ** -0.5
+    case = _mla_ragged_case(rng, dev, torch.bfloat16, specs, H, dc, dr, P=512)
+    _SCRATCH.pop((torch.device(dev).index or 0, torch.cuda.current_stream().cuda_stream), None)
+    got = ragged_paged_mla_attention_cuda(*case, scale)
+    part = _SCRATCH[(got.get_device(), torch.cuda.current_stream().cuda_stream)][0]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert 0 < part.numel() <= min(4 * sms * 64, got.shape[1] * H * 8) * (dc + 4)
+    torch.cuda.synchronize()
+    assert _split_counts_zero()
+    ref = ragged_paged_mla_attention_plain(*case, scale)
+    torch.testing.assert_close(got.float(), ref.float(), **_tol(torch.bfloat16))
+
+
+def test_ragged_mla_wrappers_refuse_unsupported_shapes(dev):
+    """Kernels F and H take (dc, dr) = (512, 64) or (64, 16) and at most
+    MAX_ROWS table rows (any H, any page size); anything else is a
+    ValueError before any launch, never the plain version."""
+    from rbg_tpu_torch.ops.kernels.ragged_paged import MAX_ROWS
+    from rbg_tpu_torch.ops.kernels.ragged_paged_mla import ragged_paged_mla_attention_cuda
+    from rbg_tpu_torch.ops.kernels.ragged_paged_mla_q import (
+        ragged_paged_mla_attention_q_cuda)
+    rng = np.random.RandomState(20)
+    cases = [_mla_ragged_case(rng, dev, torch.bfloat16, [(3, 9), (1, 5)], 4, dc, dr, P=2)
+             for dc, dr in [(128, 32), (64, 64), (512, 16)]]
+    cases.append(_mla_ragged_case(rng, dev, torch.bfloat16, [(1, 3)] * (MAX_ROWS + 1), 4,
+                                  64, 16, P=1))
+    reset_launches()
+    for case in cases:
+        q_lat, q_pe, c, pe, table, qpos, lens, rows = case
+        cq, pq, cs, ps = _quantized_latents(c, pe)
+        with pytest.raises(ValueError):
+            ragged_paged_mla_attention_cuda(*case, 0.1)
+        with pytest.raises(ValueError):
+            ragged_paged_mla_attention_q_cuda(q_lat, q_pe, cq, pq, cs, ps, table, qpos, lens,
+                                              rows, 0.1)
+        with pytest.raises(ValueError):     # the dispatcher does not fall back
+            ragged_paged_mla_attention(*case, 0.1)
+    assert LAUNCHES["ragged_paged_mla"] == LAUNCHES["ragged_paged_mla_q"] == 0
 
 
 def test_mla_q_wrappers_refuse_bad_inputs(dev):
@@ -718,12 +846,14 @@ def _params_on(params, dev):
             for k, v in params.items()}
 
 
-@pytest.mark.parametrize("model", ["tiny", "tiny-moe"])
+@pytest.mark.parametrize("model,page_size", [("tiny", 16), ("tiny-moe", 16),
+                                             ("tiny-mla", 16), ("tiny", 128)])
 @pytest.mark.parametrize("multi_step", [1, 4])
-def test_engine_serves_tiny_models_on_the_card(dev, model, multi_step):
-    """tiny and tiny-moe (hd 32, float32) serve on the card through Engine:
-    ragged steps launch kernel B, decode windows kernel A, and the greedy
-    tokens equal the CPU port's on the same weights."""
+def test_engine_serves_tiny_models_on_the_card(dev, model, page_size, multi_step):
+    """tiny and tiny-moe (hd 32, float32) serve on the card through Engine
+    (ragged steps launch kernel B, decode windows kernel A), tiny-mla
+    (float32 latents) through kernels F and E, and tiny at page size 128;
+    the greedy tokens equal the CPU port's on the same weights."""
     from rbg_tpu_torch.engine.config import EngineConfig, SamplingParams
     from rbg_tpu_torch.engine.engine import Engine
     from rbg_tpu_torch.models.config import get_config
@@ -733,12 +863,14 @@ def test_engine_serves_tiny_models_on_the_card(dev, model, multi_step):
     prompts = [rng.randint(0, 256, n).tolist() for n in (5, 40, 23, 70)]
     sp = SamplingParams(max_new_tokens=12)
     kw = dict(model=model, num_pages=64, max_seq_len=256, prefill_chunk=16,
-              multi_step=multi_step)
+              multi_step=multi_step, page_size=page_size)
     want = Engine(EngineConfig(**kw, device="cpu"), params=params).generate(prompts, sp)
     reset_launches()
     got = Engine(EngineConfig(**kw), params=_params_on(params, dev), device=dev).generate(
         prompts, sp)
-    assert LAUNCHES["ragged_paged"] > 0 and LAUNCHES["paged_decode"] > 0
+    ragged, decode = (("ragged_paged_mla", "paged_mla_decode") if model == "tiny-mla"
+                      else ("ragged_paged", "paged_decode"))
+    assert LAUNCHES[ragged] > 0 and LAUNCHES[decode] > 0
     assert got == want
 
 

@@ -235,6 +235,46 @@ def test_ragged_mla_plain_int8_matches_pallas_q():
     np.testing.assert_allclose(got, ref, atol=ATOL, rtol=ATOL)
 
 
+@pytest.mark.parametrize("page", [1, 24, 40])
+@pytest.mark.parametrize("quantized", [False, True], ids=["float_pools", "int8_pools"])
+def test_ragged_mla_plain_any_page_size_matches_pallas(page, quantized):
+    """Kernels F and H take any page size (their 32-slot latent blocks look
+    up each slot's page): the plain version they are held to on the card
+    agrees with the TPU originals at page sizes that do not divide 32, on a
+    pack whose rows are not contiguous runs."""
+    q_lat, q_pe, c, pe, table, qpos, lens, rows = _ragged_case(
+        10, [(3, 2 * page + 1), (1, 1), (2, 4 * page)], P=4, page=page)
+    perm = np.random.RandomState(12).permutation(rows.shape[0])
+    scales = ()
+    if quantized:
+        c, cs, pe, ps = _quantize(c, pe)
+        scales = (cs, ps)
+    case = (q_lat[:, perm], q_pe[:, perm], c, pe, table, qpos[:, perm], lens, rows[perm])
+    got = ragged_paged_mla_attention_plain(*map(t, case), SCALE, *map(t, scales)).numpy()
+    kernel = (ragged_paged_mla_attention_pallas_q if quantized
+              else ragged_paged_mla_attention_pallas)
+    ref = np.asarray(kernel(*map(jnp.asarray, case), SCALE, *map(jnp.asarray, scales),
+                            interpret=True))
+    np.testing.assert_allclose(got, ref, atol=ATOL, rtol=ATOL)
+
+
+def test_ragged_mla_wrappers_refuse_other_latent_widths():
+    """F and H have (dc, dr) = (512, 64) and (64, 16) instances, as E and G
+    do; other widths are a ValueError naming them, raised before the
+    tensors are looked at (so also here, on the CPU)."""
+    from rbg_tpu_torch.ops.kernels.ragged_paged_mla import ragged_paged_mla_attention_cuda
+    from rbg_tpu_torch.ops.kernels.ragged_paged_mla_q import (
+        ragged_paged_mla_attention_q_cuda)
+    for dc, dr in [(128, 32), (512, 16), (64, 64)]:
+        case = tuple(map(t, _ragged_case(11, [(3, 9), (1, 5)], dc=dc, dr=dr)))
+        c8, cs, pe8, ps = map(t, _quantize(case[2].numpy(), case[3].numpy()))
+        with pytest.raises(ValueError, match=r"\(dc, dr\)"):
+            ragged_paged_mla_attention_cuda(*case, SCALE)
+        with pytest.raises(ValueError, match=r"\(dc, dr\)"):
+            ragged_paged_mla_attention_q_cuda(case[0], case[1], c8, pe8, cs, ps, *case[4:],
+                                              SCALE)
+
+
 def test_latent_int8_writes_and_pads_match_jax():
     """A pack's latents into int8 latent pools (c and pe, each with
     [NP, page, 1, 1] scales), bit for bit as the reference writes them;
