@@ -47,12 +47,27 @@ Phases, each printing one JSON line:
    int8    — the same engine script with kv_dtype="int8" (kernels C, D),
              multi_step 4, its two witnesses on int8 pools and the server
              over int8 pools.
-6. deepseek-v2-lite (MLA + MoE) at full width and depth, random weights
+6. serving (llama3-8b at full width and depth, random weights from a seed,
+   after the phases above free theirs):
+   bench_serving   — ``rbg_tpu_torch.engine.bench_serving.run`` with
+             BENCH_ARGS (16 Poisson requests of 512-token prompts and 64 new
+             tokens at 4/s, bf16 pools, multi_step 4), in process and then
+             with --addr (and an auth token) against the port's server in
+             this process: every request completes, kernels A and B launch;
+             TTFT, ITL, e2e, tokens/s and goodput at the default SLO targets.
+   serving_surface — that server's generate_text (traced), embed (4
+             prompts of 100-500 tokens, 4096-wide, batched against singles),
+             slo, traces, an auth refusal, start_drain refusing a new
+             generate while a stream finishes; tiny's embeddings on the card
+             against the CPU port.
+   bench_slo — ``rbg_tpu_torch.engine.bench_slo --setups unified`` at tiny:
+             a spawned server on the card, two rates.
+7. deepseek-v2-lite (MLA + MoE) at full width and depth, random weights
    from a seed, after llama3-8b is freed: engine (kernels E, F; multi_step
    1 and 4), witnesses (ragged_compare and decode_compare) and server, as
    for llama3-8b; then on the same weights over int8 latent pools
    (kernels G, H): engine (multi_step 4), int8 witnesses and server.
-7. ragged_ab — rbg_tpu_torch.bench.block_ragged_probe: kernel I against
+8. ragged_ab — rbg_tpu_torch.bench.block_ragged_probe: kernel I against
    kernel B on a prefill-heavy pack, both checked against the plain
    version, then interleaved timed reps.
 
@@ -1159,6 +1174,208 @@ def deepseek_phases(torch, np, card):
     return launches
 
 
+BENCH_ARGS = ["--model", "llama3-8b", "--requests", "16", "--rate", "4",
+              "--input-len", "512", "--output-len", "64", "--num-pages", "2048",
+              "--max-seq-len", "2048", "--max-batch", "8", "--multi-step", "4",
+              "--slo-ttft-s", "2.0", "--slo-tpot-s", "0.5", "--json"]
+# Auth token of the in-process llama3-8b server (bench --addr and the
+# serving-surface checks).
+SMOKE_TOKEN = "chip-smoke-token"
+# Embeddings of one prompt alone against the same prompt in a batch of 4:
+# relative L2 distance, worst of the 4 prompts. At llama3-8b (H100,
+# scripts/embed_tolerance.py) the 100-token prompt reads 0.0213: alone it
+# runs at T 128, where cuBLAS takes another algorithm for the MLP's down
+# projection (K 14336) than at 512 or more rows, and each of the two bf16
+# paths is 0.029 from the float32 forward. The other three read 0. Planted
+# faults read 0.77 (pads pooled) and 3.45 (attention unmasked, not causal).
+EMBED_BF16_REL = 0.03
+# tiny (float32) embeddings on the card against the CPU port.
+EMBED_F32_ATOL = 1e-4
+
+
+def bench_record(out, launches, mode, card, **extra):
+    """Fail unless every request completed and kernels A and B launched;
+    print the readings."""
+    if out["completed"] != out["requests"]:
+        raise AssertionError(f"bench_serving {mode}: {out}")
+    check_launches(launches, LLAMA_KERNELS)
+    emit("bench_serving", mode=mode, card=card, args=" ".join(BENCH_ARGS),
+         launches={k: launches[k] for k in LLAMA_KERNELS}, **extra, **out)
+
+
+def serving_phases(torch, np, card):
+    """bench_serving at llama3-8b (full depth, bf16 pools): in process, then
+    with --addr against the port's server in this process (auth token on);
+    then the serving surface on that server and bench_slo at tiny."""
+    from rbg_tpu_torch.engine import bench_serving
+    from rbg_tpu_torch.engine.server import start_server
+    from rbg_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    args = bench_serving.parse_args(BENCH_ARGS)
+    reset_launches()
+    out = bench_serving.run(args)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    bench_record(out, launches, "inprocess", card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    svc = bench_serving.build_service(args)
+    srv = start_server(svc, auth_token=SMOKE_TOKEN)
+    try:
+        w = request_once(srv.addr, {"op": "warmup", "input_len": args.input_len,
+                                    "token": SMOKE_TOKEN}, timeout=600)
+        if not w.get("ok"):
+            raise AssertionError(f"warmup {w}")
+        remote = bench_serving.parse_args(BENCH_ARGS + ["--addr", srv.addr,
+                                                        "--token", SMOKE_TOKEN])
+        judged = svc.slo.judged_total()
+        reset_launches()
+        out = bench_serving.run(remote)
+        torch.cuda.synchronize()
+        # Judging precedes each request's completion on the loop thread.
+        judged = svc.slo.judged_total() - judged
+        if judged != out["completed"]:
+            raise AssertionError(f"bench_serving --addr: {judged} requests "
+                                 f"SLO-judged of {out['completed']}")
+        bench_record(out, dict(LAUNCHES), "addr", card, slo_judged=judged)
+        surface_phase(torch, np, svc, srv)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        svc.stop()
+    del svc
+    gc.collect()
+    torch.cuda.empty_cache()
+    bench_slo_phase()
+
+
+def request_once(addr, obj, timeout=120):
+    from rbg_tpu_torch.engine.protocol import request_once as once
+    return once(addr, obj, timeout=timeout)
+
+
+def surface_phase(torch, np, svc, srv):
+    """The server's other ops at llama3-8b: generate_text (traced), embed
+    (4 prompts of 100-500 tokens, batched against singles), slo, traces, an
+    auth refusal, and start_drain refusing a new generate while a stream
+    runs on; then tiny's embeddings on the card against the CPU port."""
+    from rbg_tpu_torch.engine.config import EngineConfig
+    from rbg_tpu_torch.engine.engine import Engine
+    from rbg_tpu_torch.engine.protocol import CODE_DRAINING, recv_msg, send_msg
+    from rbg_tpu_torch.engine.server import start_drain
+    from rbg_tpu_torch.engine.service import embed_prompts
+    from rbg_tpu_torch.models.config import get_config
+    from rbg_tpu_torch.models.llama import init_params
+    from rbg_tpu_torch.obs import trace
+
+    def ask(obj, token=SMOKE_TOKEN):
+        return request_once(srv.addr, {**obj, "token": token} if token else obj,
+                            timeout=600)
+
+    V = svc.engine.mcfg.vocab_size
+    trace.configure(enabled=True, sample=1.0)
+    judged = svc.slo.judged_total()
+    try:
+        t0 = time.perf_counter()
+        gt = ask({"op": "generate_text", "text": "The H100 serves", "max_new_tokens": 16})
+        gt_s = time.perf_counter() - t0
+    finally:
+        trace.configure(enabled=False)
+    gt_judged = svc.slo.judged_total() - judged
+    if gt_judged != 1 or gt.get("error") or not isinstance(gt.get("text"), str) or not (
+            0 < len(gt["tokens"]) <= 16 and all(0 <= t < V for t in gt["tokens"])):
+        raise AssertionError(f"generate_text {gt}, SLO-judged {gt_judged}")
+    # The op's span ends just after its reply is sent.
+    for _ in range(50):
+        traces = ask({"op": "traces", "n": 4})
+        if traces.get("recent"):
+            break
+        time.sleep(0.02)
+    rec = traces["recent"][-1] if traces.get("recent") else {}
+    if not (rec.get("complete") and rec.get("root") == "engine.op"):
+        raise AssertionError(f"traces {traces}")
+
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(1, V, n).tolist() for n in (100, 230, 377, 500)]
+    t0 = time.perf_counter()
+    batched = ask({"op": "embed", "prompts": prompts})
+    embed_s = time.perf_counter() - t0
+    singles = [ask({"op": "embed", "prompt": p})["embedding"] for p in prompts]
+    b, s1 = np.asarray(batched["embeddings"]), np.asarray(singles)
+    rel = (np.linalg.norm(b - s1, axis=1) / np.linalg.norm(s1, axis=1)).tolist()
+    if b.shape != (4, svc.engine.mcfg.hidden_size) or not np.isfinite(b).all() \
+            or max(rel) > EMBED_BF16_REL:
+        raise AssertionError(f"embed: shape {b.shape}, relative distance {rel}")
+
+    slo = ask({"op": "slo", "window": 300}, token=None)
+    tracker = [t for t in slo["trackers"] if t["component"] == "engineservice"][-1]
+    refused = ask({"op": "generate", "prompt": [1, 2], "max_new_tokens": 2},
+                  token="wrong")
+    health = ask({"op": "health"}, token=None)
+    if tracker["totals"]["judged"] != svc.slo.judged_total() \
+            or refused != {"error": "unauthorized"} or not health.get("ok"):
+        raise AssertionError(f"slo {tracker}, auth {refused}, health {health}")
+
+    cfg = dict(model="tiny", num_pages=64, max_seq_len=256)
+    params = init_params(get_config("tiny"), 0, "cpu")
+    tiny_prompts = [rng.randint(1, 256, n).tolist() for n in (5, 40, 130)]
+    want = np.asarray(embed_prompts(Engine(EngineConfig(**cfg, device="cpu"),
+                                           params=params), tiny_prompts))
+    got = np.asarray(embed_prompts(Engine(EngineConfig(**cfg),
+                                          params=params_to(params, "cuda")),
+                                   tiny_prompts))
+    tiny_err = float(np.max(np.abs(got - want)))
+    if tiny_err > EMBED_F32_ATOL:
+        raise AssertionError(f"tiny embed on the card vs cpu: {tiny_err}")
+
+    host, port = srv.addr.rsplit(":", 1)
+    with socket.create_connection((host, int(port)), timeout=600) as s:
+        send_msg(s, {"op": "generate", "prompt": prompts[0], "stream": True,
+                     "max_new_tokens": 64, "token": SMOKE_TOKEN})
+        if "error" in recv_msg(s):
+            raise AssertionError("stream refused")
+        start_drain(srv, 120.0)
+        drained = ask({"op": "generate", "prompt": [1, 2], "max_new_tokens": 2})
+        n = 0
+        while True:
+            frame = recv_msg(s)
+            if frame is None or "error" in frame:
+                raise AssertionError(f"stream cut by the drain: {frame}")
+            n += len(frame.get("tokens", []))
+            if frame.get("done"):
+                break
+    if drained.get("code") != CODE_DRAINING:
+        raise AssertionError(f"draining server took a generate: {drained}")
+    emit("serving_surface", model=svc.engine.cfg.model, generate_text=gt["text"],
+         generate_text_tokens=len(gt["tokens"]), generate_text_s=gt_s,
+         trace_spans=[sp["name"] for sp in rec["spans"]],
+         embed_dim=batched["dim"], embed_prompt_lens=[len(p) for p in prompts],
+         embed_s=embed_s, embed_batched_vs_singles_rel=rel,
+         embed_bound=EMBED_BF16_REL, tiny_embed_card_vs_cpu=tiny_err,
+         slo_judged=tracker["totals"]["judged"], slo_windows=tracker["windows"],
+         auth_refusal=refused, drain_refusal=drained,
+         stream_tokens_through_drain=n)
+
+
+def bench_slo_phase():
+    """bench_slo --setups unified at tiny: a spawned server on the card,
+    two rates through bench_serving --addr."""
+    from rbg_tpu_torch.engine import bench_slo
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "slo.json")
+        t0 = time.perf_counter()
+        bench_slo.main(["--setups", "unified", "--model", "tiny", "--rates", "4,8",
+                        "--requests", "8", "--input-len", "32", "--output-len", "16",
+                        "--json-out", path])
+        with open(path) as f:
+            rows = json.load(f)["results"]["unified"]
+    emit("bench_slo", seconds=time.perf_counter() - t0, rows=rows)
+    if [r["completed"] for r in rows] != [8, 8]:
+        raise AssertionError(f"bench_slo: {rows}")
+
+
 def probe_phase(torch):
     """The block_ragged probe (kernel I against kernel B on a prefill-heavy
     pack); its launches of kernel I are that path's. Returns them."""
@@ -1206,6 +1423,9 @@ def main():
     kern = kernels_phase(torch, np)
     tiny_phase(torch, np)
     launches = llama_phases(torch, np, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serving_phases(torch, np, card)
     gc.collect()
     torch.cuda.empty_cache()
     launches.update(deepseek_phases(torch, np, card))

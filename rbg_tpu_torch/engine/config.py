@@ -53,6 +53,16 @@ class EngineConfig:
     ragged: str = "auto"                    # only "auto" is ported
     mode: str = "unified"                   # only "unified" is ported
     kv_dtype: str = "model"                 # model | int8 (quantized KV pool)
+    # Per-request SLO targets every finished request is judged against
+    # (obs/slo.py): seconds to first token, seconds per output token after
+    # the first. 0 disables a dimension.
+    slo_ttft_s: float = 2.0
+    slo_tpot_s: float = 0.5
+    # Early rejection: "auto" (with slo_ttft_s > 0) sheds a submission at
+    # admission when its predicted TTFT (queue wait plus prefill net of
+    # its prefix hit) exceeds early_reject_factor x slo_ttft_s.
+    early_reject: str = "off"               # off | auto
+    early_reject_factor: float = 1.5
     vocab_size: int = 0                     # override preset vocab (0 = keep)
     seed: int = 0
     device: Optional[str] = None            # None = cuda (raises without a card)
@@ -80,6 +90,14 @@ class EngineConfig:
             raise ValueError("page_size must be >= 1")
         if self.kv_dtype not in ("model", "int8"):
             raise ValueError(f"kv_dtype {self.kv_dtype!r} not in (model, int8)")
+        if self.slo_ttft_s < 0 or self.slo_tpot_s < 0:
+            raise ValueError("slo_ttft_s / slo_tpot_s must be >= 0 "
+                             "(0 disables that SLO dimension)")
+        if self.early_reject not in ("off", "auto"):
+            raise ValueError(f"early_reject {self.early_reject!r} not in "
+                             "(off, auto)")
+        if self.early_reject_factor <= 0:
+            raise ValueError("early_reject_factor must be > 0")
         if self.speculative != "off":
             raise _todo(f"speculative={self.speculative!r}",
                         "speculative decoding")
@@ -138,9 +156,11 @@ class SamplingParams:
             raise _todo("LoRA adapters", "LoRA")
 
     @classmethod
-    def from_wire(cls, obj: dict, *, default_max_tokens: int = 16) -> "SamplingParams":
+    def from_wire(cls, obj: dict, *, default_max_tokens: int = 16,
+                  stop_token: Optional[int] = None) -> "SamplingParams":
         """Parse sampling fields off a protocol message (the reference's
-        field names)."""
+        field names); ``stop_token`` is the default when the message
+        names none."""
         sp = cls(
             max_new_tokens=int(obj.get("max_new_tokens", default_max_tokens)),
             temperature=float(obj.get("temperature", 0.0)),
@@ -160,6 +180,8 @@ class SamplingParams:
             stop_token=(None if obj.get("stop_token") is None
                         else int(obj["stop_token"])),
         )
+        if stop_token is not None and sp.stop_token is None:
+            sp.stop_token = stop_token
         sp.validate()
         return sp
 

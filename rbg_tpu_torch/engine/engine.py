@@ -62,6 +62,15 @@ class Request:
         self.last_token: Optional[int] = None
         self.t_submit = time.perf_counter()
         self.t_first: Optional[float] = None
+        # Join accounting: the engine step at which the request entered
+        # `waiting`, and the admission attempts it sat out for want of a
+        # batch slot or pages. wait − blocked is its EXCESS wait, which
+        # continuous batching bounds at one step. t_enqueue is the wall
+        # clock twin (reset on preemption, so running time is not queue
+        # wait).
+        self.enqueue_step = 0
+        self.blocked_steps = 0
+        self.t_enqueue = self.t_submit
 
     def max_len(self) -> int:
         return len(self.prompt) + self.sampling.max_new_tokens
@@ -98,9 +107,14 @@ class Engine:
         # Set by the serving loop when submissions wait beyond this step's
         # admissions: the decode window shortens so the join lands next step.
         self.join_hint = False
+        # Seconds each admitted request waited between entering `waiting`
+        # and joining the batch; the service loop drains it into
+        # rbg_serving_join_latency_seconds.
+        self.last_join_waits: List[float] = []
         self.metrics = {"steps": 0, "decode_tokens": 0, "prefill_tokens": 0,
                         "radix_hit_tokens": 0, "preemptions": 0,
-                        "unified_steps": 0, "decode_windows": 0, "joins": 0}
+                        "unified_steps": 0, "decode_windows": 0, "joins": 0,
+                        "join_wait_steps_max": 0, "join_excess_steps_max": 0}
 
     # ---- public API ----
 
@@ -123,9 +137,21 @@ class Engine:
                 f"prompt+max_new_tokens {len(prompt)}+{sampling.max_new_tokens} "
                 f"exceeds max_seq_len {self.cfg.max_seq_len}")
         req = Request(prompt, sampling)
+        req.enqueue_step = self.metrics["steps"]
         self.requests[req.id] = req
         self.waiting.append(req)
         return req.id
+
+    def prefix_peek(self, prompt: List[int]) -> int:
+        """Prefix-hit depth this prompt would get at admission. Read from
+        submitter threads by the TTFT predictor while the loop thread owns
+        the trie: a stale or zero answer only skews one prediction."""
+        if self.radix is None or len(prompt) < 2:
+            return 0
+        try:
+            return self.radix.peek(prompt[:-1])
+        except Exception:  # noqa: BLE001 — racy read, degrade to a miss
+            return 0
 
     def has_work(self) -> bool:
         return bool(self.waiting or self.running)
@@ -156,8 +182,10 @@ class Engine:
     # ---- admission ----
 
     def _admit(self):
+        blocked = False
         while self.waiting:
             if len(self.running) >= self.cfg.max_batch:
+                blocked = True   # a batch slot is the missing resource
                 break
             req = self.waiting[0]
             matched, shared_pages = 0, []
@@ -172,8 +200,20 @@ class Engine:
             if pages is None:
                 if shared_pages:
                     self.allocator.release(shared_pages)
+                blocked = True
                 break  # no capacity — stay queued
             self.waiting.pop(0)
+            # Admitted at the first step after enqueue: waited 0.
+            wait = max(0, self.metrics["steps"] - req.enqueue_step - 1)
+            excess = max(0, wait - req.blocked_steps)
+            self.metrics["join_wait_steps_max"] = max(
+                self.metrics["join_wait_steps_max"], wait)
+            self.metrics["join_excess_steps_max"] = max(
+                self.metrics["join_excess_steps_max"], excess)
+            self.last_join_waits.append(time.perf_counter() - req.t_enqueue)
+            # Bounded for callers that step the engine without draining it.
+            del self.last_join_waits[:-1024]
+            req.blocked_steps = 0
             self.metrics["joins"] += 1
             self.metrics["radix_hit_tokens"] += matched
             req.pages = shared_pages + pages
@@ -181,6 +221,10 @@ class Engine:
             req.seq_len = matched
             req.state = "prefill"
             self.running.append(req)
+        if blocked:
+            # Every request still waiting sat this step out for capacity.
+            for r in self.waiting:
+                r.blocked_steps += 1
 
     def _alloc(self, n: int) -> Optional[List[int]]:
         if n <= 0:
@@ -624,6 +668,10 @@ class Engine:
         req.state = "waiting"
         req.prefill_pos = 0
         req.seq_len = 0
+        # Re-queued: join accounting restarts here.
+        req.enqueue_step = self.metrics["steps"]
+        req.blocked_steps = 0
+        req.t_enqueue = time.perf_counter()
         # Generated tokens become prompt so decoding resumes where it left off.
         if req.output:
             req.prompt = req.prompt + req.output

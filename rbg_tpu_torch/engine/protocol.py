@@ -10,10 +10,19 @@ Ops served here:
   {"op": "generate", "prompt": [...], ...}  → {"tokens": [...], "ttft_s": x}
       with "stream": true → {"tokens": [...], "done": false}* then
       {"tokens": [], "done": true, "ttft_s": x}
+  {"op": "generate_text", "text": "..."}    → {"text": ..., "tokens": [...], "ttft_s": x}
+  {"op": "embed", "prompts": [[...], ...]}  → {"embeddings": [...], "dim": d, ...}
+  {"op": "slo", "window": s}                → SLO attainment and windowed signals
+  {"op": "traces", "n": k}                  → recent and slowest request traces
+
+With an auth token set, every op but ``health``, ``metrics`` and ``slo``
+carries ``"token"``; a draining server refuses new data ops with
+``CODE_DRAINING``.
 """
 
 from __future__ import annotations
 
+import hmac
 import json
 import socket
 import weakref
@@ -25,6 +34,8 @@ CODE_OVERLOADED = "overloaded"
 CODE_DEADLINE = "deadline_exceeded"
 #: Base code of ``Rejected``.
 CODE_REJECTED = "rejected"
+#: The server is draining (SIGTERM): new data ops are refused. Retryable.
+CODE_DRAINING = "draining"
 
 
 class Rejected(RuntimeError):
@@ -49,6 +60,13 @@ class Overloaded(Rejected):
 
 class DeadlineExceeded(Rejected):
     code = CODE_DEADLINE
+
+
+def token_ok(presented, expected) -> bool:
+    """Constant-time bearer-token compare, on utf-8 bytes (``hmac``'s
+    compare refuses non-ASCII str)."""
+    return hmac.compare_digest(str(presented or "").encode("utf-8"),
+                               str(expected or "").encode("utf-8"))
 
 
 def send_msg(sock: socket.socket, obj: dict) -> None:

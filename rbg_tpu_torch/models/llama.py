@@ -9,7 +9,8 @@ reference's ``lax.scan`` over layers is a Python loop here, and the
 ``[L, NP, page, KV, hd]`` pools (and an int8 pool's scales) are written IN
 PLACE, one layer view ``k_pages[l]`` at a time. An MLA model's pools are
 latent: the latent ``c`` goes to the "k" pool as one head, the RoPE key to
-the "v" pool.
+the "v" pool. ``encode_hidden`` is the cache-free causal forward of the
+embeddings path.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from rbg_tpu_torch.models.config import ModelConfig
-from rbg_tpu_torch.ops.mla_attention import (paged_mla_attention,
+from rbg_tpu_torch.ops.attention import gqa_attention
+from rbg_tpu_torch.ops.mla_attention import (mla_attention, paged_mla_attention,
                                              ragged_paged_mla_attention)
 from rbg_tpu_torch.ops.norms import rms_norm
 from rbg_tpu_torch.ops.paged_attention import paged_attention, write_kv_pages
@@ -284,3 +286,37 @@ def forward_ragged(
                                           v_scales=vs)
         x = _post_attention(cfg, blk, x, attn)
     return _head(params, cfg, x)
+
+
+def _encode_core(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                 token_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The reference's cache-free causal body with its final norm: embed,
+    every block attending over the current tokens only (``gqa_attention``,
+    or ``mla_attention`` on the latents for an MLA model), final norm.
+    Returns hidden states [B, T, D]."""
+    B, T = tokens.shape
+    dev = tokens.device
+    if token_mask is None:
+        token_mask = torch.ones((B, T), dtype=torch.bool, device=dev)
+    positions = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(B, T)
+    x = params["embed"][tokens.long()].to(cfg.torch_dtype)
+    for l in range(cfg.num_layers):
+        blk = layer_params(params, l)
+        if cfg.mla:
+            q_lat, q_pe, c, k_pe = _mla_qkv(cfg, blk, x, positions)
+            attn = _mla_out(cfg, blk, mla_attention(
+                q_lat, q_pe, c, k_pe, positions, token_mask, _mla_scale(cfg)))
+        else:
+            q, k, v = _qkv(cfg, blk, x, positions)
+            attn = gqa_attention(q, k, v, positions, token_mask)
+        x = _post_attention(cfg, blk, x, attn)
+    return rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+
+
+@torch.no_grad()
+def encode_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                  token_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Final-norm hidden states [B, T, D] of a cache-free causal forward (no
+    LM head): what the embeddings path pools. ``tokens`` [B, T] int,
+    ``token_mask`` [B, T] bool (real tokens; pads after them)."""
+    return _encode_core(params, cfg, tokens, token_mask)
