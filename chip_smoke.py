@@ -42,10 +42,30 @@ Phases, each printing one JSON line:
              each with kernels against the plain version on the same pool,
              in float32 (tight) and in bfloat16 (against a float32
              control).
+   block   — one forward_paged over an [8, 64] block with pads (the split
+             prefill's and the verify's shape: kernel B as a pack of 8
+             rows) against the plain version on the same pool, in float32
+             and bfloat16 as the other witnesses (block_compare).
    server  — the port's engine server in this process on a free port,
              answering 4 concurrent generate requests (one streamed).
+   split   — Engine with ragged="off" (split prefill steps: kernel B or D;
+             decode windows: A or C) over bf16 and then int8 pools, two
+             requests decoding together: greedy tokens equal between
+             multi_step 1 and 4, no unified step.
+   spec    — speculative="ngram" against "off", greedy and seeded
+             sampled: tiny (float32) on the card equal to the
+             non-speculative and the CPU port's streams with drafts
+             accepted; llama3-8b (bf16) streams each judged token by token
+             against a float32 forward of themselves (SPEC_LOGIT_BAND; a
+             stream shifted by one must fail the judge), the verify through
+             kernel B alone; drafts and acceptance printed.
+   lora    — two rank-16 adapters on all seven targets written to .npz and
+             loaded through the server's --lora parsing into a server in
+             this process: a base request alone equal to an engine without
+             adapters, adapters a and b and a base row in one batch, each
+             stream its own; an unknown adapter refused.
    int8    — the same engine script with kv_dtype="int8" (kernels C, D),
-             multi_step 4, its two witnesses on int8 pools and the server
+             multi_step 4, its three witnesses on int8 pools and the server
              over int8 pools.
 6. serving (llama3-8b at full width and depth, random weights from a seed,
    after the phases above free theirs):
@@ -64,9 +84,10 @@ Phases, each printing one JSON line:
              a spawned server on the card, two rates.
 7. deepseek-v2-lite (MLA + MoE) at full width and depth, random weights
    from a seed, after llama3-8b is freed: engine (kernels E, F; multi_step
-   1 and 4), witnesses (ragged_compare and decode_compare) and server, as
-   for llama3-8b; then on the same weights over int8 latent pools
-   (kernels G, H): engine (multi_step 4), int8 witnesses and server.
+   1 and 4), witnesses (ragged_compare, decode_compare and block_compare:
+   F at T > 1) and server, as for llama3-8b; then on the same weights over
+   int8 latent pools (kernels G, H): engine (multi_step 4), int8 witnesses
+   (H at T > 1) and server.
 8. ragged_ab — rbg_tpu_torch.bench.block_ragged_probe: kernel I against
    kernel B on a prefill-heavy pack, both checked against the plain
    version, then interleaved timed reps.
@@ -344,12 +365,14 @@ PAGE128_KEYS = ("page", "max_abs_err", "ms", "device_ms", "host_us", "work_items
                 "grid_blocks")
 
 
-def ragged_kernel_cases(torch, np, flush, model, KV, G, hd, names, page=16):
+def ragged_kernel_cases(torch, np, flush, model, KV, G, hd, names, page=16,
+                        spec=RAGGED_SPEC):
     """Kernels B and D (on the same pools quantized) and I (B's function on
-    a token grid) against their plain versions on the mixed pack at page
-    size ``page``: {name: record} for ``names``. B and D also give the
-    kernel's own report of its launch and the same pack in a table WIDE_P
-    pages wide (output equal bit for bit)."""
+    a token grid) against their plain versions on the pack ``spec`` (the
+    mixed pack by default) at page size ``page``: {name: record} for
+    ``names``. B and D also give the kernel's own report of its launch and
+    the same pack in a table WIDE_P pages wide (output equal bit for
+    bit)."""
     import torch.nn.functional as F
 
     from rbg_tpu_torch.ops.kernels import launch_report
@@ -360,7 +383,6 @@ def ragged_kernel_cases(torch, np, flush, model, KV, G, hd, names, page=16):
     from rbg_tpu_torch.ops.paged_attention import gather_kv, quantize_kv
     from rbg_tpu_torch.ops.ragged_paged_attention import ragged_paged_attention_plain
 
-    spec = RAGGED_SPEC
     q, k, v, table, qpos, kv_lens, rows = ragged_case(torch, np, KV, G, hd, spec, page)
     (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
     R, S = len(spec), table.shape[1] * page
@@ -845,6 +867,304 @@ def decode_compare(torch, np, params, model, kv_dtype="model", dev="cuda"):
                   len(lens) * DECODE_WITNESS_DRAWS, draws=DECODE_WITNESS_DRAWS)
 
 
+# The T > 1 witness's rows: context slots before the compared [8, 64]
+# block, and the block's real tokens in each row (pads after them): full
+# prefill chunks, a chunk's tail, verify-shaped rows and a row of pads only.
+BLOCK_CONTEXT = [0, 64, 130, 300, 17, 500, 1000, 0]
+BLOCK_REAL = [64, 64, 50, 5, 64, 2, 64, 0]
+
+
+def block_compare(torch, np, params, model, kv_dtype="model", dev="cuda"):
+    """forward_paged over an [8, 64] block with pads (the split prefill's
+    and the verify's shape; kernel B, D on int8 pools, F, H for MLA) with
+    kernels against use_kernels='never' on the same pool, at full width and
+    depth, over context that an earlier forward_ragged call wrote. Pads
+    come at position 0 as the engine builds them. Limits: compare_paths."""
+    from rbg_tpu_torch.engine.kvcache import PagedKVCache
+    from rbg_tpu_torch.models.config import get_config
+    from rbg_tpu_torch.models.llama import forward_paged, forward_ragged
+
+    V = get_config(model).vocab_size
+    rng = np.random.RandomState(8)
+    B, T = len(BLOCK_CONTEXT), 64
+    pages = [-(-(c + T) // 16) for c in BLOCK_CONTEXT]
+    table = torch.zeros(B, max(pages), dtype=torch.int32, device=dev)
+    for r, n in enumerate(pages):
+        table[r, :n] = torch.arange(1 + sum(pages[:r]), 1 + sum(pages[:r + 1]))
+
+    def ints(x):
+        return torch.tensor(x, dtype=torch.int32, device=dev)
+
+    rows = ints([r for r, n in enumerate(BLOCK_CONTEXT) for _ in range(n)])
+    pos = ints([[i for n in BLOCK_CONTEXT for i in range(n)]])
+    context = (torch.from_numpy(rng.randint(0, V, (1, rows.numel()))).to(dev), pos,
+               pos >= 0, rows, ints(BLOCK_CONTEXT))
+    real = torch.arange(T, device=dev)[None] < ints(BLOCK_REAL)[:, None]
+    bpos = torch.where(real, ints(BLOCK_CONTEXT)[:, None] + torch.arange(T, device=dev), 0)
+    step = (torch.from_numpy(rng.randint(0, V, (B, T))).to(dev), bpos.to(torch.int32), real,
+            ints([c + n for c, n in zip(BLOCK_CONTEXT, BLOCK_REAL)]))
+
+    def run(p, cfg, quantize):
+        """(kernel logits, plain logits) of the block's real tokens."""
+        c = PagedKVCache.create(cfg, 1 + sum(pages), 16, device=dev, quantize=quantize)
+        pools = (c.k_pages, c.v_pages)
+        kw = dict(k_scales=c.k_scales, v_scales=c.v_scales)
+        forward_ragged(p, cfg, *context, table, *pools, **kw)
+        lk = forward_paged(p, cfg, *step, table, *pools, **kw)[real]
+        lp = forward_paged(p, cfg, *step, table, *pools, use_kernels="never", **kw)[real]
+        return lk, lp
+
+    compare_paths(torch, params, model, kv_dtype, run, "block_compare", int(real.sum()))
+
+
+def split_phase(torch, np, params, model, kernels, kv_dtype="model"):
+    """Engine with ragged="off" (the split path): two requests admitted
+    together (100 and 120 prompt tokens: two [2, 64] prefill steps, kernel
+    B or D), then decode windows (A or C) for both rows to the end, at
+    multi_step 1 and 4. Both rows decode in one batch throughout, so the
+    two runs take the same forwards and their greedy tokens must be equal;
+    no unified step is taken."""
+    from rbg_tpu_torch.engine.config import EngineConfig, SamplingParams
+    from rbg_tpu_torch.engine.engine import Engine
+    from rbg_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    V = params["embed"].shape[0]
+    rng = np.random.RandomState(11)
+    prompts = [rng.randint(0, V, n).tolist() for n in (100, 120)]
+    runs = {}
+    for ms in (1, 4):
+        eng = Engine(EngineConfig(model=model, num_pages=2048, max_seq_len=2048,
+                                  multi_step=ms, kv_dtype=kv_dtype, ragged="off"),
+                     params=params)
+        reset_launches()
+        t0 = time.perf_counter()
+        toks = eng.generate(prompts, SamplingParams(max_new_tokens=16))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        check_launches(launches, kernels)
+        m = dict(eng.metrics)
+        runs[ms] = toks
+        emit("split", model=model, kv_dtype=kv_dtype, multi_step=ms, tokens=toks,
+             wall_s=wall, launches={k: launches[k] for k in kernels},
+             steps=m["steps"], unified_steps=m["unified_steps"],
+             decode_windows=m["decode_windows"])
+        if m["unified_steps"] or [len(t) for t in toks] != [16, 16]:
+            raise AssertionError(f"split path ({kv_dtype}, multi_step {ms}): {m} {toks}")
+        del eng
+        torch.cuda.empty_cache()
+    if runs[1] != runs[4]:
+        raise AssertionError(f"split path ({kv_dtype}): multi_step 1 {runs[1]} vs 4 {runs[4]}")
+
+
+# The speculative streams at llama3-8b are judged token by token against
+# a float32 forward of the same stream: each token must be the float32
+# choice up to this band of logit (sampled: of logit / temperature plus the
+# same Gumbel noise). About twice the largest bfloat16-vs-float32 logit
+# distance the block witness reads at llama3-8b (0.42-0.45); a token that
+# is not the path's choice at its position (an unverified draft, a sample
+# taken at another position's key) lies ~4 logit std below the best.
+SPEC_LOGIT_BAND = 1.0
+
+
+def stream_judge(torch, params, model, prompt, tokens, sp, dev="cuda"):
+    """Whether every output token of ``tokens`` (a greedy or seeded sampled
+    stream of ``prompt``) is within SPEC_LOGIT_BAND of the float32 choice
+    at its position (the weights cast to float32 one layer at a time), and
+    the smallest margin."""
+    from rbg_tpu_torch.engine.kvcache import PagedKVCache
+    from rbg_tpu_torch.engine.sampler import gumbel_noise, row_keys
+    from rbg_tpu_torch.models.config import get_config
+    from rbg_tpu_torch.models.llama import forward_ragged
+
+    cfg = get_config(model, dtype="float32")
+    seq = prompt + tokens[:-1]
+    n, P0 = len(seq), len(prompt)
+    pages = -(-n // 16)
+    c = PagedKVCache.create(cfg, pages + 1, 16, device=dev)
+    ints = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
+    pos = ints([list(range(n))])
+    logits = forward_ragged(float32_params(params), cfg, torch.tensor([seq], device=dev),
+                            pos, pos >= 0, ints([0] * n), ints([n]),
+                            ints([list(range(1, pages + 1))]), c.k_pages, c.v_pages)
+    lg = logits[0, P0 - 1:]                                   # rows predicting tokens
+    tok = torch.tensor(tokens, device=dev)[:, None]
+    band = SPEC_LOGIT_BAND
+    if sp.temperature > 0:
+        # A seeded row's key is key(seed); output token t samples at
+        # position len(prompt) + t.
+        keys = row_keys([sp.seed] * len(tokens), 0, [0] * len(tokens), dev)
+        noise = gumbel_noise(keys, torch.arange(P0, P0 + len(tokens), device=dev),
+                             lg.shape[-1])
+        band = band / sp.temperature
+        scaled = lg / sp.temperature
+        kth = torch.topk(scaled, sp.top_k, dim=-1).values[:, -1:]
+        if bool((scaled.gather(1, tok) < kth - band).any()):
+            return False, float("-inf")             # outside the top-k set
+        # The competitors: tokens in the top-k set beyond the band's doubt
+        # (a token near the k-th value may be in one path's set and not in
+        # the other's, and its noise then decides nothing).
+        best = torch.where(scaled >= kth + band, scaled + noise,
+                           torch.tensor(float("-inf"), device=dev)).amax(-1, keepdim=True)
+        margin = ((scaled + noise).gather(1, tok) - best)[:, 0]
+        return bool((margin >= -band).all()), float(margin.min())
+    margin = (lg.gather(1, tok) - lg.amax(-1, keepdim=True))[:, 0]
+    return bool((margin >= -band).all()), float(margin.min())
+
+
+def spec_phase(torch, np, params, model):
+    """speculative="ngram" (spec_k 4) against speculative="off", both
+    multi_step 1, greedy and seeded sampled (temperature 0.9, top_k 40).
+    tiny (float32) on the card, on weights drawn on the CPU: the
+    speculative streams equal the non-speculative ones and the CPU port's,
+    with drafts accepted (greedy). ``model`` (bf16) on two requests: any two bf16
+    paths pick another token at ~10-15% of positions (the block witness's
+    argmax agreement), and the verify (kernel B at T = 5) is another path
+    than the decode (kernel A), so each stream is judged token by token
+    against a float32 forward of itself (``stream_judge``); equality and
+    the first difference are printed, with drafts and acceptance."""
+    from rbg_tpu_torch.engine.config import EngineConfig, SamplingParams
+    from rbg_tpu_torch.engine.engine import Engine
+    from rbg_tpu_torch.models.config import get_config
+    from rbg_tpu_torch.models.llama import init_params
+    from rbg_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    samplings = (("greedy", SamplingParams(max_new_tokens=32)),
+                 ("sampled", SamplingParams(max_new_tokens=32, temperature=0.9,
+                                            top_k=40, seed=5)))
+    tiny = init_params(get_config("tiny"), 0, "cpu")
+    rng = np.random.RandomState(12)
+    prompts = [[1, 2, 3, 4] * 6, rng.randint(0, 256, 30).tolist()]
+    for label, sp in samplings:
+        runs = {}
+        for mode, dev in (("off", "cuda"), ("ngram", "cuda"), ("ngram", "cpu")):
+            eng = Engine(EngineConfig(model="tiny", num_pages=256, max_seq_len=256,
+                                      speculative=mode, device=dev),
+                         params=tiny if dev == "cpu" else params_to(tiny, "cuda"))
+            runs[mode, dev] = (eng.generate(prompts, sp), dict(eng.metrics))
+        (got, m), want = runs["ngram", "cuda"], runs["off", "cuda"][0]
+        emit("spec", model="tiny", sampling=label, tokens=got, equal_to_non_spec=got == want,
+             equal_to_cpu=got == runs["ngram", "cpu"][0], spec_steps=m["spec_steps"],
+             drafted=m["spec_drafted"], accepted=m["spec_accepted"])
+        if got != want or got != runs["ngram", "cpu"][0] or (
+                label == "greedy" and m["spec_accepted"] == 0):
+            raise AssertionError(f"tiny spec ({label}): {got} vs non-spec {want}, "
+                                 f"cpu {runs['ngram', 'cpu'][0]}, {m}")
+
+    V = params["embed"].shape[0]
+    seg = rng.randint(0, V, 16).tolist()
+    prompts = [seg * 6, rng.randint(0, V, 90).tolist()]
+    for label, sp in samplings:
+        out = {}
+        for mode in ("off", "ngram"):
+            eng = Engine(EngineConfig(model=model, num_pages=2048, max_seq_len=2048,
+                                      speculative=mode), params=params)
+            reset_launches()
+            t0 = time.perf_counter()
+            toks = eng.generate(prompts, sp)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            judged = [stream_judge(torch, params, model, p, t, sp)
+                      for p, t in zip(prompts, toks)]
+            out[mode] = (toks, wall, dict(eng.metrics), dict(LAUNCHES), judged)
+            del eng
+            torch.cuda.empty_cache()
+        # The judge's own check: each stream shifted by one token (every
+        # token judged at the next position) must leave the band.
+        planted = [stream_judge(torch, params, model, p, t[:1] + t[:-1], sp)
+                   for p, t in zip(prompts, out["off"][0])]
+        (toks, _, m, launches, judged), plain = out["ngram"], out["off"][0]
+        emit("spec", model=model, sampling=label, tokens=toks,
+             equal_to_non_spec=toks == plain,
+             first_difference=[next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+                               for a, b in zip(toks, plain)],
+             band=SPEC_LOGIT_BAND,
+             judged={k: [{"ok": ok, "min_margin": mg} for ok, mg in v[4]]
+                     for k, v in out.items()},
+             planted_shift=[{"ok": ok, "min_margin": mg} for ok, mg in planted],
+             wall_s={k: v[1] for k, v in out.items()}, spec_steps=m["spec_steps"],
+             drafted=m["spec_drafted"], accepted=m["spec_accepted"],
+             acceptance=m["spec_accepted"] / max(1, m["spec_drafted"]),
+             launches={k: launches[k] for k in LLAMA_KERNELS})
+        if launches["ragged_paged"] == 0 or launches["paged_decode"] or m["spec_steps"] == 0:
+            raise AssertionError(f"spec ({label}): the verify did not go through kernel B "
+                                 f"alone: {launches} {m}")
+        if any(ok for ok, _ in planted):
+            raise AssertionError(f"spec ({label}): the judge passed a shifted stream: "
+                                 f"{planted}")
+        if not all(ok for v in out.values() for ok, _ in v[4]) or \
+                [len(t) for t in toks] != [32, 32]:
+            raise AssertionError(f"spec ({label}): a stream left the float32 band: "
+                                 f"{[(k, v[4]) for k, v in out.items()]}")
+
+
+def lora_phase(torch, np, params, model, card):
+    """Two rank-16 adapters on all seven targets, drawn from a seed and
+    written to .npz files, loaded by the port's server flags (``--lora
+    NAME=PATH``) into a server in this process on the same weights: a base
+    request alone gives the tokens of an engine without adapters, then
+    adapter a, adapter b and a base request on one prompt decode in one
+    batch, each row's tokens differing from the others'; an unknown
+    adapter gets an error reply."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from rbg_tpu_torch.engine.config import SamplingParams
+    from rbg_tpu_torch.engine.engine import Engine
+    from rbg_tpu_torch.engine.protocol import request_once
+    from rbg_tpu_torch.engine.server import (build_config, lora_specs, parse_args,
+                                             start_server)
+    from rbg_tpu_torch.engine.service import EngineService
+    from rbg_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    blocks, V = params["blocks"], params["embed"].shape[0]
+    L = blocks["wq"].shape[0]
+    prompt = np.random.RandomState(13).randint(0, V, 80).tolist()
+    with tempfile.TemporaryDirectory() as tmp:
+        flags = []
+        for i, name in enumerate(("a", "b")):
+            g = np.random.default_rng(20 + i)
+            arrays = {}
+            for t in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+                arrays[f"{t}.A"] = g.normal(size=(L, blocks[t].shape[1], 16)).astype(
+                    np.float32) * 0.05
+                arrays[f"{t}.B"] = g.normal(size=(L, 16, blocks[t].shape[2])).astype(
+                    np.float32) * 0.05
+            path = os.path.join(tmp, f"{name}.npz")
+            np.savez(path, alpha=np.float32(32.0), **arrays)
+            flags += ["--lora", f"{name}={path}"]
+        args = parse_args(["--model", model, "--num-pages", "2048", "--max-seq-len", "2048",
+                           "--multi-step", "4", *flags])
+        cfg = build_config(args)
+        svc = EngineService(cfg, params=params, lora=lora_specs(args.lora))
+    want_base = Engine(cfg, params=params).generate([prompt], SamplingParams(
+        max_new_tokens=16))[0]
+    srv = start_server(svc)
+    try:
+        msg = {"op": "generate", "prompt": prompt, "max_new_tokens": 16}
+        base = request_once(srv.addr, msg, timeout=300)
+        reset_launches()
+        with ThreadPoolExecutor(3) as ex:
+            mixed = list(ex.map(lambda n: request_once(
+                srv.addr, {**msg, **({"lora": n} if n else {})}, timeout=300),
+                ("a", "b", None)))
+        launches = dict(LAUNCHES)
+        bad = request_once(srv.addr, {**msg, "lora": "nope"}, timeout=60)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        svc.stop()
+    toks = [r.get("tokens") for r in mixed]
+    emit("lora", card=card, model=model, rank=16, adapters=["a", "b"],
+         base_alone=base.get("tokens"), base_without_adapters=want_base,
+         mixed={"a": toks[0], "b": toks[1], "base": toks[2]}, unknown_reply=bad,
+         launches={k: launches[k] for k in LLAMA_KERNELS})
+    check_launches(launches, LLAMA_KERNELS)
+    if (base.get("tokens") != want_base or any(t is None or len(t) != 16 for t in toks)
+            or len({tuple(t) for t in toks}) != 3 or "unknown LoRA" not in bad.get("error", "")):
+        raise AssertionError(f"lora phase: base {base} vs {want_base}, mixed {mixed}, "
+                             f"unknown {bad}")
+
+
 def check_launches(launches, kernels):
     if min(launches[k] for k in kernels) == 0:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
@@ -1137,9 +1457,14 @@ def llama_phases(torch, np, card):
     bf16 = engine_phase(torch, np, params, "llama3-8b", LLAMA_KERNELS, sampled=True)
     ragged_compare(torch, np, params, "llama3-8b")
     decode_compare(torch, np, params, "llama3-8b")
+    block_compare(torch, np, params, "llama3-8b")
     launches = {k: v for k, v in server_phase(torch, np, params, "llama3-8b",
                                               LLAMA_KERNELS, card).items()
                 if k in LLAMA_KERNELS}
+    split_phase(torch, np, params, "llama3-8b", LLAMA_KERNELS)
+    split_phase(torch, np, params, "llama3-8b", INT8_KERNELS, kv_dtype="int8")
+    spec_phase(torch, np, params, "llama3-8b")
+    lora_phase(torch, np, params, "llama3-8b", card)
     int8 = engine_phase(torch, np, params, "llama3-8b", INT8_KERNELS,
                         kv_dtype="int8", multi_steps=(4,))
     (t8, l8), (t16, _) = int8[4], bf16[4]
@@ -1150,6 +1475,7 @@ def llama_phases(torch, np, card):
     launches.update({k: l8[k] for k in INT8_KERNELS})
     ragged_compare(torch, np, params, "llama3-8b", kv_dtype="int8")
     decode_compare(torch, np, params, "llama3-8b", kv_dtype="int8")
+    block_compare(torch, np, params, "llama3-8b", kv_dtype="int8")
     server_phase(torch, np, params, "llama3-8b", INT8_KERNELS, card, kv_dtype="int8")
     return launches
 
@@ -1163,6 +1489,7 @@ def deepseek_phases(torch, np, card):
     engine_phase(torch, np, params, model, MLA_KERNELS)
     ragged_compare(torch, np, params, model)
     decode_compare(torch, np, params, model)
+    block_compare(torch, np, params, model)
     launches = server_phase(torch, np, params, model, MLA_KERNELS, card)
     launches = {k: launches[k] for k in MLA_KERNELS}
     int8 = engine_phase(torch, np, params, model, MLA_INT8_KERNELS, kv_dtype="int8",
@@ -1170,6 +1497,7 @@ def deepseek_phases(torch, np, card):
     launches.update({k: int8[4][1][k] for k in MLA_INT8_KERNELS})
     ragged_compare(torch, np, params, model, kv_dtype="int8")
     decode_compare(torch, np, params, model, kv_dtype="int8")
+    block_compare(torch, np, params, model, kv_dtype="int8")
     server_phase(torch, np, params, model, MLA_INT8_KERNELS, card, kv_dtype="int8")
     return launches
 

@@ -77,7 +77,7 @@ def build_service(args):
         max_seq_len=args.max_seq_len, max_batch=args.max_batch,
         prefill_chunk=args.prefill_chunk, multi_step=args.multi_step,
         kv_dtype=args.kv_dtype, speculative=args.speculative,
-        enable_radix_cache=False, device=args.device))
+        ragged=args.ragged, enable_radix_cache=False, device=args.device))
 
 
 def _drive_inprocess(args, prompts, arrivals):
@@ -244,8 +244,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--prefill-chunk", type=int, default=64)
     ap.add_argument("--kv-dtype", default="model", choices=("model", "int8"))
     ap.add_argument("--multi-step", type=int, default=1)
-    ap.add_argument("--speculative", default="off",
-                    help="only 'off' is ported; other values are refused")
+    ap.add_argument("--speculative", default="off", choices=("off", "ngram"),
+                    help="prompt-lookup speculative decoding (needs "
+                         "--multi-step 1)")
+    ap.add_argument("--ragged", default="auto", choices=("auto", "off"),
+                    help="'off' serves through the split prefill and decode "
+                         "paths")
     ap.add_argument("--addr", default="",
                     help="benchmark a running server instead of in-process "
                          "(host:port)")

@@ -1,10 +1,9 @@
 """Engine configuration (``rbg_tpu/engine/config.py``) plus the device.
 
 The fields are the reference's serving knobs this port runs. Features the
-reference has and this port does not yet (speculative decoding, the host
-KV tier, PD modes, the split non-ragged paths, grammar and LoRA) are
-refused in ``validate`` / at admission with ``NotImplementedError`` naming
-the ROADMAP item, never ignored. ``kv_dtype="int8"`` serves every model:
+reference has and this port does not yet (the host KV tier, PD modes and
+grammar) are refused in ``validate`` / at admission with
+``NotImplementedError`` naming the ROADMAP item, never ignored. ``kv_dtype="int8"`` serves every model:
 GQA pools and MLA latent pools alike.
 """
 
@@ -49,8 +48,18 @@ class EngineConfig:
     # Decode steps run per window before the sampled tokens reach the host
     # (one device→host fetch per window).
     multi_step: int = 1
-    speculative: str = "off"                # only "off" is ported
-    ragged: str = "auto"                    # only "auto" is ported
+    # Speculative decoding: "ngram" = prompt-lookup drafting and one
+    # (B, spec_k + 1) verify forward per step. Sampling keys are a function
+    # of (row, position), so the output is the non-speculative stream,
+    # greedy and sampled. It owns the decode dispatch: multi_step must be 1.
+    speculative: str = "off"                # off | ngram
+    spec_k: int = 4                         # most drafted tokens per step
+    spec_ngram: int = 3                     # trailing n-gram for the lookup
+    # "auto": while any row prefills, the whole batch rides one ragged
+    # forward. "off" keeps the split paths: batched (B, chunk) prefill
+    # forwards, then the fused decode window. Speculative mode and batches
+    # holding an adapter row take the split paths either way.
+    ragged: str = "auto"                    # auto | off
     mode: str = "unified"                   # only "unified" is ported
     kv_dtype: str = "model"                 # model | int8 (quantized KV pool)
     # Per-request SLO targets every finished request is judged against
@@ -98,17 +107,23 @@ class EngineConfig:
                              "(off, auto)")
         if self.early_reject_factor <= 0:
             raise ValueError("early_reject_factor must be > 0")
+        if self.speculative not in ("off", "ngram"):
+            raise ValueError(f"speculative {self.speculative!r} not in "
+                             "(off, ngram)")
         if self.speculative != "off":
-            raise _todo(f"speculative={self.speculative!r}",
-                        "speculative decoding")
+            if self.multi_step != 1:
+                raise ValueError("speculative decoding and multi_step are "
+                                 "mutually exclusive (both own the decode "
+                                 "dispatch)")
+            if self.spec_k < 1 or self.spec_ngram < 1:
+                raise ValueError("spec_k and spec_ngram must be >= 1")
+        if self.ragged not in ("auto", "off"):
+            raise ValueError(f"ragged {self.ragged!r} not in (auto, off)")
         if self.host_tier_bytes:
             raise _todo("host_tier_bytes", "host KV tier")
         if self.mode != "unified":
             # The reference refuses int8 KV outside unified mode too.
             raise _todo(f"mode={self.mode!r}", "PD prefill/decode modes")
-        if self.ragged != "auto":
-            raise _todo(f"ragged={self.ragged!r}",
-                        "split prefill path (_prefill_step)")
 
 
 @dataclasses.dataclass
@@ -123,11 +138,11 @@ class SamplingParams:
     frequency_penalty: float = 0.0  # subtract per output occurrence
     seed: Optional[int] = None      # per-request random stream (reproducible)
     logprobs: bool = False          # emit chosen-token logprob per step
-    # Wire fields of the reference that this port refuses at admission.
+    # Grammar fields of the reference, refused at admission by this port.
     json_mode: bool = False
     regex: Optional[str] = None
     json_schema: Optional[dict] = None
-    lora: Optional[str] = None
+    lora: Optional[str] = None      # adapter name (Engine.load_lora)
     stop_token: Optional[int] = None
 
     def needs_penalties(self) -> bool:
@@ -152,8 +167,6 @@ class SamplingParams:
                 or self.json_schema is not None):
             raise _todo("grammar-constrained decoding (json_mode / regex / "
                         "json_schema)", "grammar")
-        if self.lora is not None:
-            raise _todo("LoRA adapters", "LoRA")
 
     @classmethod
     def from_wire(cls, obj: dict, *, default_max_tokens: int = 16,

@@ -6,15 +6,23 @@ prefix matching), then either
 
 * runs ONE ragged forward for the whole batch while any row is still
   prefilling (``_unified_step``: prefill chunks and decode tokens packed
-  on one token axis → a ragged CUDA kernel: B, D on an int8 pool, F for
-  an MLA model), or
-* runs the fused decode window on a pure-decode batch
-  (``_fused_decode_step``: K decode steps with the sampled token fed back
-  on the device → a paged decode CUDA kernel: A, C on an int8 pool, E for
-  an MLA model; the window's tokens reach the host in one fetch, one
-  window late, so host bookkeeping overlaps the device).
+  on one token axis → a ragged CUDA kernel: B, D on an int8 pool, F, H
+  for an MLA model), or
+* takes the split paths (``ragged="off"``, speculative mode, or a batch
+  holding an adapter row): one batched (B, chunk) ``forward_paged`` for
+  every prefilling row (``_prefill_step``; on CUDA the ragged kernels see
+  the block as a pack), then the decode step;
+* the decode step is the fused decode window (``_fused_decode_step``: K
+  decode steps with the sampled token fed back on the device → a paged
+  decode CUDA kernel: A, C on an int8 pool, E, G for an MLA model; the
+  window's tokens reach the host in one fetch, one window late, so host
+  bookkeeping overlaps the device), or in speculative mode the verify
+  (``_spec_decode_step``: n-gram drafts checked by one (B, spec_k + 1)
+  forward).
 
-Page exhaustion preempts the youngest request back to the queue.
+Requests may name a LoRA adapter (``load_lora``): all adapters ride one
+stack, gathered per row inside each forward. Page exhaustion preempts the
+youngest request back to the queue.
 """
 
 from __future__ import annotations
@@ -22,7 +30,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +41,7 @@ from rbg_tpu_torch.engine.kvcache import (PageAllocator, PagedKVCache,
                                           pages_for_tokens)
 from rbg_tpu_torch.engine.radix_cache import RadixCache
 from rbg_tpu_torch.engine.sampler import row_keys, sample
+from rbg_tpu_torch.engine.spec import NGramIndex
 from rbg_tpu_torch.models.llama import forward_paged, forward_ragged, init_params
 
 
@@ -60,6 +69,8 @@ class Request:
         self.prefill_pos = 0            # next prompt index to prefill
         self.seq_len = 0                # tokens materialized in KV
         self.last_token: Optional[int] = None
+        self.ngram: Optional[NGramIndex] = None   # speculative mode
+        self.lora_idx = 0                         # adapter slot (0 = base model)
         self.t_submit = time.perf_counter()
         self.t_first: Optional[float] = None
         # Join accounting: the engine step at which the request entered
@@ -111,10 +122,16 @@ class Engine:
         # and joining the batch; the service loop drains it into
         # rbg_serving_join_latency_seconds.
         self.last_join_waits: List[float] = []
+        # Loaded LoRA adapters: name → stack slot, the raw adapters in slot
+        # order, and the stack every forward gathers rows from.
+        self._lora_slots: Dict[str, int] = {}
+        self._lora_raw: List[Tuple[dict, float]] = []
+        self.lora_stack: Optional[dict] = None
         self.metrics = {"steps": 0, "decode_tokens": 0, "prefill_tokens": 0,
                         "radix_hit_tokens": 0, "preemptions": 0,
                         "unified_steps": 0, "decode_windows": 0, "joins": 0,
-                        "join_wait_steps_max": 0, "join_excess_steps_max": 0}
+                        "join_wait_steps_max": 0, "join_excess_steps_max": 0,
+                        "spec_drafted": 0, "spec_accepted": 0, "spec_steps": 0}
 
     # ---- public API ----
 
@@ -137,6 +154,7 @@ class Engine:
                 f"prompt+max_new_tokens {len(prompt)}+{sampling.max_new_tokens} "
                 f"exceeds max_seq_len {self.cfg.max_seq_len}")
         req = Request(prompt, sampling)
+        req.lora_idx = self._resolve_lora(sampling)
         req.enqueue_step = self.metrics["steps"]
         self.requests[req.id] = req
         self.waiting.append(req)
@@ -158,16 +176,118 @@ class Engine:
 
     def step(self) -> List[StepEvent]:
         """One scheduler iteration: admit, then the ragged unified step while
-        any row prefills, else the fused decode window."""
+        any row prefills (``_unified_eligible``), else the split paths:
+        the batched prefill step, then the decode step."""
         self.metrics["steps"] += 1
         self._admit()
-        if any(r.state == "prefill" for r in self.running):
+        if self._unified_eligible():
             self.metrics["unified_steps"] += 1
             events = self._unified_step()
         else:
-            events = self._fused_decode_step()
+            events = self._prefill_step() + self._decode_step()
         self.join_hint = False
         return events
+
+    # ---- LoRA adapters ----
+
+    _LORA_ATTN_TARGETS = ("wq", "wk", "wv", "wo")
+    _LORA_MLA_TARGETS = ("wq", "w_dkv", "wo")
+    _LORA_MLP_TARGETS = ("w_gate", "w_up", "w_down")
+
+    def load_lora(self, name: str, adapter: dict, alpha: float = 16.0) -> None:
+        """Register a LoRA adapter for per-request serving. ``adapter``:
+        {target: (A [L, d_in, r], B [L, r, d_out])} (numpy or tensors) for
+        wq/wk/wv/wo (GQA) or wq/w_dkv/wo (MLA; the absorbed w_uk/w_uv are no
+        targets), and w_gate/w_up/w_down on models with a dense MLP. Every
+        loaded adapter rides one stack (``_rebuild_lora_stack``), so a
+        batch may mix adapters row by row."""
+        if not adapter:
+            raise ValueError("empty adapter")
+        if name in self._lora_slots:
+            raise ValueError(f"adapter {name!r} already loaded")
+        allowed = set(self._LORA_MLA_TARGETS if self.mcfg.mla
+                      else self._LORA_ATTN_TARGETS)
+        if self.mcfg.num_experts == 0:
+            allowed |= set(self._LORA_MLP_TARGETS)
+        L = self.mcfg.num_layers
+        base = self.params["blocks"]
+        for tgt, (A, B) in adapter.items():
+            if tgt not in allowed:
+                raise ValueError(
+                    f"adapter {name!r}: unsupported target {tgt!r} "
+                    f"(supported here: {sorted(allowed)})")
+            if A.shape[0] != L or B.shape[0] != L or A.shape[2] != B.shape[1]:
+                raise ValueError(
+                    f"adapter {name!r} target {tgt!r}: bad shapes "
+                    f"{tuple(A.shape)} / {tuple(B.shape)}")
+            bw = base[tgt]
+            if A.shape[1] != bw.shape[1] or B.shape[2] != bw.shape[2]:
+                raise ValueError(
+                    f"adapter {name!r} target {tgt!r}: dims {A.shape[1]}→"
+                    f"{B.shape[2]} do not match base weight "
+                    f"{bw.shape[1]}→{bw.shape[2]} (wrong base model?)")
+        # Registered only after the stack is built: a name resolving past
+        # the stack would serve another adapter's rows.
+        self._lora_raw.append((adapter, float(alpha)))
+        try:
+            self._rebuild_lora_stack()
+        except Exception:
+            self._lora_raw.pop()
+            raise
+        self._lora_slots[name] = len(self._lora_raw)
+
+    def _rebuild_lora_stack(self) -> None:
+        """{target: (A [L, n, d_in, rmax], B [L, n, rmax, d_out])} in the
+        model dtype: rank-padded, alpha/r of THAT target folded into B in
+        float32 before the cast, slot 0 zeros (no adapter).
+
+        Nothing in flight is dropped: a pending decode window keeps its
+        rows' slots (new adapters take new slots) and each forward reads
+        the stack when it runs, so the window's tokens are emitted by the
+        next step as always."""
+        L = self.mcfg.num_layers
+        n = len(self._lora_raw) + 1
+        targets = sorted({t for ad, _ in self._lora_raw for t in ad})
+        rmax = max(A.shape[2] for ad, _ in self._lora_raw for A, _B in ad.values())
+        stack = {}
+        for tgt in targets:
+            d_in, d_out = next((ad[tgt][0].shape[1], ad[tgt][1].shape[2])
+                               for ad, _ in self._lora_raw if tgt in ad)
+            As = np.zeros((L, n, d_in, rmax), np.float32)
+            Bs = np.zeros((L, n, rmax, d_out), np.float32)
+            for i, (ad, alpha) in enumerate(self._lora_raw):
+                if tgt in ad:
+                    A, B = (np.asarray(torch.as_tensor(x).float().cpu())
+                            for x in ad[tgt])
+                    r = A.shape[2]
+                    As[:, i + 1, :, :r] = A
+                    Bs[:, i + 1, :r, :] = B * (alpha / r)
+            dt = self.mcfg.torch_dtype
+            stack[tgt] = (torch.from_numpy(As).to(self.device, dt),
+                          torch.from_numpy(Bs).to(self.device, dt))
+        self.lora_stack = stack
+
+    def _resolve_lora(self, sampling: SamplingParams) -> int:
+        if sampling.lora is None:
+            return 0
+        slot = self._lora_slots.get(sampling.lora)
+        if slot is None:
+            raise ValueError(
+                f"unknown LoRA adapter {sampling.lora!r}; loaded: "
+                f"{sorted(self._lora_slots) or 'none'}")
+        return slot
+
+    def _lora_rows(self, reqs: List[Request], B: int) -> Optional[torch.Tensor]:
+        """[B] adapter slot per row on the device, or None when no row
+        names an adapter (the forward then runs without the stack)."""
+        if self.lora_stack is None or not any(r.lora_idx for r in reqs):
+            return None
+        ids = np.zeros(B, np.int64)
+        ids[:len(reqs)] = [r.lora_idx for r in reqs]
+        return torch.from_numpy(ids).to(self.device)
+
+    def _lora_kw(self, lids: Optional[torch.Tensor]) -> dict:
+        return {} if lids is None else {"lora": self.lora_stack, "lora_ids": lids}
 
     def generate(self, prompts: List[List[int]],
                  sampling: Optional[SamplingParams] = None) -> List[List[int]]:
@@ -189,8 +309,11 @@ class Engine:
                 break
             req = self.waiting[0]
             matched, shared_pages = 0, []
-            if self.radix is not None and req.state == "waiting":
+            if (self.radix is not None and req.state == "waiting"
+                    and req.lora_idx == 0):
                 # Keep at least the prompt's last token for prefill (logits).
+                # Adapter requests skip the cache: their KV is not the base
+                # model's for the same tokens.
                 matched, shared_pages = self.radix.match(req.prompt[:-1])
             # Pages for the prompt + first token only: decode grows page by
             # page, and preemption reclaims on exhaustion.
@@ -236,6 +359,17 @@ class Engine:
         return pages
 
     # ---- ragged unified prefill/decode step ----
+
+    def _unified_eligible(self) -> bool:
+        """One ragged dispatch for the whole batch this step: some row
+        prefills, ``ragged="auto"``, not speculative, and no row names an
+        adapter (the pack's batch axis is 1, while adapters are gathered per
+        batch row)."""
+        if self.cfg.ragged == "off" or self.cfg.speculative != "off":
+            return False
+        if not any(r.state == "prefill" for r in self.running):
+            return False
+        return not any(r.lora_idx for r in self.running)
 
     @staticmethod
     def _token_bucket(n: int) -> int:
@@ -359,6 +493,83 @@ class Engine:
             events.append(self._emit(req, int(toks[n]), lpv))
         return events
 
+    # ---- split prefill ----
+
+    def _prefill_step(self) -> List[StepEvent]:
+        """Every prefilling row advances by one chunk in ONE batched
+        (B bucket, prefill_chunk) ``forward_paged``; rows whose prompt
+        ends sample their first token together."""
+        batch = [r for r in self.running if r.state == "prefill"]
+        if not batch:
+            return []
+        chunk = self.cfg.prefill_chunk
+        rows = [(r, r.prefill_pos, min(r.prefill_pos + chunk, len(r.prompt)))
+                for r in batch]
+        logits = self._run([(r, r.prompt[s:e], s) for r, s, e in rows],
+                           self._bucket(len(batch)), chunk)
+        finishing = []
+        for i, (req, start, end) in enumerate(rows):
+            req.prefill_pos = end
+            req.seq_len = end
+            self.metrics["prefill_tokens"] += end - start
+            if end == len(req.prompt):
+                finishing.append((i, end - start - 1, req))
+        if not finishing:
+            return []
+
+        reqs = [req for _, _, req in finishing]
+        Bs = self._bucket(len(finishing))
+        pad = Bs - len(finishing)
+        dev = self.device
+        row_idx = torch.tensor([i for i, _, _ in finishing] + [0] * pad, device=dev)
+        tok_idx = torch.tensor([j for _, j, _ in finishing] + [0] * pad, device=dev)
+        key_pos = np.zeros(Bs, np.int32)
+        key_pos[:len(reqs)] = [r.seq_len for r in reqs]  # the sampled token's position
+        srows = self._sampling_rows(reqs, Bs)
+        out_counts = self._penalty_counts(reqs, Bs) if srows["pen"] else None
+        toks, lps = self._sample(logits[row_idx, tok_idx], srows,
+                                 torch.from_numpy(key_pos).to(dev), out_counts)
+        toks = toks.cpu().numpy()
+        lps = lps.cpu().numpy() if lps is not None else None
+        events = []
+        for n, req in enumerate(reqs):
+            req.state = "running"
+            req.t_first = time.perf_counter()
+            events.append(self._emit(req, int(toks[n]),
+                                     float(lps[n]) if lps is not None
+                                     and req.sampling.logprobs else None))
+        return events
+
+    def _run(self, entries: List[Tuple[Request, List[int], int]], B: int,
+             T: int) -> torch.Tensor:
+        """One [B, T] ``forward_paged`` (the split prefill chunk, the
+        speculative verify): entry i = (request, its tokens, the position of
+        the first), padded to T tokens and B rows, each row with its
+        adapter; the cache length after the step is start + len(tokens).
+        Pads are token_mask False at position 0, which the forward hands to
+        the attention at -1. Returns logits [B, T, V]."""
+        P = self.cfg.max_pages_per_seq
+        tok = np.zeros((B, T), np.int32)
+        pos = np.zeros((B, T), np.int32)
+        mask = np.zeros((B, T), bool)
+        kvl = np.zeros(B, np.int32)
+        table = np.zeros((B, P), np.int32)
+        for i, (r, ts, s0) in enumerate(entries):
+            n = len(ts)
+            tok[i, :n] = ts
+            pos[i, :n] = np.arange(s0, s0 + n)
+            mask[i, :n] = True
+            kvl[i] = s0 + n
+            table[i, :len(r.pages)] = r.pages
+        dev = self.device
+        lids = self._lora_rows([r for r, _, _ in entries], B)
+        return forward_paged(
+            self.params, self.mcfg, torch.from_numpy(tok).to(dev),
+            torch.from_numpy(pos).to(dev), torch.from_numpy(mask).to(dev),
+            torch.from_numpy(kvl).to(dev), torch.from_numpy(table).to(dev),
+            self.cache.k_pages, self.cache.v_pages, k_scales=self.cache.k_scales,
+            v_scales=self.cache.v_scales, **self._lora_kw(lids))
+
     # ---- sampling rows ----
 
     def _sampling_rows(self, reqs: List[Request], B: int) -> dict:
@@ -473,10 +684,12 @@ class Engine:
 
     def _decode_window(self) -> int:
         """Window length for THIS step: 1 when a join is possible (a free
-        slot) and work is waiting, so the join lands next step."""
+        slot) and work is waiting, so the join lands next step. Under
+        ``ragged="off"`` always K (the window-boundary baseline)."""
         K = self.cfg.multi_step
-        if K > 1 and (len(self.running) < self.cfg.max_batch
-                      and (self.join_hint or self.waiting)):
+        if K == 1 or self.cfg.ragged == "off":
+            return K
+        if len(self.running) < self.cfg.max_batch and (self.join_hint or self.waiting):
             return 1
         return K
 
@@ -504,7 +717,8 @@ class Engine:
               "kvl": torch.from_numpy(kvl).to(dev),
               "mask": torch.from_numpy(mask).to(dev),
               "limit": torch.from_numpy(limit).to(dev),
-              "sampling": self._sampling_rows(batch, B), "pending": None}
+              "sampling": self._sampling_rows(batch, B), "pending": None,
+              "lids": self._lora_rows(batch, B)}
         if st["sampling"]["pen"]:
             st["ocounts"] = self._penalty_counts(batch, B)
         return st
@@ -523,7 +737,8 @@ class Engine:
             logits = forward_paged(
                 self.params, self.mcfg, tok[:, None], pos[:, None], write_ok,
                 kvl, st["table"], self.cache.k_pages, self.cache.v_pages,
-                k_scales=self.cache.k_scales, v_scales=self.cache.v_scales)
+                k_scales=self.cache.k_scales, v_scales=self.cache.v_scales,
+                **self._lora_kw(st["lids"]))
             toks, lps = self._sample(logits[:, 0], rows, pos + 1,
                                      st.get("ocounts"))
             active = write_ok[:, 0]
@@ -539,6 +754,11 @@ class Engine:
         st["tok"], st["pos"], st["kvl"] = tok, pos, kvl
         return (torch.stack(toks_seq),
                 torch.stack(lps_seq) if lps_seq else None)
+
+    def _decode_step(self) -> List[StepEvent]:
+        if self.cfg.speculative == "ngram":
+            return self._drain_decode() + self._spec_decode_step()
+        return self._fused_decode_step()
 
     def _fused_decode_step(self) -> List[StepEvent]:
         events: List[StepEvent] = []
@@ -623,9 +843,110 @@ class Engine:
             events.extend(self._emit_pending(prev))
         return events
 
+    # ---- speculative decode (prompt-lookup drafting) ----
+
+    def _ensure_ngram(self, req: Request) -> None:
+        """Build or extend the request's n-gram index over its logical
+        sequence (prompt + output: preemption only moves tokens between
+        the two)."""
+        if req.ngram is None:
+            req.ngram = NGramIndex(self.cfg.spec_ngram)
+        have = len(req.ngram.tokens)
+        if have < len(req.prompt) + len(req.output):
+            req.ngram.extend((req.prompt + req.output)[have:])
+
+    def _spec_decode_step(self) -> List[StepEvent]:
+        """Draft up to spec_k tokens per row from its n-gram index, run one
+        (B, spec_k + 1) ``forward_paged`` over [last token, drafts], sample
+        every position t with the key of position pos_t + 1 (the keys the
+        sequential path uses), and accept drafts while they equal the
+        samples; the sample at the first mismatch (or after the last draft)
+        is the next token. Penalized rows never draft (their counts change
+        token by token). KV written for rejected drafts lies past the new
+        seq_len and is overwritten later."""
+        events: List[StepEvent] = []
+        batch = [r for r in self.running if r.state == "running"
+                 and len(r.output) < r.sampling.max_new_tokens]
+        if not batch:
+            return events
+        K = self.cfg.spec_k
+        ps = self.cfg.page_size
+        drafts: Dict[int, List[int]] = {}
+        # Oldest first: a row sheds its drafts before it preempts the
+        # youngest for pages.
+        for req in sorted(batch, key=lambda r: r.t_submit):
+            if req.state != "running":
+                continue
+            cap = min(K, req.sampling.max_new_tokens - len(req.output) - 1,
+                      self.cfg.max_seq_len - req.seq_len - 1)
+            d: List[int] = []
+            if cap > 0 and not req.sampling.needs_penalties():
+                self._ensure_ngram(req)
+                d = req.ngram.draft(cap)
+            while True:
+                need = pages_for_tokens(req.seq_len + 1 + len(d), ps) - len(req.pages)
+                if need <= 0:
+                    break
+                extra = self._alloc(need)
+                if extra is not None:
+                    req.pages.extend(extra)
+                    break
+                if d:
+                    d = []
+                    continue
+                if self._preempt_youngest(exclude=req) is None:
+                    self._preempt(req)
+                    break
+            if req.state == "running":
+                drafts[id(req)] = d
+        batch = [r for r in batch if r.state == "running"]
+        if not batch:
+            return events
+
+        B, T = self._bucket(len(batch)), K + 1
+        logits = self._run([(r, [r.last_token] + drafts[id(r)], r.seq_len)
+                            for r in batch], B, T)
+        # One sampler call over the T positions: position-major rows, each
+        # row's sampling state tiled T times; input t of a row samples the
+        # token at position seq_len + t + 1.
+        key_pos = np.zeros((T, B), np.int32)
+        key_pos[:, :len(batch)] = (np.asarray([r.seq_len for r in batch])[None]
+                                   + np.arange(1, T + 1)[:, None])
+        rows = self._sampling_rows(batch, B)
+        tiled = {k: (v.repeat(T, *([1] * (v.dim() - 1)))
+                     if isinstance(v, torch.Tensor) else v) for k, v in rows.items()}
+        out_counts = None
+        if rows["pen"]:
+            out_counts = self._penalty_counts(batch, B).repeat(T, 1)
+        toks, lps = self._sample(logits.transpose(0, 1).reshape(T * B, -1), tiled,
+                                 torch.from_numpy(key_pos.reshape(-1)).to(self.device),
+                                 out_counts)
+        vals = toks.reshape(T, B).cpu().numpy()
+        lpv = lps.reshape(T, B).cpu().numpy() if lps is not None else None
+        self.metrics["spec_steps"] += 1
+        for i, req in enumerate(batch):
+            d = drafts[id(req)]
+            m = 0
+            while m < len(d) and int(vals[m, i]) == d[m]:
+                m += 1
+            self.metrics["spec_drafted"] += len(d)
+            self.metrics["spec_accepted"] += m
+            # KV is valid through the last accepted input.
+            req.seq_len += m + 1
+            for t in range(m + 1):
+                if req.state != "running":
+                    break           # a stop token cut the accepted run short
+                self.metrics["decode_tokens"] += 1
+                lpt = (float(lpv[t, i])
+                       if lpv is not None and req.sampling.logprobs else None)
+                events.append(self._emit(req, int(vals[t, i]), lpt))
+        return events
+
     def _emit(self, req: Request, tok: int,
               logprob: Optional[float] = None) -> StepEvent:
         req.output.append(tok)
+        if req.ngram is not None:
+            req.ngram.append(tok)
         req.last_token = tok
         finished = (len(req.output) >= req.sampling.max_new_tokens
                     or (req.sampling.stop_token is not None
@@ -639,8 +960,9 @@ class Engine:
     def _finish(self, req: Request):
         req.state = "finished"
         self.running = [r for r in self.running if r is not req]
-        if self.radix is not None:
-            # Cache the full sequence (prompt + output) for future prefixes.
+        if self.radix is not None and req.lora_idx == 0:
+            # Cache the full sequence (prompt + output) for future prefixes;
+            # adapter KV must not match base requests.
             self.radix.insert(req.prompt + req.output[:-1], req.pages)
         self.allocator.release(req.pages)
         req.pages = []

@@ -360,10 +360,35 @@ def build_config(args) -> EngineConfig:
         model=args.model, page_size=args.page_size, num_pages=args.num_pages,
         max_batch=args.max_batch, max_seq_len=args.max_seq_len,
         prefill_chunk=args.prefill_chunk, multi_step=args.multi_step,
-        kv_dtype=args.kv_dtype, slo_ttft_s=args.slo_ttft_s,
+        ragged=args.ragged, speculative=args.speculative, spec_k=args.spec_k,
+        spec_ngram=args.spec_ngram, kv_dtype=args.kv_dtype, slo_ttft_s=args.slo_ttft_s,
         slo_tpot_s=args.slo_tpot_s, early_reject=args.early_reject,
         early_reject_factor=args.early_reject_factor,
         vocab_size=args.vocab_size, seed=args.seed, device=args.device)
+
+
+def load_adapter_npz(path: str):
+    """A LoRA adapter file: ``<target>.A`` [L, d, r] and ``<target>.B``
+    [L, r, o] arrays and an optional scalar ``alpha`` (default 16).
+    Returns (adapter, alpha)."""
+    import numpy as np
+
+    with np.load(path) as z:
+        targets = sorted({k.rsplit(".", 1)[0] for k in z.files if k.endswith(".A")})
+        adapter = {t: (z[f"{t}.A"], z[f"{t}.B"]) for t in targets}
+        alpha = float(z["alpha"]) if "alpha" in z.files else 16.0
+    return adapter, alpha
+
+
+def lora_specs(specs) -> list:
+    """``--lora NAME=PATH`` values → (name, adapter, alpha) triples."""
+    out = []
+    for spec in specs:
+        name, _, path = spec.partition("=")
+        if not name or not path:
+            raise ValueError(f"--lora expects NAME=PATH, got {spec!r}")
+        out.append((name, *load_adapter_npz(path)))
+    return out
 
 
 def serve(args) -> None:
@@ -390,7 +415,10 @@ def serve(args) -> None:
         try:
             if args.tokenizer_path:
                 server.tokenizer = load_tokenizer(args.tokenizer_path)
-            service = EngineService(cfg, max_queue=args.max_queue or None)
+            # Adapters are loaded before the service is published: health
+            # reports ready once it is.
+            service = EngineService(cfg, max_queue=args.max_queue or None,
+                                    lora=lora_specs(args.lora))
         except Exception:  # noqa: BLE001 — a server without an engine must die
             traceback.print_exc()
             os._exit(1)
@@ -420,6 +448,21 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--prefill-chunk", type=int, default=64)
     ap.add_argument("--multi-step", type=int, default=1,
                     help="decode steps per window before tokens reach the host")
+    ap.add_argument("--ragged", choices=("auto", "off"), default="auto",
+                    help="'off' serves through the split prefill and decode "
+                         "paths instead of the ragged unified step")
+    ap.add_argument("--speculative", choices=("off", "ngram"), default="off",
+                    help="prompt-lookup speculative decoding (the same "
+                         "tokens; needs --multi-step 1)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="most drafted tokens per speculative verify step")
+    ap.add_argument("--spec-ngram", type=int, default=3,
+                    help="trailing n-gram length of the prompt lookup")
+    ap.add_argument("--lora", action="append", default=[],
+                    metavar="NAME=PATH.npz",
+                    help="load a LoRA adapter (repeatable): '<target>.A' "
+                         "[L, d, r] and '<target>.B' [L, r, o] arrays and an "
+                         "optional scalar 'alpha'")
     ap.add_argument("--kv-dtype", default="model", choices=("model", "int8"),
                     help="KV pool element type: the model's, or int8 with "
                          "per-(slot, head) scales")

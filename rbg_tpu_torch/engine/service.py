@@ -560,8 +560,12 @@ class _BatchService:
 
 class EngineService(_BatchService):
     def __init__(self, cfg: EngineConfig, params=None, device=None,
-                 max_queue: Optional[int] = None):
+                 max_queue: Optional[int] = None, lora=()):
+        """``lora``: (name, adapter, alpha) triples loaded into the engine
+        (``Engine.load_lora``) before its loop starts."""
         self.engine = Engine(cfg, params=params, device=device)
+        for name, adapter, alpha in lora:
+            self.engine.load_lora(name, adapter, alpha=alpha)
         super().__init__(max_queue=max_queue)
 
     def _admit(self, prompt, sampling: SamplingParams) -> int:

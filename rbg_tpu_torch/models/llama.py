@@ -1,6 +1,7 @@
 """Llama-family decoder (pre-norm, RoPE, GQA or MLA attention, SwiGLU or
 MoE MLP) over a paged KV pool (``rbg_tpu/models/llama.py``, serving
-forwards).
+forwards), with per-row multi-LoRA on the dense projections, and the
+contiguous-cache ``forward`` the reference keeps as its plain loop.
 
 Parameters are a plain dict of tensors in the reference's layout: stacked
 ``[num_layers, ...]`` block weights, ``[in, out]`` matrices used as
@@ -15,8 +16,9 @@ embeddings path.
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -30,6 +32,31 @@ from rbg_tpu_torch.ops.paged_attention import paged_attention, write_kv_pages
 from rbg_tpu_torch.ops.ragged_paged_attention import (ragged_paged_attention,
                                                       write_kv_pages_ragged)
 from rbg_tpu_torch.ops.rope import apply_rope
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Contiguous KV cache: slot index == absolute position. k, v:
+    ``[L, B, S, KV, hd]`` (MLA: the latent ``c`` and the RoPE key, one
+    "head" each); length ``[B]`` int32, the filled length."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    length: torch.Tensor
+
+    @staticmethod
+    def create(cfg: ModelConfig, batch: int, max_len: int,
+               device=None) -> "KVCache":
+        if cfg.mla:
+            kshape = (cfg.num_layers, batch, max_len, 1, cfg.kv_lora_rank)
+            vshape = kshape[:-1] + (cfg.qk_rope_head_dim,)
+        else:
+            kshape = vshape = (cfg.num_layers, batch, max_len,
+                               cfg.num_kv_heads, cfg.head_dim_)
+        dt = cfg.torch_dtype
+        return KVCache(k=torch.zeros(kshape, dtype=dt, device=device),
+                       v=torch.zeros(vshape, dtype=dt, device=device),
+                       length=torch.zeros(batch, dtype=torch.int32, device=device))
 
 
 @torch.no_grad()
@@ -104,34 +131,57 @@ def layer_params(params: dict, l: int) -> dict:
     return {k: w[l] for k, w in params["blocks"].items()}
 
 
-def _qkv(cfg: ModelConfig, blk: dict, x: torch.Tensor, positions: torch.Tensor):
-    """norm → projections → RoPE. x [B, T, D] → q [B,T,H,hd], k/v [B,T,KV,hd]."""
+def lora_delta(x: torch.Tensor, A: torch.Tensor, B_: torch.Tensor,
+               ids: torch.Tensor) -> torch.Tensor:
+    """Batched multi-LoRA: each row's adapter gathered, then two skinny
+    products. x [B, T, d]; A [n, d, r]; B_ [n, r, o] with alpha/r folded in;
+    ids [B] adapter slot per row (slot 0 is zeros: no adapter). Returns
+    [B, T, o] in x's dtype."""
+    mid = torch.bmm(x, A[ids].to(x.dtype))
+    return torch.bmm(mid, B_[ids].to(x.dtype))
+
+
+def _lora_proj(xa: torch.Tensor, w: torch.Tensor, name: str,
+               lora: Optional[dict], lora_ids: Optional[torch.Tensor]):
+    y = xa @ w
+    if lora is not None and name in lora:
+        A, B_ = lora[name]
+        y = y + lora_delta(xa, A, B_, lora_ids)
+    return y
+
+
+def _qkv(cfg: ModelConfig, blk: dict, x: torch.Tensor, positions: torch.Tensor,
+         lora: Optional[dict] = None, lora_ids: Optional[torch.Tensor] = None):
+    """norm → projections (+ LoRA) → RoPE. x [B, T, D] → q [B,T,H,hd],
+    k/v [B,T,KV,hd]."""
     B, T, _ = x.shape
     hd, h, kv = cfg.head_dim_, cfg.num_heads, cfg.num_kv_heads
     xa = rms_norm(x, blk["attn_norm"], cfg.rms_norm_eps)
-    q = (xa @ blk["wq"]).reshape(B, T, h, hd)
-    k = (xa @ blk["wk"]).reshape(B, T, kv, hd)
-    v = (xa @ blk["wv"]).reshape(B, T, kv, hd)
+    q = _lora_proj(xa, blk["wq"], "wq", lora, lora_ids).reshape(B, T, h, hd)
+    k = _lora_proj(xa, blk["wk"], "wk", lora, lora_ids).reshape(B, T, kv, hd)
+    v = _lora_proj(xa, blk["wv"], "wv", lora, lora_ids).reshape(B, T, kv, hd)
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta), v)
 
 
 def _mla_qkv(cfg: ModelConfig, blk: dict, x: torch.Tensor,
-             positions: torch.Tensor):
+             positions: torch.Tensor, lora: Optional[dict] = None,
+             lora_ids: Optional[torch.Tensor] = None):
     """MLA pre-attention math in the absorbed form: norm → q projection
     (split nope/rope, W_uk absorbed into q) → latent down-projection
-    (+ kv norm) and the shared RoPE key. Returns (q_lat [B,T,H,dc],
+    (+ kv norm) and the shared RoPE key. LoRA applies to wq and w_dkv; the
+    absorbed w_uk / w_uv are no targets. Returns (q_lat [B,T,H,dc],
     q_pe [B,T,H,dr], c [B,T,dc], k_pe [B,T,dr])."""
     B, T, _ = x.shape
     h = cfg.num_heads
     dc, dn, dr = cfg.kv_lora_rank, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     xa = rms_norm(x, blk["attn_norm"], cfg.rms_norm_eps)
-    q = (xa @ blk["wq"]).reshape(B, T, h, dn + dr)
+    q = _lora_proj(xa, blk["wq"], "wq", lora, lora_ids).reshape(B, T, h, dn + dr)
     q_pe = apply_rope(q[..., dn:], positions, cfg.rope_theta)
     # Absorb: q_lat·c == q_nope·(c @ W_uk); per-head K never materialises.
     q_lat = torch.einsum("bthn,chn->bthc", q[..., :dn],
                          blk["w_uk"].reshape(dc, h, dn)).contiguous()
-    kv = xa @ blk["w_dkv"]                                   # [B, T, dc + dr]
+    kv = _lora_proj(xa, blk["w_dkv"], "w_dkv", lora, lora_ids)  # [B, T, dc + dr]
     c = rms_norm(kv[..., :dc], blk["kv_norm"], cfg.rms_norm_eps)
     # RoPE on a singleton head axis, as the reference does.
     k_pe = apply_rope(kv[..., None, dc:], positions, cfg.rope_theta)[:, :, 0]
@@ -149,10 +199,14 @@ def _mla_scale(cfg: ModelConfig) -> float:
     return (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
 
 
-def _mlp(cfg: ModelConfig, blk: dict, xm: torch.Tensor) -> torch.Tensor:
+def _mlp(cfg: ModelConfig, blk: dict, xm: torch.Tensor,
+         lora: Optional[dict] = None,
+         lora_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     if cfg.num_experts:
-        return _moe_mlp(cfg, blk, xm)
-    return (F.silu(xm @ blk["w_gate"]) * (xm @ blk["w_up"])) @ blk["w_down"]
+        return _moe_mlp(cfg, blk, xm)       # LoRA targets dense layers only
+    gate = F.silu(_lora_proj(xm, blk["w_gate"], "w_gate", lora, lora_ids))
+    up = _lora_proj(xm, blk["w_up"], "w_up", lora, lora_ids)
+    return _lora_proj(gate * up, blk["w_down"], "w_down", lora, lora_ids)
 
 
 def _moe_mlp(cfg: ModelConfig, blk: dict, xm: torch.Tensor) -> torch.Tensor:
@@ -178,11 +232,13 @@ def _moe_mlp(cfg: ModelConfig, blk: dict, xm: torch.Tensor) -> torch.Tensor:
 
 
 def _post_attention(cfg: ModelConfig, blk: dict, x: torch.Tensor,
-                    attn: torch.Tensor) -> torch.Tensor:
+                    attn: torch.Tensor, lora: Optional[dict] = None,
+                    lora_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """residual → norm → MLP (or MoE) → residual."""
     B, T, _ = x.shape
-    x = x + attn.reshape(B, T, -1) @ blk["wo"]
-    return x + _mlp(cfg, blk, rms_norm(x, blk["mlp_norm"], cfg.rms_norm_eps))
+    x = x + _lora_proj(attn.reshape(B, T, -1), blk["wo"], "wo", lora, lora_ids)
+    return x + _mlp(cfg, blk, rms_norm(x, blk["mlp_norm"], cfg.rms_norm_eps),
+                    lora, lora_ids)
 
 
 def _head(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -196,6 +252,10 @@ def _head(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def _layer_view(pool: Optional[torch.Tensor], l: int) -> Optional[torch.Tensor]:
     return None if pool is None else pool[l]
+
+
+def _layer_lora(lora: Optional[dict], l: int) -> Optional[dict]:
+    return None if lora is None else {k: (A[l], B_[l]) for k, (A, B_) in lora.items()}
 
 
 @torch.no_grad()
@@ -212,31 +272,42 @@ def forward_paged(
     use_kernels: str = "auto",
     k_scales: Optional[torch.Tensor] = None,  # [L, NP, page, KV, 1] (int8 pools)
     v_scales: Optional[torch.Tensor] = None,
+    lora: Optional[dict] = None,    # {target: (A [L, n, d, r], B [L, n, r, o])},
+                                    # alpha/r folded into B; slot 0 is zeros
+    lora_ids: Optional[torch.Tensor] = None,  # [B] adapter slot per row
 ) -> torch.Tensor:
-    """Serving forward over the paged pool. On CUDA its attention is a
-    decode kernel (A, C for int8 pools, E for MLA), which takes T == 1 (the
-    fused decode window). Writes this step's K/V into the pools in place;
-    returns logits [B, T, V] f32."""
+    """Serving forward over the paged pool: decode steps (T == 1) and
+    [B, T] blocks of prefill chunks or speculative verifies (T > 1). On
+    CUDA its attention is a decode kernel at T == 1 (A, C for int8 pools,
+    E, G for MLA) and a ragged kernel at T > 1 (B, D, F, H), the block
+    seen as a pack of B rows. Pads (token_mask False) reach a T > 1
+    attention at position -1, so they attend nothing; RoPE and the writes
+    keep the given positions. Writes this step's K/V into the pools in
+    place; returns logits [B, T, V] f32."""
     x = params["embed"][tokens.long()].to(cfg.torch_dtype)
+    apos = positions
+    if tokens.shape[1] > 1:
+        apos = torch.where(token_mask, positions, torch.full_like(positions, -1))
     for l in range(cfg.num_layers):
         blk = layer_params(params, l)
+        lr = _layer_lora(lora, l)
         ks, vs = _layer_view(k_scales, l), _layer_view(v_scales, l)
         if cfg.mla:
-            q_lat, q_pe, c, k_pe = _mla_qkv(cfg, blk, x, positions)
+            q_lat, q_pe, c, k_pe = _mla_qkv(cfg, blk, x, positions, lr, lora_ids)
             write_kv_pages(k_pages[l], v_pages[l], c[:, :, None], k_pe[:, :, None],
                            page_table, positions, token_mask, ks, vs)
             attn = _mla_out(cfg, blk, paged_mla_attention(
-                q_lat, q_pe, k_pages[l], v_pages[l], page_table, positions,
+                q_lat, q_pe, k_pages[l], v_pages[l], page_table, apos,
                 kv_lens, _mla_scale(cfg), use_kernels=use_kernels, c_scales=ks,
                 pe_scales=vs))
         else:
-            q, k, v = _qkv(cfg, blk, x, positions)
+            q, k, v = _qkv(cfg, blk, x, positions, lr, lora_ids)
             write_kv_pages(k_pages[l], v_pages[l], k, v, page_table, positions,
                            token_mask, ks, vs)
             attn = paged_attention(q, k_pages[l], v_pages[l], page_table,
-                                   positions, kv_lens, use_kernels=use_kernels,
+                                   apos, kv_lens, use_kernels=use_kernels,
                                    k_scales=ks, v_scales=vs)
-        x = _post_attention(cfg, blk, x, attn)
+        x = _post_attention(cfg, blk, x, attn, lr, lora_ids)
     return _head(params, cfg, x)
 
 
@@ -320,3 +391,77 @@ def encode_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     LM head): what the embeddings path pools. ``tokens`` [B, T] int,
     ``token_mask`` [B, T] bool (real tokens; pads after them)."""
     return _encode_core(params, cfg, tokens, token_mask)
+
+
+def _block(cfg: ModelConfig, blk: dict, x: torch.Tensor, k_cache: torch.Tensor,
+           v_cache: torch.Tensor, positions: torch.Tensor,
+           write_pos: torch.Tensor, kv_valid: torch.Tensor) -> torch.Tensor:
+    """One block over one layer of the contiguous cache ``[B, S, KV, d]``:
+    this step's K/V (MLA: latent and RoPE key) written in place at
+    ``write_pos`` (S for a pad: dropped), then dense attention."""
+    B, S = k_cache.shape[:2]
+    keep = write_pos < S
+    b_idx = torch.arange(B, device=x.device)[:, None].expand_as(write_pos)[keep]
+    slot = write_pos.long()[keep]
+    if cfg.mla:
+        q_lat, q_pe, c, k_pe = _mla_qkv(cfg, blk, x, positions)
+        k_cache[b_idx, slot] = c[keep][:, None].to(k_cache.dtype)
+        v_cache[b_idx, slot] = k_pe[keep][:, None].to(v_cache.dtype)
+        attn = _mla_out(cfg, blk, mla_attention(
+            q_lat, q_pe, k_cache[:, :, 0], v_cache[:, :, 0], positions, kv_valid,
+            _mla_scale(cfg)))
+    else:
+        q, k, v = _qkv(cfg, blk, x, positions)
+        k_cache[b_idx, slot] = k[keep].to(k_cache.dtype)
+        v_cache[b_idx, slot] = v[keep].to(v_cache.dtype)
+        attn = gqa_attention(q, k_cache, v_cache, positions, kv_valid)
+    return _post_attention(cfg, blk, x, attn)
+
+
+@torch.no_grad()
+def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: KVCache,
+            positions: Optional[torch.Tensor] = None,
+            token_mask: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, KVCache]:
+    """The decoder over ``tokens`` [B, T], reading and writing the
+    contiguous ``cache`` in place (prefill at length 0 and decode at T = 1
+    alike). Positions default to ``length + arange(T)``; pads
+    (``token_mask`` False) write nothing. Returns (logits [B, T, V] f32,
+    the cache with its new length)."""
+    B, T = tokens.shape
+    S = cache.k.shape[2]
+    if T > S:
+        raise ValueError(f"token block T={T} exceeds KV cache capacity S={S}")
+    dev = tokens.device
+    if positions is None:
+        positions = (cache.length[:, None]
+                     + torch.arange(T, dtype=torch.int32, device=dev)[None])
+    if token_mask is None:
+        token_mask = torch.ones((B, T), dtype=torch.bool, device=dev)
+    filled = torch.where(token_mask, positions + 1, 0).amax(dim=1).to(torch.int32)
+    length = torch.maximum(cache.length, filled)
+    kv_valid = torch.arange(S, dtype=torch.int32, device=dev)[None] < length[:, None]
+    write_pos = torch.where(token_mask, positions, S)
+    x = params["embed"][tokens.long()].to(cfg.torch_dtype)
+    for l in range(cfg.num_layers):
+        x = _block(cfg, layer_params(params, l), x, cache.k[l], cache.v[l],
+                   positions, write_pos, kv_valid)
+    return _head(params, cfg, x), KVCache(cache.k, cache.v, length)
+
+
+@torch.no_grad()
+def prefill_and_decode_greedy(params: dict, cfg: ModelConfig, prompt: torch.Tensor,
+                              steps: int) -> torch.Tensor:
+    """The reference's plain loop: prefill ``prompt`` [B, T] into a
+    contiguous cache, then greedy-decode ``steps`` tokens. Returns
+    [B, steps]."""
+    B, T = prompt.shape
+    cache = KVCache.create(cfg, B, T + steps, device=prompt.device)
+    logits, cache = forward(params, cfg, prompt, cache)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    out = [tok]
+    for _ in range(steps - 1):
+        logits, cache = forward(params, cfg, tok, cache)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        out.append(tok)
+    return torch.cat(out, dim=1)

@@ -20,7 +20,8 @@ the model applies ``W_uv`` after.
   their int8-latent-pool forms ``ops/kernels/paged_mla_decode_q.py``
   (kernel G) and ``ops/kernels/ragged_paged_mla_q.py`` (kernel H), which
   the dispatchers ``paged_mla_attention`` / ``ragged_paged_mla_attention``
-  launch for CUDA tensors.
+  launch for CUDA tensors; ``paged_mla_attention`` at T > 1 sends its
+  [B, T] block to F / H as a pack of B rows.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from typing import Optional
 
 import torch
 
-from rbg_tpu_torch.ops.paged_attention import _NEG_INF, dispatch
+from rbg_tpu_torch.ops.paged_attention import _NEG_INF, as_pack, dispatch
 from rbg_tpu_torch.ops.ragged_paged_attention import unpack_to_rows
 
 
@@ -128,10 +129,18 @@ def ragged_paged_mla_attention_plain(
 def paged_mla_attention(q_lat, q_pe, c_pages, pe_pages, page_table,
                         q_positions, kv_lens, scale, *, use_kernels: str = "auto",
                         c_scales=None, pe_scales=None):
-    """MLA decode through a CUDA kernel for CUDA tensors (kernel G for int8
-    latent pools with scales, else kernel E), or the plain version (see
-    ``dispatch``)."""
+    """Paged MLA through a CUDA kernel for CUDA tensors, or the plain
+    version (see ``dispatch``). T == 1: kernel G for int8 latent pools with
+    scales, else kernel E. T > 1: the block as a pack (``as_pack``)
+    through kernel H, else F; pads must come at position -1."""
     def kernel():
+        if q_lat.shape[1] > 1:
+            ql, pos, rows = as_pack(q_lat, q_positions)
+            qe = q_pe.reshape(1, -1, *q_pe.shape[2:]).contiguous()
+            return ragged_paged_mla_attention(
+                ql, qe, c_pages, pe_pages, page_table, pos, kv_lens, rows, scale,
+                use_kernels=use_kernels, c_scales=c_scales,
+                pe_scales=pe_scales).reshape(q_lat.shape)
         if c_scales is not None:
             from rbg_tpu_torch.ops.kernels.paged_mla_decode_q import (
                 paged_mla_decode_attention_q)

@@ -10,7 +10,11 @@ Two implementations behind one signature:
 * the CUDA kernels ``ops/kernels/paged_decode.py`` (model-dtype pools)
   and ``ops/kernels/paged_decode_q.py`` (int8 pools with per-(slot, kv
   head) scales) — decode (T == 1) attention that walks each row's pages
-  in shared memory and never materialises the gathered view.
+  in shared memory and never materialises the gathered view;
+* at T > 1 (prefill chunks, speculative verifies) the ragged kernels
+  ``ops/kernels/ragged_paged.py`` / ``ragged_paged_q.py``: the [B, T]
+  block is a row-major pack of B rows (``as_pack``), whose function is
+  exactly the ragged pack's.
 
 ``dispatch`` is the one kernel-versus-plain policy of the package.
 """
@@ -151,12 +155,31 @@ def write_kv_pages(k_pages, v_pages, k_new, v_new, page_table, positions,
                 token_mask, k_scales, v_scales)
 
 
+def as_pack(q: torch.Tensor, q_positions: torch.Tensor):
+    """A [B, T, ...] block as the ragged kernels' pack, built on the device
+    with no host sync: q [1, B·T, ...], positions [1, B·T] int32 (a pad
+    must already be -1), row_ids [B·T] int32 (row b's T tokens in order)."""
+    B, T = q.shape[:2]
+    rows = torch.arange(B, dtype=torch.int32, device=q.device)
+    return (q.reshape(1, B * T, *q.shape[2:]).contiguous(),
+            q_positions.reshape(1, B * T).to(torch.int32).contiguous(),
+            rows.repeat_interleave(T))
+
+
 def paged_attention(q, k_pages, v_pages, page_table, q_positions, kv_lens,
                     *, use_kernels: str = "auto", k_scales=None, v_scales=None):
-    """Decode attention through a CUDA kernel for CUDA tensors (kernel C
-    for an int8 pool with scales, else kernel A), or the plain version (see
-    ``dispatch``)."""
+    """Paged attention through a CUDA kernel for CUDA tensors, or the plain
+    version (see ``dispatch``). T == 1: kernel C for an int8 pool with
+    scales, else kernel A. T > 1: the block as a pack (``as_pack``)
+    through kernel D, else B; pads must come at position -1."""
     def kernel():
+        if q.shape[1] > 1:
+            from rbg_tpu_torch.ops.ragged_paged_attention import ragged_paged_attention
+            qp, pos, rows = as_pack(q, q_positions)
+            return ragged_paged_attention(
+                qp, k_pages, v_pages, page_table, pos, kv_lens, rows,
+                use_kernels=use_kernels, k_scales=k_scales,
+                v_scales=v_scales).reshape(q.shape)
         if k_scales is not None:
             from rbg_tpu_torch.ops.kernels.paged_decode_q import (
                 paged_decode_attention_q)

@@ -158,8 +158,7 @@ def test_sampled_streams_match_jax(weights, monkeypatch, multi_step):
 
 
 @pytest.mark.parametrize("bad", [
-    dict(speculative="ngram"), dict(mode="prefill"), dict(ragged="off"),
-    dict(host_tier_bytes=1 << 20), dict(mode="decode")])
+    dict(mode="prefill"), dict(host_tier_bytes=1 << 20), dict(mode="decode")])
 def test_unsupported_configs_raise(bad):
     with pytest.raises(NotImplementedError):
         Engine(EngineConfig(**{**BASE, **bad}), device="cpu")
@@ -197,7 +196,7 @@ def test_mla_int8_latent_pools_serve():
 
 
 @pytest.mark.parametrize("field", [dict(json_mode=True), dict(regex="a+"),
-                                   dict(json_schema={}), dict(lora="x")])
+                                   dict(json_schema={})])
 def test_unsupported_sampling_raises(weights, field):
     te = Engine(EngineConfig(**BASE), params=weights[1], device="cpu")
     with pytest.raises(NotImplementedError):

@@ -222,7 +222,9 @@ def test_ragged_matches_plain(dev, dtype, KV, G, hd, layout):
 
 def test_dispatch_never_and_decode_shape_check(dev):
     """'never' takes the plain version on the card and launches nothing;
-    the decode kernel refuses T > 1 rather than falling back."""
+    the decode kernel refuses T > 1 rather than falling back (a T > 1
+    block through ``paged_attention`` goes to kernel B instead)."""
+    from rbg_tpu_torch.ops.kernels.paged_decode import paged_decode_attention
     rng = np.random.RandomState(2)
     k, v = _pool(rng, dev, torch.bfloat16, 9, 16, 2, 64)
     table = torch.arange(1, 9, dtype=torch.int32, device=dev).reshape(2, 4)
@@ -232,8 +234,109 @@ def test_dispatch_never_and_decode_shape_check(dev):
     paged_attention(q, k, v, table, (lens - 1)[:, None], lens, use_kernels="never")
     assert LAUNCHES["paged_decode"] == 0
     with pytest.raises(ValueError):
-        paged_attention(q.expand(2, 2, 4, 64).contiguous(), k, v, table,
-                        torch.stack([lens - 2, lens - 1], 1), lens)
+        paged_decode_attention(q.expand(2, 2, 4, 64).contiguous(), k, v, table, lens)
+    assert sum(LAUNCHES.values()) == 0
+
+
+def _block_case(rng, dev, dtype, KV, G, hd, T, page=16):
+    """A [4, T] split-path block: a full chunk after 40 slots of context, a
+    chunk's tail, a verify-shaped row of 2 real tokens after 700 slots, and
+    a bucket row of pads only. Pads come at position -1, as forward_paged
+    hands them to the attention. Returns (q, k, v, table, positions,
+    kv_lens)."""
+    start, n_real = [40, 9, 700, 0], [T, T - 3, 2, 0]
+    P = -(-(max(s + n for s, n in zip(start, n_real)) + 1) // page)
+    NP = 4 * P + 1
+    k, v = _pool(rng, dev, dtype, NP, page, KV, hd)
+    table = torch.from_numpy((rng.permutation(NP - 1) + 1).reshape(4, P)
+                             .astype(np.int32)).to(dev)
+    table[3] = 0
+    pos = np.asarray(start)[:, None] + np.arange(T)[None]
+    pos[np.arange(T)[None] >= np.asarray(n_real)[:, None]] = -1
+    kvl = torch.tensor([s + n for s, n in zip(start, n_real)], dtype=torch.int32,
+                       device=dev)
+    q = torch.from_numpy(rng.randn(4, T, KV * G, hd).astype(np.float32)).to(dev, dtype)
+    return q, k, v, table, torch.from_numpy(pos.astype(np.int32)).to(dev), kvl
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("KV,G,hd", RAGGED_SHAPES)
+@pytest.mark.parametrize("T", [5, 64])
+@pytest.mark.parametrize("pools", ["model", "int8"])
+def test_paged_attention_block_launches_ragged(dev, dtype, KV, G, hd, T, pools):
+    """paged_attention at T > 1 (the split prefill's and the verify's
+    block) launches kernel B (D on int8 pools) once and never A or C, and
+    equals the plain version; pads give 0."""
+    rng = np.random.RandomState(T + hd)
+    q, k, v, table, pos, kvl = _block_case(rng, dev, dtype, KV, G, hd, T)
+    kw = {}
+    if pools == "int8":
+        k, v, ks, vs = _quantized(k, v)
+        kw = dict(k_scales=ks, v_scales=vs)
+    reset_launches()
+    got = paged_attention(q, k, v, table, pos, kvl, **kw)
+    name = "ragged_paged_q" if pools == "int8" else "ragged_paged"
+    assert LAUNCHES[name] == 1 and sum(LAUNCHES.values()) == 1, LAUNCHES
+    want = paged_attention_plain(q, k, v, table, pos, kvl, kw.get("k_scales"),
+                                 kw.get("v_scales"))
+    assert got.shape == q.shape and got.dtype == q.dtype
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    assert bool((got[pos < 0] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,dc,dr", [(16, 512, 64), (4, 64, 16)])
+@pytest.mark.parametrize("T", [5, 64])
+@pytest.mark.parametrize("pools", ["model", "int8"])
+def test_paged_mla_attention_block_launches_ragged(dev, dtype, H, dc, dr, T, pools):
+    """paged_mla_attention at T > 1 launches kernel F (H on int8 latent
+    pools) once and never E or G, and equals the plain version."""
+    rng = np.random.RandomState(T + dc)
+    q, c, _, table, pos, kvl = _block_case(rng, dev, dtype, 1, 1, 32, T)
+    c, pe = _latent_pools(rng, dev, dtype, c.shape[0], 16, dc, dr)
+    q_lat = torch.from_numpy(rng.randn(4, T, H, dc).astype(np.float32)).to(dev, dtype)
+    q_pe = torch.from_numpy(rng.randn(4, T, H, dr).astype(np.float32)).to(dev, dtype)
+    kw = {}
+    if pools == "int8":
+        c, pe, cs, ps = _quantized_latents(c, pe)
+        kw = dict(c_scales=cs, pe_scales=ps)
+    scale = 0.07
+    reset_launches()
+    got = paged_mla_attention(q_lat, q_pe, c, pe, table, pos, kvl, scale, **kw)
+    name = "ragged_paged_mla_q" if pools == "int8" else "ragged_paged_mla"
+    assert LAUNCHES[name] == 1 and sum(LAUNCHES.values()) == 1, LAUNCHES
+    want = paged_mla_attention_plain(q_lat, q_pe, c, pe, table, pos, kvl, scale,
+                                     kw.get("c_scales"), kw.get("pe_scales"))
+    assert got.shape == q_lat.shape
+    torch.testing.assert_close(got.float(), want.float(), **_mla_tol(dtype))
+
+
+def test_block_wrappers_refuse_before_any_launch(dev):
+    """A T > 1 block past the ragged kernels' limits (more than 1024 table
+    rows, hd 96, MLA widths other than theirs) raises ValueError and
+    launches nothing."""
+    rng = np.random.RandomState(4)
+    k, v = _pool(rng, dev, torch.bfloat16, 9, 16, 2, 64)
+    reset_launches()
+    B = 1025
+    table = torch.zeros(B, 2, dtype=torch.int32, device=dev)
+    lens = torch.ones(B, dtype=torch.int32, device=dev)
+    pos = torch.zeros(B, 2, dtype=torch.int32, device=dev)
+    q = torch.randn(B, 2, 4, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="1024"):
+        paged_attention(q, k, v, table, pos, lens)
+    k96, v96 = _pool(rng, dev, torch.bfloat16, 9, 16, 2, 96)
+    with pytest.raises(ValueError):
+        paged_attention(torch.randn(2, 3, 4, 96, device=dev, dtype=torch.bfloat16),
+                        k96, v96, table[:2], pos[:2, :1].expand(2, 3).contiguous(),
+                        lens[:2])
+    c, pe = _latent_pools(rng, dev, torch.bfloat16, 9, 16, 256, 32)
+    with pytest.raises(ValueError):
+        paged_mla_attention(torch.randn(2, 3, 4, 256, device=dev, dtype=torch.bfloat16),
+                            torch.randn(2, 3, 4, 32, device=dev, dtype=torch.bfloat16),
+                            c, pe, table[:2], pos[:2, :1].expand(2, 3).contiguous(),
+                            lens[:2], 0.1)
+    assert sum(LAUNCHES.values()) == 0
 
 
 def _quantized(k, v):
@@ -883,3 +986,60 @@ def test_gumbel_noise_on_the_card_equals_the_cpu(dev):
     want = gumbel_noise(keys, pos, 128256)
     got = gumbel_noise(keys.to(dev), pos.to(dev), 128256).cpu()
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("model", ["tiny", "tiny-mla"])
+@pytest.mark.parametrize("mode", ["ragged_off", "ragged_off_ms4", "speculative", "lora"])
+def test_engine_split_paths_on_the_card(dev, model, mode):
+    """tiny and tiny-mla serve on the card through the split paths: the
+    batched prefill step (a [B, chunk] block: kernel B, or F), decode
+    windows (A, or E), the speculative verify (a [B, spec_k + 1] block) and
+    adapter rows mixed with a base row; the greedy tokens equal the CPU
+    port's on the same weights."""
+    from rbg_tpu_torch.engine.config import EngineConfig, SamplingParams
+    from rbg_tpu_torch.engine.engine import Engine
+    from rbg_tpu_torch.models.config import get_config
+    from rbg_tpu_torch.models.llama import init_params
+    cfg = get_config(model)
+    params = init_params(cfg, 0, "cpu")
+    rng = np.random.RandomState(19)
+    prompts = [rng.randint(0, 256, n).tolist() for n in (5, 40, 23)] + [[1, 2, 3, 4] * 6]
+    kw = dict(model=model, num_pages=64, max_seq_len=256, prefill_chunk=16)
+    kw.update({"ragged_off": dict(ragged="off"),
+               "ragged_off_ms4": dict(ragged="off", multi_step=4),
+               "speculative": dict(speculative="ngram"),
+               "lora": dict(multi_step=4)}[mode])
+    names = [None] * 4
+    adapters = {}
+    if mode == "lora":
+        names = ["a", None, "b", "a"]
+        for i, name in enumerate(("a", "b")):
+            g = np.random.default_rng(i)
+            adapters[name] = {t: (g.normal(size=(cfg.num_layers, params["blocks"][t].shape[1], 4))
+                                  .astype(np.float32) * 0.05,
+                                  g.normal(size=(cfg.num_layers, 4, params["blocks"][t].shape[2]))
+                                  .astype(np.float32) * 0.05)
+                              for t in ("wq", "wo", "w_up")}
+
+    def run(eng):
+        for name, ad in adapters.items():
+            eng.load_lora(name, ad, alpha=8.0)
+        ids = [eng.add_request(p, SamplingParams(max_new_tokens=12, lora=n))
+               for p, n in zip(prompts, names)]
+        out = {i: [] for i in ids}
+        while eng.has_work():
+            for ev in eng.step():
+                out[ev.request_id].append(ev.token)
+        return [out[i] for i in ids], eng.metrics
+
+    want, _ = run(Engine(EngineConfig(**kw, device="cpu"), params=params))
+    reset_launches()
+    got, metrics = run(Engine(EngineConfig(**kw), params=_params_on(params, dev), device=dev))
+    ragged, decode = (("ragged_paged_mla", "paged_mla_decode") if cfg.mla
+                      else ("ragged_paged", "paged_decode"))
+    assert got == want
+    assert metrics["unified_steps"] == 0 and LAUNCHES[ragged] > 0
+    if mode == "speculative":
+        assert metrics["spec_steps"] > 0 and LAUNCHES[decode] == 0
+    else:
+        assert LAUNCHES[decode] > 0

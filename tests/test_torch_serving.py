@@ -612,11 +612,29 @@ def test_bench_serving_json_line(capsys):
     assert parsed["completed"] == 4 and "slo" not in parsed
 
 
-def test_bench_serving_refuses_speculative():
-    args = bench_serving.parse_args(["--device", "cpu", "--speculative", "ngram",
-                                     "--requests", "1"])
-    with pytest.raises(NotImplementedError, match="speculative"):
-        bench_serving.run(args)
+@pytest.mark.parametrize("flags", [["--speculative", "ngram"], ["--ragged", "off"],
+                                   ["--ragged", "off", "--multi-step", "4"]],
+                         ids=["speculative", "ragged_off", "ragged_off_ms4"])
+def test_bench_serving_serves_split_paths(flags, monkeypatch):
+    """bench_serving in process through the split paths: every request
+    completes, through the speculative verify or the split prefill."""
+    args = bench_serving.parse_args(["--device", "cpu", "--model", "tiny",
+                                     "--requests", "4", "--rate", "64",
+                                     "--input-len", "16", "--output-len", "6",
+                                     "--num-pages", "128", "--max-seq-len", "128",
+                                     "--max-batch", "4", *flags])
+    seen = {}
+    real = bench_serving.build_service
+    monkeypatch.setattr(bench_serving, "build_service",
+                        lambda a: seen.setdefault("svc", real(a)))
+    out = bench_serving.run(args)
+    assert out["completed"] == 4 and out["output_tok_per_s"] > 0
+    m = seen["svc"].engine.metrics
+    assert m["unified_steps"] == 0
+    if flags[1] == "ngram":
+        assert m["spec_steps"] > 0
+    with pytest.raises(SystemExit):
+        bench_serving.parse_args(["--speculative", "eagle"])
 
 
 def test_bench_slo_pd_setup_not_ported():
