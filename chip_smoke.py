@@ -19,12 +19,12 @@ Phases, each printing one JSON line:
              call on the same inputs (SDPA on the gathered view, a
              yardstick the port never calls) and the least time the card
              could take (bound). Every kernel also gives host_us, the
-             host's time per call; A-H give work_items and grid_blocks as
+             host's time per call; A-I give work_items and grid_blocks as
              the kernel wrote them back, and their time on the same case in
              a table WIDE_P pages wide (output equal bit for bit); A and C
-             also a B=64 decode bucket of short rows (bucket64); A-D also
-             the llama3-8b case at page size 128 (page128: pages larger
-             than their 64-slot KV block).
+             also a B=64 decode bucket of short rows (bucket64); A-D and I
+             also the llama3-8b case at page size 128 (page128: pages
+             larger than their 64-slot KV block).
 4. tiny    — tiny and tiny-moe (float32, hd 32; kernels A, B), tiny-mla
              (float32 latents; kernels E, F) and tiny at page size 128
              through Engine on the card, greedy tokens equal to the CPU
@@ -90,7 +90,8 @@ Phases, each printing one JSON line:
    (H at T > 1) and server.
 8. ragged_ab — rbg_tpu_torch.bench.block_ragged_probe: kernel I against
    kernel B on a prefill-heavy pack, both checked against the plain
-   version, then interleaved timed reps.
+   version, then interleaved timed reps; then each kernel's device ms on
+   the probe's pack (the probe's calls/s read host time at its size).
 
 Then a line {"kernels": [...]} (launches counted over the phase that drives
 each kernel's path: the llama3-8b server for A and B, the int8 engine for
@@ -360,7 +361,8 @@ def decode_kernel_cases(torch, np, flush, model, KV, G, hd, lens, wide=False, pa
     return out
 
 
-# The sub-records a page-128 case (kernels A-D) adds to its page-16 record.
+# The sub-records a page-128 case (kernels A-D and I) adds to its page-16
+# record.
 PAGE128_KEYS = ("page", "max_abs_err", "ms", "device_ms", "host_us", "work_items",
                 "grid_blocks")
 
@@ -370,9 +372,8 @@ def ragged_kernel_cases(torch, np, flush, model, KV, G, hd, names, page=16,
     """Kernels B and D (on the same pools quantized) and I (B's function on
     a token grid) against their plain versions on the pack ``spec`` (the
     mixed pack by default) at page size ``page``: {name: record} for
-    ``names``. B and D also give the kernel's own report of its launch and
-    the same pack in a table WIDE_P pages wide (output equal bit for
-    bit)."""
+    ``names``, each with the kernel's own report of its launch and the
+    same pack in a table WIDE_P pages wide (output equal bit for bit)."""
     import torch.nn.functional as F
 
     from rbg_tpu_torch.ops.kernels import launch_report
@@ -407,8 +408,8 @@ def ragged_kernel_cases(torch, np, flush, model, KV, G, hd, names, page=16,
              lambda: ragged_paged_attention_plain(q, k8, v8, table, qpos, kv_lens,
                                                   rows, 64, ks, vs), None),
             ("ragged_paged_tokengrid", 2,
-             lambda: ragged_paged_attention_tokengrid_cuda(q, k, v, table, qpos,
-                                                           kv_lens, rows),
+             lambda t=table: ragged_paged_attention_tokengrid_cuda(q, k, v, t, qpos,
+                                                                   kv_lens, rows),
              lambda: ragged_paged_attention_plain(q, k, v, table, qpos, kv_lens,
                                                   rows, 64), (k, v))):
         if name not in names:
@@ -423,16 +424,15 @@ def ragged_kernel_cases(torch, np, flush, model, KV, G, hd, names, page=16,
                   + (2 * row_extent * KV * 4 if elem == 1 else 0))
         b_ms, b_by = bound(nbytes, flops)
         extra = {"host_us": host_us(torch, fn)}
-        if name != "ragged_paged_tokengrid":
-            # The kernel's own report of its last launch, then the same
-            # pack in a wider table: the same items and the same output.
-            got = fn()
-            extra.update(launch_report(q.device))
-            wide = F.pad(table, (0, WIDE_P - table.shape[1]))
-            if not torch.equal(fn(wide), got):
-                raise AssertionError(f"{name} {model}: output moved with the table width")
-            extra["wide_table"] = dict(P=WIDE_P, **launch_report(q.device),
-                                       ms=cuda_ms(torch, lambda: fn(wide), flush))
+        # The kernel's own report of its last launch, then the same pack in
+        # a wider table: the same items and the same output.
+        got = fn()
+        extra.update(launch_report(q.device))
+        wide = F.pad(table, (0, WIDE_P - table.shape[1]))
+        if not torch.equal(fn(wide), got):
+            raise AssertionError(f"{name} {model}: output moved with the table width")
+        extra["wide_table"] = dict(P=WIDE_P, **launch_report(q.device),
+                                   ms=cuda_ms(torch, lambda: fn(wide), flush))
         symbol = ("ragged_paged_tokengrid_kernel" if name == "ragged_paged_tokengrid"
                   else "ragged_paged_kernel")
         out[name] = dict(
@@ -451,8 +451,8 @@ def ragged_kernel_cases(torch, np, flush, model, KV, G, hd, names, page=16,
 
 def gqa_kernel_cases(torch, np, flush, out):
     """Kernels A-D and I at the llama3-8b and qwen2-0.5b shapes (page 16);
-    A-D also at page 128 on llama3-8b (a page larger than their 64-slot
-    KV block), as a ``page128`` sub-record."""
+    A-D and I also at page 128 on llama3-8b (a page larger than their
+    64-slot KV block), as a ``page128`` sub-record."""
     shapes = {"llama3-8b": (8, 4, 128), "qwen2-0.5b": (2, 7, 64)}
     for model, (KV, G, hd) in shapes.items():
         # -- A and C: decode, B=8, kv_len up to 2048; then a B=64 bucket --
@@ -475,7 +475,8 @@ def gqa_kernel_cases(torch, np, flush, out):
             big = {**decode_kernel_cases(torch, np, flush, model, KV, G, hd, DECODE_LENS,
                                          page=128),
                    **ragged_kernel_cases(torch, np, flush, model, KV, G, hd,
-                                         ("ragged_paged", "ragged_paged_q"), page=128)}
+                                         ("ragged_paged", "ragged_paged_q",
+                                          "ragged_paged_tokengrid"), page=128)}
             for name, rec in big.items():
                 recs[name]["page128"] = {k: rec[k] for k in PAGE128_KEYS}
         for name, rec in recs.items():
@@ -1706,18 +1707,33 @@ def bench_slo_phase():
 
 def probe_phase(torch):
     """The block_ragged probe (kernel I against kernel B on a prefill-heavy
-    pack); its launches of kernel I are that path's. Returns them."""
-    from rbg_tpu_torch.bench import block_ragged_probe
+    pack); its launches of kernel I are that path's. Returns them. Then
+    each kernel's own device time on the probe's pack (``device_ms``, one
+    launch per call), which tells the two grid shapes apart where the
+    probe's calls per second read the host."""
+    from rbg_tpu_torch.bench import block_ragged_pack, block_ragged_probe
     from rbg_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from rbg_tpu_torch.ops.kernels.ragged_paged import ragged_paged_attention_cuda
+    from rbg_tpu_torch.ops.kernels.ragged_paged_tokengrid import (
+        ragged_paged_attention_tokengrid_cuda)
 
     reset_launches()
     out = block_ragged_probe()
     launches = dict(LAUNCHES)
-    emit("ragged_ab", launches=launches, **out)
     if not (out["measurable"] and out["bit_identical"]):
+        emit("ragged_ab", launches=launches, **out)
         raise AssertionError(f"block_ragged probe: kernels disagree with the "
                              f"plain version: {out}")
     check_launches(launches, PROBE_KERNELS)
+    args = block_ragged_pack(torch.device("cuda"))
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    dev_ms = {
+        "tokengrid": device_ms(torch, lambda: ragged_paged_attention_tokengrid_cuda(*args),
+                               flush, "ragged_paged_tokengrid_kernel"),
+        "block_ragged": device_ms(torch, lambda: ragged_paged_attention_cuda(*args),
+                                  flush, "ragged_paged_kernel")}
+    emit("ragged_ab", launches=launches, **out, device_ms=dev_ms,
+         device_speedup=dev_ms["tokengrid"] / dev_ms["block_ragged"])
     return {k: launches[k] for k in PROBE_KERNELS}
 
 

@@ -1,13 +1,23 @@
-// Paged decode attention (T == 1) for Hopper: the kernel body shared by
-// paged_decode.cu (kernel A, model-dtype pools) and paged_decode_q.cu
-// (kernel C, int8 pools). They replace the TPU kernels
+// Paged decode attention for Hopper, and its per-token form: the kernel
+// body shared by paged_decode.cu (kernel A, model-dtype pools),
+// paged_decode_q.cu (kernel C, int8 pools) and ragged_paged_tokengrid.cu
+// (kernel I, model-dtype pools). They replace the TPU kernels
 // rbg_tpu/ops/pallas/paged_attention_kernel.py `paged_attention_pallas`
-// and `paged_attention_pallas_q`.
+// and `paged_attention_pallas_q`, and ragged_attention_kernel.py
+// `ragged_paged_attention_pallas_tokengrid`.
 //
-// Query head h = kv·G + g of row b attends slots < len(b) = min(kv_lens[b],
-// P·page) through page_table[b]; a row with len <= 0 gives 0 (the
-// engine's bucket pad rows). Online softmax in f32; the output is
-// acc / max(l, 1e-30).
+// A, C: query head h = kv·G + g of row b attends slots < len(b) =
+// min(kv_lens[b], P·page) through page_table[b]; a row with len <= 0
+// gives 0 (the engine's bucket pad rows). Online softmax in f32; the
+// output is acc / max(l, 1e-30).
+//
+// I (token mode, kTok): kernel B's function on a per-token grid. Item b
+// is packed token t of a ragged pack: its table row is row_ids[t] and it
+// attends slots < len(t) = min(kv_lens[row], q_pos[t] + 1, P·page), 0 for
+// a pad (q_pos < 0) and for a row outside [0, R). q and out [1, T, H, hd]
+// are read as [T·KV, G, hd], as A reads [B, 1, H, hd]: every token is a
+// decode-shaped walk of its own row, and all that follows holds with
+// B = T (items, splits with the cap from T·KV, merges, the report).
 //
 // Bound: bytes. A decode step reads each live K/V slot once for all G
 // heads of its kv head and does 4·G·hd flops per slot, far below the
@@ -50,6 +60,22 @@
 //    Slots past the row's last page repeat it: masked, but finite. Only a
 //    split's last block can reach past len, and only it masks.
 //
+// Kernel I's bound is B's (each row's live slots read once: the work is
+// the same function), and I stays far from it by design: a token grid
+// re-reads a row's pages once per token of the row, where B's tiles read
+// them once per tile. That re-reading is what the block_ragged probe
+// measures B against, so I keeps it and makes it cheap instead. Block x
+// of the grid's first dimension is x = t·KV + kv, so the blocks the card
+// runs together are consecutive tokens of one row (a prefill chunk's
+// tokens are packed in order) and all its kv heads: the first of them
+// brings a page from device memory and the others find it in the 50 MB
+// L2, which holds every row of a pack at the sizes served (the kernels
+// phase's llama3-8b pack: 33 MB of distinct K and V). The walks then run
+// at L2's rate, not device memory's. Two other designs were rejected:
+// kernel A on a per-token table gathered by torch (a second launch and a
+// [T, P] copy per call), and tiles of several tokens of one row (that is kernel B,
+// and the probe would compare B with itself).
+//
 // bf16 queries (the served dtype): four warps; warp w takes slots
 // 16w .. 16w + 15 of every KV block. Q's G rows, padded to 16 with zeros,
 // are read once from device memory into mma A fragments. Each block is
@@ -63,11 +89,11 @@
 // multiplies score column j and the v scale p_j before P·V while the
 // denominator keeps p. No page is dequantized into device memory.
 //
-// float32 queries (tests, `tiny`): the same items, splits, merge and
-// staging, with f32 FMAs on CUDA cores and no TF32: each thread scores one
-// slot against eight query rows (eight independent accumulators, q read as
-// float4 broadcasts from shared memory) and accumulates hd / 8 (row,
-// column) outputs in registers.
+// float32 queries (tests, `tiny`, the probe): the same items, splits,
+// merge and staging, with f32 FMAs on CUDA cores and no TF32: each thread
+// scores one slot against eight query rows (eight independent
+// accumulators, q read as float4 broadcasts from shared memory) and
+// accumulates hd / 8 (row, column) outputs in registers.
 
 #pragma once
 
@@ -262,10 +288,24 @@ __device__ __forceinline__ void fma_block(unsigned char* sm, float (&o)[HD / 8],
   }
 }
 
-// T: q and output element type; KVT: pool element type (T, or int8_t with
-// f32 scales [NP, page, KV, 1]); HD: head dim (32, 64 or 128). Two blocks
-// per SM is the register target (the bf16 hd-128 stages fit two per SM):
-// without it ptxas spills to fit three.
+// Kernel I's packed token t: its walk length, the slots it attends in its
+// row, or 0 for a pad (q_pos < 0) or a row outside [0, R).
+__device__ __forceinline__ int token_len(const int* row_ids, const int* q_pos,
+                                         const int* kv_lens, int R, int t, int cap_slots) {
+  const int r = row_ids[t], p = q_pos[t];
+  return r >= 0 && r < R && p >= 0 ? min(min(kv_lens[r], p + 1), cap_slots) : 0;
+}
+
+// The kernels. T: q and output element type; KVT: pool element type (T,
+// or int8_t with f32 scales [NP, page, KV, 1]); HD: head dim (32, 64 or
+// 128). Each has the body (paged_decode_body.cuh) included as its own
+// statements, not called: so A's and C's code is the body's as a kernel
+// of its own (an inlined call in its place changes the loop code that
+// ptxas is given, and one instance's register count). Two blocks per SM
+// is the register target (the bf16 hd-128 stages fit two per SM): without
+// it ptxas spills to fit three.
+
+// Kernels A and C: item b is decode row b.
 template <typename T, typename KVT, int HD>
 __global__ void __launch_bounds__(kThreads, 2)
 paged_decode_kernel(const T* __restrict__ q, const KVT* __restrict__ k_pages,
@@ -274,263 +314,83 @@ paged_decode_kernel(const T* __restrict__ q, const KVT* __restrict__ k_pages,
                     const int* __restrict__ kv_lens, T* __restrict__ out,
                     float* __restrict__ part, int* __restrict__ counts, int B, int KV, int G,
                     int page, int pshift, int P, int cap, float scale) {
-  using L = Layout<T, KVT, HD>;
-  constexpr int S = L::kStages, CLD = L::kCLd;
-  extern __shared__ __align__(16) unsigned char sm[];
-  __shared__ int s_last;
-  const int tid = threadIdx.x, bkv = blockIdx.x, split = blockIdx.y;
-  const int b = bkv / KV, kv = bkv % KV, cap_slots = P * page;
-
-  if (bkv == 0 && split == 0 && tid < 32) {  // the launch's report
-    int n = 0;
-    for (int r = tid; r < B; r += 32) {
-      const int len = min(kv_lens[r], cap_slots);
-      if (len > 0) n += splits_of((len + kBN - 1) / kBN, cap);
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) n += __shfl_xor_sync(0xffffffffu, n, o);
-    if (tid == 0) {
-      counts[kItemsSlot] = n * KV;
-      counts[kGridSlot] = (int)(gridDim.x * gridDim.y);
-    }
-  }
-
-  // Head h = kv * G + g of row b: q and out [B, 1, H, hd] read as [B·KV, G, hd].
-  T* dst = out + (long)bkv * G * HD;
-  const int len = min(kv_lens[b], cap_slots);
-  if (len <= 0) {
-    if (split == 0)
-      for (int c = tid; c < G * HD * (int)sizeof(T) / 16; c += kThreads)
-        reinterpret_cast<uint4*>(dst)[c] = make_uint4(0u, 0u, 0u, 0u);
-    return;
-  }
-  const int nkb = (len + kBN - 1) / kBN, ns = splits_of(nkb, cap);
-  if (split >= ns) return;
-  const int kb0 = split * nkb / ns, nblk = (split + 1) * nkb / ns - kb0;
-  rbg::PageMap pmap{table + (long)b * P, 0, page, pshift};
-  pmap.last = pmap.last_of(len);
-  auto issue = [&](int st, int i) {
-    issue_block<T, KVT, HD>(sm, st, kb0 + i, k_pages, v_pages, k_scales, v_scales, pmap, kv,
-                            KV);
-  };
-#pragma unroll
-  for (int st = 0; st < S; ++st) {
-    if (st < nblk) issue(st, st);
-    rbg::cp_async_commit();
-  }
-
-  const float* ks = reinterpret_cast<const float*>(sm + L::kScaleOff) + 2 * S * kBN;
-  const float* vs = ks + kBN;
-  // Wait for step i's stage; int8 pools convert it into the shared tiles
-  // and refill it at once. Returns K's tile; V's follows it.
-  auto take = [&](int i) -> const T* {
-    const int stg = i % S;
-    rbg::cp_async_wait<S - 1>();
-    __syncthreads();
-    if constexpr (L::kQuant) {
-      convert_block<T, HD>(sm, stg);
-      __syncthreads();
-      if (i + S < nblk) issue(stg, i + S);
-      rbg::cp_async_commit();
-      return reinterpret_cast<const T*>(sm);
-    } else {
-      return reinterpret_cast<const T*>(sm + 2 * stg * L::kTile);
-    }
-  };
-  // After step i: model-dtype pools refill the stage just read.
-  auto refill = [&](int i) {
-    __syncthreads();
-    if constexpr (!L::kQuant) {
-      if (i + S < nblk) issue(i % S, i + S);
-      rbg::cp_async_commit();
-    }
-  };
-  // The split's result for query row r < G, column c: out when the row's
-  // walk is one split, else a partial of the merge.
-  auto finish = [&](int r, int c, float o, float m, float l) {
-    if (ns == 1) {
-      dst[r * HD + c] = rbg::from_f32<T>(o / fmaxf(l, 1e-30f));
-    } else {
-      float* mine = part + (((long)bkv * cap + split) * G + r) * CLD;
-      mine[c] = o;
-      if (c == 0) *reinterpret_cast<float2*>(mine + HD) = make_float2(m, l);
-    }
-  };
-  const T* qb = q + (long)bkv * G * HD;
-
-  if constexpr (L::kMma) {
-    rk::MmaState<HD> st;
-    const int warp = tid >> 5, lane = tid & 31, gid = lane >> 2, tig = lane & 3;
-    // A fragments of Q rows gid and gid + 8 (zero past G), from device memory.
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = gid + 8 * (j & 1), c = kk * 16 + 2 * tig + 8 * (j >> 1);
-        st.qa[kk][j] = r < G ? *reinterpret_cast<const uint32_t*>(qb + r * HD + c) : 0u;
-      }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      st.m[h] = rbg::kNegInf;
-      st.l[h] = 0.f;
-      st.lim[h] = len;
-    }
-#pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt)
-      st.o[dt][0] = st.o[dt][1] = st.o[dt][2] = st.o[dt][3] = 0.f;
-    const float sl2 = scale * rk::kLog2e;
-    for (int i = 0; i < nblk; ++i) {
-      const __nv_bfloat16* sk = take(i);
-      const int nb = kb0 + i;
-      rk::mma_block<KVT, HD, kBN / 4>(st, nb, warp * (kBN / 4), (nb + 1) * kBN > len, sk,
-                                      sk + L::kTile / (int)sizeof(T), ks, vs, sl2);
-      refill(i);
-    }
-    rbg::cp_async_wait<0>();
-    __syncthreads();
-    // Merge the four warps through shared memory (the stages are free
-    // now): per warp and row, o then m and l (quad sums of l).
-    float* cb = reinterpret_cast<float*>(sm);
-    float* wb = cb + warp * kRows * CLD;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float l = st.l[h];
-      l += __shfl_xor_sync(0xffffffffu, l, 1);
-      l += __shfl_xor_sync(0xffffffffu, l, 2);
-      float* rb = wb + (gid + 8 * h) * CLD;
-#pragma unroll
-      for (int dt = 0; dt < HD / 8; ++dt)
-        *reinterpret_cast<float2*>(rb + dt * 8 + tig * 2) =
-            make_float2(st.o[dt][2 * h], st.o[dt][2 * h + 1]);
-      if (tig == 0) {
-        rb[HD] = st.m[h];
-        rb[HD + 1] = l;
-      }
-    }
-    __syncthreads();
-    for (int i = tid; i < G * HD; i += kThreads) {
-      const int r = i / HD, c = i % HD;
-      const float* rb = cb + r * CLD;
-      float m = rbg::kNegInf;
-#pragma unroll
-      for (int w = 0; w < 4; ++w) m = fmaxf(m, rb[w * kRows * CLD + HD]);
-      float l = 0.f, o = 0.f;
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        const float* wr = rb + w * kRows * CLD;
-        const float x = exp2f(wr[HD] - m);  // 0 for a warp that saw no slot
-        l = fmaf(x, wr[HD + 1], l);
-        o = fmaf(x, wr[c], o);
-      }
-      finish(r, c, o, m, l);
-    }
-  } else {
-    float* sq = reinterpret_cast<float*>(sm + L::kQOff);
-    float* sm_ = sq + kRows * (HD + L::kSLd);
-    float* sl = sm_ + kRows;
-    for (int i = tid; i < kRows * HD; i += kThreads) sq[i] = i < G * HD ? rbg::to_f32(qb[i]) : 0.f;
-    for (int r = tid; r < kRows; r += kThreads) {
-      sm_[r] = rbg::kNegInf;
-      sl[r] = 0.f;
-    }
-    float o[HD / 8];
-#pragma unroll
-    for (int i = 0; i < HD / 8; ++i) o[i] = 0.f;
-    for (int i = 0; i < nblk; ++i) {
-      const float* sk = take(i);
-      const int nb = kb0 + i;
-      fma_block<KVT, HD>(sm, o, nb, (nb + 1) * kBN > len, len, sk, sk + L::kTile / 4, ks, vs,
-                         scale);
-      refill(i);
-    }
-    rbg::cp_async_wait<0>();
-    const int c = tid % HD, r0 = tid / HD;
-#pragma unroll
-    for (int i = 0; i < HD / 8; ++i) {
-      const int r = r0 + i * (kThreads / HD);
-      if (r < G) finish(r, c, o[i], sm_[r] * rk::kLog2e, sl[r]);
-    }
-  }
-
-  // Several splits: the last to finish merges every split's partial, in
-  // split order (its atomicInc wraps the count back to 0).
-  if (ns > 1) {
-    __threadfence();
-    __syncthreads();
-    if (tid == 0)
-      s_last = atomicInc(reinterpret_cast<unsigned*>(counts) + kDoneSlot0 + bkv,
-                         (unsigned)(ns - 1)) == (unsigned)(ns - 1);
-    __syncthreads();
-    if (s_last) {
-      __threadfence();
-      const float* all = part + (long)bkv * cap * G * CLD;
-      for (int i = tid; i < G * (HD / 4); i += kThreads) {
-        const int r = i / (HD / 4), c = (i % (HD / 4)) * 4;
-        float m = rbg::kNegInf;
-        for (int s = 0; s < ns; ++s) m = fmaxf(m, __ldcg(all + (s * G + r) * CLD + HD));
-        float l = 0.f;
-        float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-        for (int s = 0; s < ns; ++s) {
-          const float* p = all + (s * G + r) * CLD;
-          const float2 ml = __ldcg(reinterpret_cast<const float2*>(p + HD));
-          const float4 v = __ldcg(reinterpret_cast<const float4*>(p + c));
-          const float w = exp2f(ml.x - m);
-          l = fmaf(w, ml.y, l);
-          a.x = fmaf(w, v.x, a.x);
-          a.y = fmaf(w, v.y, a.y);
-          a.z = fmaf(w, v.z, a.z);
-          a.w = fmaf(w, v.w, a.w);
-        }
-        const float inv = 1.f / fmaxf(l, 1e-30f);
-        rbg::store4(dst + r * HD + c, make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv));
-      }
-    }
-  }
+  constexpr bool kTok = false;
+  const int* row_ids = nullptr;
+  const int* q_pos = nullptr;
+  const int R = B;
+#include "paged_decode_body.cuh"
 }
 
-template <typename T, typename KVT, int HD>
+// Kernel I: item b is packed token b of n_tokens = B, over R table rows.
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads, 2)
+ragged_paged_tokengrid_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
+                              const T* __restrict__ v_pages, const int* __restrict__ table,
+                              const int* __restrict__ kv_lens,
+                              const int* __restrict__ row_ids,
+                              const int* __restrict__ q_pos, T* __restrict__ out,
+                              float* __restrict__ part, int* __restrict__ counts, int B, int R,
+                              int KV, int G, int page, int pshift, int P, int cap,
+                              float scale) {
+  using KVT = T;
+  constexpr bool kTok = true;
+  const float* k_scales = nullptr;
+  const float* v_scales = nullptr;
+#include "paged_decode_body.cuh"
+}
+
+template <typename T, typename KVT, int HD, bool kTok>
 int launch_hd(const void* q, const void* k_pages, const void* v_pages, const void* k_scales,
-              const void* v_scales, const void* table, const void* kv_lens, void* out,
-              void* part, void* counts, int B, int KV, int G, int page, int P, int cap,
-              float scale, int dev, cudaStream_t stream) {
+              const void* v_scales, const void* table, const void* kv_lens,
+              const void* row_ids, const void* q_pos, void* out, void* part, void* counts,
+              int B, int R, int KV, int G, int page, int P, int cap, float scale, int dev,
+              cudaStream_t stream) {
   using L = Layout<T, KVT, HD>;
   // The shared-memory attribute, once per device (set even under 48 KB:
   // the static flag adds to the dynamic plan).
   static bool ready[kMaxDevices];
   if (!ready[dev]) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        paged_decode_kernel<T, KVT, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+    cudaError_t err;
+    if constexpr (kTok)
+      err = cudaFuncSetAttribute(ragged_paged_tokengrid_kernel<T, HD>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+    else
+      err = cudaFuncSetAttribute(paged_decode_kernel<T, KVT, HD>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
     if (err != cudaSuccess) return (int)err;
     ready[dev] = true;
   }
   const long nkb = ((long)P * page + kBN - 1) / kBN;
   const int gy = (int)max(1L, min((long)cap, (nkb + kMinSplitBlocks - 1) / kMinSplitBlocks));
-  paged_decode_kernel<T, KVT, HD><<<dim3(B * KV, gy), kThreads, L::kBytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const KVT*>(k_pages),
-      static_cast<const KVT*>(v_pages), static_cast<const float*>(k_scales),
-      static_cast<const float*>(v_scales), static_cast<const int*>(table),
-      static_cast<const int*>(kv_lens), static_cast<T*>(out), static_cast<float*>(part),
-      static_cast<int*>(counts), B, KV, G, page, rbg::page_shift(page), P, cap, scale);
+  const dim3 grid(B * KV, gy);
+  if constexpr (kTok)
+    ragged_paged_tokengrid_kernel<T, HD><<<grid, kThreads, L::kBytes, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k_pages),
+        static_cast<const T*>(v_pages), static_cast<const int*>(table),
+        static_cast<const int*>(kv_lens), static_cast<const int*>(row_ids),
+        static_cast<const int*>(q_pos), static_cast<T*>(out), static_cast<float*>(part),
+        static_cast<int*>(counts), B, R, KV, G, page, rbg::page_shift(page), P, cap, scale);
+  else
+    paged_decode_kernel<T, KVT, HD><<<grid, kThreads, L::kBytes, stream>>>(
+        static_cast<const T*>(q), static_cast<const KVT*>(k_pages),
+        static_cast<const KVT*>(v_pages), static_cast<const float*>(k_scales),
+        static_cast<const float*>(v_scales), static_cast<const int*>(table),
+        static_cast<const int*>(kv_lens), static_cast<T*>(out), static_cast<float*>(part),
+        static_cast<int*>(counts), B, KV, G, page, rbg::page_shift(page), P, cap, scale);
   return (int)cudaGetLastError();
 }
 
-}  // namespace pd
-
-// The shapes the kernel takes (the wrapper refuses others first, with a
-// ValueError): hd 32, 64 or 128, 1 <= G <= 16, any page size,
-// 1 <= cap <= pd::kMaxSplits. part: float32 scratch of B * KV * cap * G *
-// (hd + 4); counts: int32 of pd::kDoneSlot0 + B * KV, zero when first used.
-// The launch goes to device `dev` (q's, whose stream `stream` is); the
-// calling thread's current device is left as it was.
-template <typename T, typename KVT>
-int launch_decode(const void* q, const void* k_pages, const void* v_pages,
-                  const void* k_scales, const void* v_scales, const void* table,
-                  const void* kv_lens, void* out, void* part, void* counts, int B, int KV,
-                  int G, int hd, int page, int P, int cap, float scale, int dev,
-                  cudaStream_t stream) {
+// Checks the sizes, switches to device `dev` and launches the instance of
+// head dim hd; the calling thread's current device is left as it was.
+template <typename T, typename KVT, bool kTok>
+int launch(const void* q, const void* k_pages, const void* v_pages, const void* k_scales,
+           const void* v_scales, const void* table, const void* kv_lens, const void* row_ids,
+           const void* q_pos, void* out, void* part, void* counts, int B, int R, int KV,
+           int G, int hd, int page, int P, int cap, float scale, int dev,
+           cudaStream_t stream) {
   if (B == 0) return 0;
-  if (G < 1 || G > pd::kRows || page < 1 || cap < 1 ||
-      cap > pd::kMaxSplits || dev < 0 || dev >= pd::kMaxDevices)
+  if (G < 1 || G > kRows || page < 1 || cap < 1 || cap > kMaxSplits || dev < 0 ||
+      dev >= kMaxDevices)
     return (int)cudaErrorInvalidValue;
   int cur = 0;
   cudaError_t err = cudaGetDevice(&cur);
@@ -539,23 +399,57 @@ int launch_decode(const void* q, const void* k_pages, const void* v_pages,
   int rc = (int)cudaErrorInvalidValue;
   switch (hd) {
     case 32:
-      rc = pd::launch_hd<T, KVT, 32>(q, k_pages, v_pages, k_scales, v_scales, table, kv_lens,
-                                     out, part, counts, B, KV, G, page, P, cap, scale, dev,
-                                     stream);
+      rc = launch_hd<T, KVT, 32, kTok>(q, k_pages, v_pages, k_scales, v_scales, table, kv_lens,
+                                       row_ids, q_pos, out, part, counts, B, R, KV, G, page,
+                                       P, cap, scale, dev, stream);
       break;
     case 64:
-      rc = pd::launch_hd<T, KVT, 64>(q, k_pages, v_pages, k_scales, v_scales, table, kv_lens,
-                                     out, part, counts, B, KV, G, page, P, cap, scale, dev,
-                                     stream);
+      rc = launch_hd<T, KVT, 64, kTok>(q, k_pages, v_pages, k_scales, v_scales, table, kv_lens,
+                                       row_ids, q_pos, out, part, counts, B, R, KV, G, page,
+                                       P, cap, scale, dev, stream);
       break;
     case 128:
-      rc = pd::launch_hd<T, KVT, 128>(q, k_pages, v_pages, k_scales, v_scales, table, kv_lens,
-                                      out, part, counts, B, KV, G, page, P, cap, scale, dev,
-                                      stream);
+      rc = launch_hd<T, KVT, 128, kTok>(q, k_pages, v_pages, k_scales, v_scales, table,
+                                        kv_lens, row_ids, q_pos, out, part, counts, B, R, KV,
+                                        G, page, P, cap, scale, dev, stream);
       break;
   }
   if (cur != dev) cudaSetDevice(cur);
   return rc;
+}
+
+}  // namespace pd
+
+// The shapes the kernels take (the wrappers refuse others first, with a
+// ValueError): hd 32, 64 or 128, 1 <= G <= 16, any page size,
+// 1 <= cap <= pd::kMaxSplits. part: float32 scratch of B * KV * cap * G *
+// (hd + 4); counts: int32 of pd::kDoneSlot0 + B * KV, zero when first used.
+// The launch goes to device `dev` (q's, whose stream `stream` is); the
+// calling thread's current device is left as it was.
+
+// Kernels A and C: B decode rows, table [B, P], kv_lens [B].
+template <typename T, typename KVT>
+int launch_decode(const void* q, const void* k_pages, const void* v_pages,
+                  const void* k_scales, const void* v_scales, const void* table,
+                  const void* kv_lens, void* out, void* part, void* counts, int B, int KV,
+                  int G, int hd, int page, int P, int cap, float scale, int dev,
+                  cudaStream_t stream) {
+  return pd::launch<T, KVT, false>(q, k_pages, v_pages, k_scales, v_scales, table, kv_lens,
+                                   nullptr, nullptr, out, part, counts, B, B, KV, G, hd, page,
+                                   P, cap, scale, dev, stream);
+}
+
+// Kernel I: a pack of n_tokens tokens over R table rows, table [R, P],
+// kv_lens [R], row_ids and q_pos [n_tokens]; B = n_tokens above.
+template <typename T>
+int launch_tokengrid(const void* q, const void* k_pages, const void* v_pages,
+                     const void* table, const void* kv_lens, const void* row_ids,
+                     const void* q_pos, void* out, void* part, void* counts, int n_tokens,
+                     int R, int KV, int G, int hd, int page, int P, int cap, float scale,
+                     int dev, cudaStream_t stream) {
+  return pd::launch<T, T, true>(q, k_pages, v_pages, nullptr, nullptr, table, kv_lens, row_ids,
+                                q_pos, out, part, counts, n_tokens, R, KV, G, hd, page, P, cap,
+                                scale, dev, stream);
 }
 
 }  // namespace

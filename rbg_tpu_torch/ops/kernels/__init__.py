@@ -57,7 +57,7 @@ def check_tensors(q: torch.Tensor, pools=(), int32=(), others=()) -> None:
             raise ValueError("KV pools must be 16-byte aligned")
 
 
-# The int32 counts of the kernels that merge split walks on the card (A-H):
+# The int32 counts of the kernels that merge split walks on the card (A-I):
 # slot 0 is the ragged kernels' (B, D, F, H) work queue head, slots 1 and 2
 # the last launch's work items and grid blocks, the rest each split walk's
 # finished-split count.
@@ -85,7 +85,7 @@ def scratch(q: torch.Tensor, stream: int, n_part: int, n_counts: int):
 
 
 def launch_report(device: torch.device) -> dict:
-    """What the last launch of A-H on ``device``'s current stream derived,
+    """What the last launch of A-I on ``device``'s current stream derived,
     as the kernel wrote it: ``work_items`` (the items it ran) and
     ``grid_blocks``. Waits for the stream."""
     idx = device.index if device.index is not None else torch.cuda.current_device()

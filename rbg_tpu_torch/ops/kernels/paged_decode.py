@@ -11,7 +11,8 @@ finishes last merges the others' partials on the card. The kernel takes hd
 in ``HEAD_DIMS``, G <= 16 and any page size (each slot's page is looked up
 as the walk goes, so a block may span parts of pages or lie inside one);
 ``check_decode`` refuses anything else with a ``ValueError`` before any
-launch."""
+launch. Kernel I (``ragged_paged_tokengrid.py``) runs the same body with a
+packed token in the row's place."""
 
 from __future__ import annotations
 
@@ -52,20 +53,32 @@ def check_shapes(name: str, q: torch.Tensor, k_pages: torch.Tensor,
     return KV, G, hd, page
 
 
-def check_decode(name: str, q, k_pages, v_pages, page_table, kv_lens):
-    """Decode kernels' argument checks: ``check_shapes``, T == 1, hd in
-    HEAD_DIMS and q 16-byte aligned. Returns (B, KV, G, hd, page)."""
-    B, T = q.shape[:2]
-    if T != 1:
-        raise ValueError(f"{name} takes decode steps (T == 1), got T={T}")
+def check_body_shapes(name: str, q, k_pages, v_pages):
+    """The limits of the decode body (kernels A, C and I): ``check_shapes``
+    and hd in HEAD_DIMS. Returns (KV, G, hd, page)."""
     KV, G, hd, page = check_shapes(name, q, k_pages, v_pages)
     if hd not in HEAD_DIMS:
         raise ValueError(f"{name} takes hd in {HEAD_DIMS}; got hd={hd}")
+    return KV, G, hd, page
+
+
+def check_aligned(name: str, q) -> None:
+    """The decode body reads q in 16-byte-aligned pieces."""
+    if q.data_ptr() % 16:
+        raise ValueError(f"{name} needs q 16-byte aligned")
+
+
+def check_decode(name: str, q, k_pages, v_pages, page_table, kv_lens):
+    """Decode kernels' argument checks: T == 1, ``check_body_shapes`` and
+    q 16-byte aligned. Returns (B, KV, G, hd, page)."""
+    B, T = q.shape[:2]
+    if T != 1:
+        raise ValueError(f"{name} takes decode steps (T == 1), got T={T}")
+    KV, G, hd, page = check_body_shapes(name, q, k_pages, v_pages)
     if page_table.dim() != 2 or page_table.shape[0] != B or kv_lens.shape != (B,):
         raise ValueError("page_table must be [B, P] and kv_lens [B]")
     check_tensors(q, pools=(k_pages, v_pages), int32=(page_table, kv_lens))
-    if q.data_ptr() % 16:
-        raise ValueError(f"{name} needs q 16-byte aligned")
+    check_aligned(name, q)
     return B, KV, G, hd, page
 
 
@@ -77,9 +90,9 @@ def split_cap(B: int, KV: int) -> int:
 
 def decode_scratch(q: torch.Tensor, stream: int, B: int, KV: int, G: int, hd: int,
                    cap: int):
-    """A and C's share of the merging kernels' scratch on ``stream``:
-    float32 partials [B * KV, cap, G, hd + 4] and a count per (row, kv
-    head) after the first _DONE0."""
+    """A, C and I's share of the merging kernels' scratch on ``stream``:
+    float32 partials [B * KV, cap, G, hd + 4] and a count per (row or
+    token, kv head) after the first _DONE0."""
     return scratch(q, stream, B * KV * cap * G * (hd + 4), _DONE0 + B * KV)
 
 

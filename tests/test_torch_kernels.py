@@ -907,32 +907,94 @@ def test_mla_q_wrappers_refuse_bad_inputs(dev):
     assert LAUNCHES["paged_mla_decode_q"] == LAUNCHES["ragged_paged_mla_q"] == 0
 
 
+# Packs of kernel I's tokens; (specs, _ragged_case kwargs but P).
+TOKENGRID_LAYOUTS = {
+    "straddle": ([(12, 12), (1, 9), (20, 100)], {}),
+    "pads": ([(2, 9), (1, 13)], dict(pads=13)),
+    "shuffled": ([(5, 15), (1, 21), (1, 4), (3, 40)],
+                 dict(order=lambda n: np.random.RandomState(7).permutation(n))),
+    "empty_row": ([(3, 30), (1, 5), (0, 0)], {}),
+    # 4 tokens at kv_len >= 1500 in an 8-token bucket: T * KV < 512, so
+    # every walk splits (cap 8 at KV = 8, 16 at KV = 2) and merges on the card
+    "split": ([(2, 1500), (1, 2000), (1, 1600)], dict(pads=4)),
+}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("KV,G,hd", [(8, 4, 128), (2, 7, 64)])
-@pytest.mark.parametrize("layout", ["straddle", "pads", "shuffled", "empty_row"])
-def test_tokengrid_matches_plain(dev, dtype, KV, G, hd, layout):
-    """Kernel I against the plain version (B's function) on B's layouts."""
+@pytest.mark.parametrize("layout", sorted(TOKENGRID_LAYOUTS))
+@pytest.mark.parametrize("page", [16, 24, 128])
+def test_tokengrid_matches_plain(dev, dtype, KV, G, hd, layout, page):
+    """Kernel I against the plain version (B's function) on B's layouts, at
+    page sizes 16, 24 (blocks span pages) and 128 (pages span blocks)."""
     rng = np.random.RandomState(11)
-    kw = {}
-    if layout == "straddle":
-        specs = [(12, 12), (1, 9), (20, 100)]
-    elif layout == "pads":
-        specs, kw = [(2, 9), (1, 13)], dict(pads=13)
-    elif layout == "shuffled":
-        specs = [(5, 15), (1, 21), (1, 4), (3, 40)]
-        kw = dict(order=lambda n: np.random.RandomState(7).permutation(n))
-    else:
-        specs = [(3, 30), (1, 5), (0, 0)]
+    specs, kw = TOKENGRID_LAYOUTS[layout]
+    P = max(8, -(-max(kv for _, kv in specs) // page))
     q, k, v, table, qpos, lens, rows = _ragged_case(rng, dev, dtype, specs,
-                                                    KV, G, hd, **kw)
+                                                    KV, G, hd, page=page, P=P, **kw)
     reset_launches()
     got = ragged_paged_attention_tokengrid(q, k, v, table, qpos, lens, rows,
                                            use_kernels="always")
     torch.cuda.synchronize()
     assert LAUNCHES["ragged_paged_tokengrid"] == 1 and LAUNCHES["ragged_paged"] == 0
+    assert _split_counts_zero()
     ref = ragged_paged_attention_plain(q, k, v, table, qpos, lens, rows)
     torch.testing.assert_close(got.float(), ref.float(), **_tol(dtype))
     assert torch.all(got[0, qpos[0] < 0] == 0)
+
+
+# Kernel I's items are (token, kv head, split), a token's walk of len =
+# min(kv_len, q_pos + 1) slots splitting into min(cap, ceil(blocks / 2))
+# parts, cap = min(16, ceil(512 / (T * KV))). The mixed pack (MIXED_SPEC,
+# 260 real tokens and 252 pads, T = 512): T * KV reaches 512 at KV = 8 and
+# KV = 2, so the cap is 1 and every real token is one item: 260 per kv
+# head, on a grid of 512 * KV x 1 blocks. The split pack (tokens of kv_len
+# 1499, 1500, 2000 and 1600 in 24, 24, 32 and 25 blocks, 4 pads, T = 8):
+# at KV = 8 the cap is 8, so 8 + 8 + 8 + 8 = 32 items per kv head on 64 x 8
+# blocks; at KV = 2 it is 16, so 12 + 12 + 16 + 13 = 53 on 16 x 16 (the
+# grid's rows: min(cap, ceil(ceil(P * 16 / 64) / 2)), the same at P = 128
+# and 512).
+@pytest.mark.parametrize("KV,G,hd,pack,want,grid", [
+    (8, 4, 128, "mixed", 260, 512 * 8), (2, 7, 64, "mixed", 260, 512 * 2),
+    (8, 4, 128, "split", 32, 64 * 8), (2, 7, 64, "split", 53, 16 * 16)])
+def test_tokengrid_work_items(dev, KV, G, hd, pack, want, grid):
+    """The work items kernel I reports, read back from its counts; the
+    same items and output bits in a table 4x wider; the split counts back
+    at 0."""
+    from rbg_tpu_torch.ops.kernels import launch_report
+    from rbg_tpu_torch.ops.kernels.ragged_paged_tokengrid import (
+        ragged_paged_attention_tokengrid_cuda)
+    rng = np.random.RandomState(16)
+    specs, pads = ((MIXED_SPEC, 252) if pack == "mixed"
+                   else ([(2, 1500), (1, 2000), (1, 1600)], 4))
+    q, k, v, table, qpos, lens, rows = _ragged_case(rng, dev, torch.bfloat16, specs,
+                                                    KV, G, hd, P=128, pads=pads)
+    fn = lambda t: ragged_paged_attention_tokengrid_cuda(q, k, v, t, qpos, lens, rows)  # noqa: E731
+    got = fn(table)
+    assert launch_report(q.device) == {"work_items": want * KV, "grid_blocks": grid}
+    wide = torch.nn.functional.pad(table, (0, 512 - table.shape[1]))
+    assert torch.equal(fn(wide), got)
+    assert launch_report(q.device) == {"work_items": want * KV, "grid_blocks": grid}
+    torch.cuda.synchronize()
+    assert _split_counts_zero()
+    ref = ragged_paged_attention_plain(q, k, v, table, qpos, lens, rows)
+    torch.testing.assert_close(got.float(), ref.float(), **_tol(torch.bfloat16))
+
+
+def test_tokengrid_refuses_unsupported_shapes(dev):
+    """Kernel I takes hd 32, 64 or 128 and G <= 16 (A's limits); anything
+    else is a ValueError before any launch, never the plain version."""
+    from rbg_tpu_torch.ops.kernels.ragged_paged_tokengrid import (
+        ragged_paged_attention_tokengrid_cuda)
+    rng = np.random.RandomState(17)
+    reset_launches()
+    for KV, G, hd in [(2, 2, 96), (1, 17, 64)]:
+        case = _ragged_case(rng, dev, torch.bfloat16, [(3, 9), (1, 5)], KV, G, hd, P=2)
+        with pytest.raises(ValueError):
+            ragged_paged_attention_tokengrid_cuda(*case)
+        with pytest.raises(ValueError):     # the dispatcher does not fall back
+            ragged_paged_attention_tokengrid(*case)
+    assert sum(LAUNCHES.values()) == 0
 
 
 def test_block_ragged_probe_on_the_card(dev):

@@ -13,7 +13,7 @@ from rbg_tpu.ops.norms import rms_norm as j_rms_norm
 from rbg_tpu.ops.paged_attention import paged_attention_xla, write_kv_pages as j_write
 from rbg_tpu.ops.pallas.paged_attention_kernel import paged_attention_pallas
 from rbg_tpu.ops.pallas.ragged_attention_kernel import (
-    Q_TILE, ragged_paged_attention_pallas)
+    Q_TILE, ragged_paged_attention_pallas, ragged_paged_attention_pallas_tokengrid)
 from rbg_tpu.ops.ragged_paged_attention import (
     _unpack_offsets as j_unpack, ragged_paged_attention_xla,
     write_kv_pages_ragged as j_write_ragged)
@@ -121,6 +121,24 @@ def test_ragged_plain_matches_xla_and_pallas(layout):
     np.testing.assert_allclose(
         got, np.asarray(ragged_paged_attention_pallas(*jc, interpret=True)),
         atol=ATOL, rtol=ATOL)
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS) + ["pads_and_empty_row"])
+def test_ragged_plain_matches_tokengrid_pallas(layout):
+    """The plain version (kernel I's yardstick on the card) against the
+    token-grid Pallas kernel in interpret mode on the layouts a token grid
+    is sensitive to, pads included (both give a pad, q_pos -1, exactly 0),
+    and beside a table row of kv_len 0."""
+    if layout == "pads_and_empty_row":
+        case = _ragged_case(11, [(3, 30), (1, 5), (0, 0)], pads=5)
+    else:
+        case = _ragged_case(11, LAYOUTS[layout])
+    got = ragged_paged_attention_plain(*map(t, case)).numpy()
+    ref = np.asarray(ragged_paged_attention_pallas_tokengrid(
+        *map(jnp.asarray, case), interpret=True))
+    np.testing.assert_allclose(got, ref, atol=ATOL, rtol=ATOL)
+    pads = case[4][0] < 0
+    assert np.all(got[:, pads] == 0) and np.all(ref[:, pads] == 0)
 
 
 def test_ragged_plain_all_pad_tile_and_max_q_len():
