@@ -64,6 +64,25 @@ Phases, each printing one JSON line:
              this process: a base request alone equal to an engine without
              adapters, adapters a and b and a base row in one batch, each
              stream its own; an unknown adapter refused.
+   grammar — grammar-constrained decoding (the byte tokenizer's grammar
+             wired with enable_json_grammar): one batch of 8 (two regex
+             rows, two bounded json_schema rows, a json_mode row, a
+             json_schema row over grammar_state_budget, two free rows;
+             greedy and seeded) through Engine at multi_step 4 with device
+             tables ("auto") and without ("off"): every constrained token
+             legal, finished rows fullmatch their regex or conform to their
+             schema, greedy rows equal between auto and off, kernels A and B
+             launched; then one decode step at B = 8 (multi_step 1) with 0
+             grammar rows, 4 tabled rows and 1 table-less row, in turns:
+             wall and device ms, the table bytes held, and the sync warnings
+             of a 4-step window with and without its grammar rows (the
+             grammar may add none).
+   frontend — the port's OpenAI front end in front of the port's server
+             (grammar wired): /healthz, /v1/models, a guided_regex
+             completion, a response_format json_schema chat and a free
+             completion, each also streamed (equal text), TTFT and total
+             latency, /v1/embeddings, and a 400 for an unsupported
+             response_format.
    int8    — the same engine script with kv_dtype="int8" (kernels C, D),
              multi_step 4, its three witnesses on int8 pools and the server
              over int8 pools.
@@ -1166,6 +1185,458 @@ def lora_phase(torch, np, params, model, card):
                              f"unknown {bad}")
 
 
+# ---- grammar-constrained decoding and the OpenAI front end ----
+
+# A bounded schema (an enum field and an integer field; 33 table states at
+# the byte tokenizer) and one over GRAMMAR_BUDGET (55 states): the first
+# decodes inside the fused window, the second through the K = 0 verify.
+GRAMMAR_SCHEMA = {"type": "object", "properties": {
+    "state": {"enum": ["on", "off", "idle"]},
+    "id": {"type": "integer"},
+}}
+GRAMMAR_BIG_SCHEMA = {"type": "object", "properties": {
+    "ok": {"type": "boolean"},
+    "tags": {"type": "array", "items": {"enum": ["a", "b"]}, "maxItems": 2},
+    "n": {"type": "number"},
+}}
+GRAMMAR_REGEX = r"[0-9]{3}-[0-9]{4}"
+GRAMMAR_BUDGET = 40
+GRAMMAR_STEPS = 12               # decode steps timed per case and turn
+
+
+def grammar_rows(SamplingParams, eos):
+    """The grammar phase's batch of 8: two regex rows, two bounded-schema
+    rows, a json_mode row, an over-budget schema row, two free rows;
+    greedy and seeded."""
+    from rbg_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    enc = lambda s: ByteTokenizer().encode(s, add_bos=False)  # noqa: E731
+    hot = dict(temperature=0.9, top_k=40)
+    return [
+        (enc("Call "), SamplingParams(max_new_tokens=16, regex=GRAMMAR_REGEX, stop_token=eos)),
+        (enc("Fax "), SamplingParams(max_new_tokens=16, regex=GRAMMAR_REGEX, seed=3,
+                                     stop_token=eos, **hot)),
+        (enc("Device: "), SamplingParams(max_new_tokens=48, json_schema=GRAMMAR_SCHEMA,
+                                         stop_token=eos)),
+        (enc("Lamp: "), SamplingParams(max_new_tokens=48, json_schema=GRAMMAR_SCHEMA,
+                                       seed=4, stop_token=eos, **hot)),
+        (enc("JSON: "), SamplingParams(max_new_tokens=24, json_mode=True, stop_token=eos)),
+        (enc("Tags: "), SamplingParams(max_new_tokens=32, json_schema=GRAMMAR_BIG_SCHEMA,
+                                       seed=5, stop_token=eos, **hot)),
+        (enc("Once upon a time"), SamplingParams(max_new_tokens=20)),
+        (enc("The weather"), SamplingParams(max_new_tokens=20, seed=6, **hot)),
+    ]
+
+
+def grammar_engine(params, model, dev, **kw):
+    from rbg_tpu_torch.engine.config import EngineConfig
+    from rbg_tpu_torch.engine.engine import Engine
+    from rbg_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    cfg = dict(model=model, num_pages=512, max_seq_len=1024, decode_buckets=(8,),
+               device=dev)
+    eng = Engine(EngineConfig(**{**cfg, **kw}), params=params)
+    eng.enable_json_grammar(ByteTokenizer())
+    return eng
+
+
+def run_rows(eng, rows):
+    ids = [eng.add_request(p, sp) for p, sp in rows]
+    out = {i: [] for i in ids}
+    while eng.has_work():
+        for ev in eng.step():
+            out[ev.request_id].append(ev.token)
+    return [out[i] for i in ids]
+
+
+def check_grammar_rows(eng, rows, streams, eos):
+    """Every constrained token legal under the port's grammar (EOS only at
+    an accepting state); regex rows ending on EOS fullmatch, schema rows
+    ending on EOS parse and conform. Returns each row's text and whether
+    it finished on EOS."""
+    import re
+
+    from rbg_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    out = []
+    for (_, sp), toks in zip(rows, streams):
+        g = eng._grammar_for(sp)
+        ended = bool(toks) and toks[-1] == eos
+        text = tok.decode(toks[:-1] if ended else toks)
+        out.append({"text": text, "eos": ended, "n": len(toks)})
+        if g is None:
+            continue
+        s = g.initial()
+        for i, t in enumerate(toks):
+            if t == eos:
+                if not (g.grammar.is_complete(s) and i == len(toks) - 1):
+                    raise AssertionError(f"grammar: EOS at a non-accepting state: {sp} {toks}")
+                continue
+            s = g.advance_token(s, t)
+            if s is None:
+                raise AssertionError(f"grammar: token {i} ({t}) illegal: {sp} {toks}")
+        if not ended:
+            continue
+        if sp.regex is not None and not re.fullmatch(sp.regex, text):
+            raise AssertionError(f"grammar: {text!r} does not fullmatch {sp.regex!r}")
+        if sp.json_schema is not None or sp.json_mode:
+            doc = json.loads(text)
+            if sp.json_schema == GRAMMAR_SCHEMA and not (
+                    list(doc) == ["state", "id"] and doc["state"] in ("on", "off", "idle")
+                    and isinstance(doc["id"], int)):
+                raise AssertionError(f"grammar: {doc} does not conform")
+            if sp.json_schema == GRAMMAR_BIG_SCHEMA and not (
+                    list(doc) == ["ok", "tags", "n"] and isinstance(doc["ok"], bool)
+                    and len(doc["tags"]) <= 2 and set(doc["tags"]) <= {"a", "b"}
+                    and isinstance(doc["n"], (int, float))):
+                raise AssertionError(f"grammar: {doc} does not conform")
+    return out
+
+
+def grammar_gap(torch, eng, prompt, toks, j, sp, dev):
+    """Top-2 gap of the grammar-masked logits before token j of a row (one
+    forward_ragged of prompt + toks[:j] on a fresh pool)."""
+    from rbg_tpu_torch.engine.kvcache import PagedKVCache
+    from rbg_tpu_torch.models.llama import forward_ragged
+
+    seq = list(prompt) + list(toks[:j])
+    n, page = len(seq), 16
+    P = -(-n // page)
+    cache = PagedKVCache.create(eng.mcfg, P + 1, page, device=dev)
+    logits = forward_ragged(
+        eng.params, eng.mcfg, torch.tensor([seq], device=dev),
+        torch.arange(n, dtype=torch.int32, device=dev)[None],
+        torch.ones(1, n, dtype=torch.bool, device=dev),
+        torch.zeros(n, dtype=torch.int32, device=dev),
+        torch.tensor([n], dtype=torch.int32, device=dev),
+        torch.arange(1, P + 1, dtype=torch.int32, device=dev)[None],
+        cache.k_pages, cache.v_pages, max_q_len=n)[0, -1].float()
+    g = eng._grammar_for(sp)
+    if g is not None:
+        s = g.initial()
+        for t in toks[:j]:
+            s = g.advance_token(s, t) or s
+        logits = torch.where(torch.from_numpy(eng._gmask(g, s)).to(dev), logits,
+                             float("-inf"))
+    top = torch.topk(logits, 2).values
+    return float(top[0] - top[1])
+
+
+def window_sync_warnings(torch, eng, with_grammar, K=4):
+    """Sync warnings (torch.cuda.set_sync_debug_mode("warn")) raised by one
+    K-step fused window over the engine's current decode batch, with its
+    grammar rows' device tables or with the grammar keys dropped. Runs on
+    a copy of the window state, on pages past every row's length."""
+    import warnings
+
+    from rbg_tpu_torch.engine.kvcache import pages_for_tokens
+
+    eng._drain_decode()
+    batch = eng._decode_batch()
+    for r in batch:
+        need = pages_for_tokens(r.seq_len + K, eng.cfg.page_size) - len(r.pages)
+        if need > 0:
+            r.pages.extend(eng._alloc(need))
+    st = eng._build_decode_state(batch)
+    if not with_grammar:
+        st = {k: v for k, v in st.items()
+              if k not in ("gnext", "glegal", "gstate", "gactive")}
+    eng._run_window(dict(st), K)            # warm
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            eng._run_window(dict(st), K)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    # The mode's one-time notice that it is a prototype is no sync.
+    return [str(w.message)[:200] for w in caught
+            if "called a synchronizing" in str(w.message)]
+
+
+def step_times(torch, eng, n):
+    """Wall ms (host clock to a synchronize) and device ms (sum of the
+    CUDA kernels' and copies' own times, torch.profiler) per engine step,
+    each over n steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        eng.step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            eng.step()
+        torch.cuda.synchronize()
+    dev = sum(e.self_device_time_total for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA)
+    return wall, dev / n / 1e3
+
+
+def grammar_timing(torch, params, model, card, dev="cuda"):
+    """One decode step (multi_step 1) at B = 8 with 0 grammar rows, with 4
+    tabled grammar rows and with 1 table-less row, in turns (two turns):
+    wall and device ms per step. Each case's rows are in steady decode
+    (after their prefill and three warm steps) for the whole reading; the
+    tabled rows' regexes ([a-f]{40,60}, [g-p]{40,60}) fit the budget of
+    128 states, the table-less row's ([0-9]{150,200}) does not. The
+    tabled case also counts the sync warnings of one 4-step window with
+    and without its grammar rows."""
+    from rbg_tpu_torch.engine.config import SamplingParams
+    from rbg_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    eng = grammar_engine(params, model, dev, multi_step=1, grammar_state_budget=128,
+                         decode_buckets=(1, 2, 4, 8, 16, 32, 64))
+    n_new = 1 + 3 + 2 * GRAMMAR_STEPS + 8
+    free = lambda i: (tok.encode(f"Row {i}:", add_bos=False),  # noqa: E731
+                      SamplingParams(max_new_tokens=n_new))
+    tabled = [(tok.encode(f"Hex {i}:", add_bos=False),
+               SamplingParams(max_new_tokens=n_new, stop_token=tok.eos_id,
+                              regex=("[a-f]{40,60}", "[g-p]{40,60}")[i % 2]))
+              for i in range(4)]
+    loose = (tok.encode("Digits:", add_bos=False),
+             SamplingParams(max_new_tokens=n_new, regex="[0-9]{150,200}",
+                            stop_token=tok.eos_id))
+    cases = {"grammar_0": [free(i) for i in range(8)],
+             "tabled_4": tabled + [free(i) for i in range(4)],
+             "tableless_1": [loose] + [free(i) for i in range(7)]}
+    out = {c: [] for c in cases}
+    sync = None
+    for turn in range(2):
+        for name, rows in cases.items():
+            ids = [eng.add_request(p, sp) for p, sp in rows]
+            while any(eng.requests[i].state != "running" for i in ids):
+                eng.step()
+            for _ in range(3):
+                eng.step()
+            wall, dev = step_times(torch, eng, GRAMMAR_STEPS)
+            running = sum(eng.requests.get(i) is not None
+                          and eng.requests[i].state == "running" for i in ids)
+            if running != 8:
+                raise AssertionError(f"grammar timing {name}: {running} of 8 rows "
+                                     "still decoding")
+            if name == "tabled_4" and turn == 0:
+                sync = {"with_grammar": window_sync_warnings(torch, eng, True),
+                        "without": window_sync_warnings(torch, eng, False)}
+            out[name].append({"wall_ms": wall, "device_ms": dev})
+            while eng.has_work():
+                eng.step()
+    if len(sync["with_grammar"]) > len(sync["without"]):
+        raise AssertionError(f"the grammar window adds host syncs: {sync}")
+    emit("grammar_step", card=card, model=model, batch=8, multi_step=1,
+         steps_per_reading=GRAMMAR_STEPS, turns=out,
+         sync_warnings={k: len(v) for k, v in sync.items()},
+         sync_messages=sync["with_grammar"][:3],
+         table_bytes=eng.grammar_table_bytes())
+    del eng
+    torch.cuda.empty_cache()
+
+
+def grammar_phase(torch, np, params, model, card, dev="cuda"):
+    """Grammar-constrained decoding at full width: the batch of
+    grammar_rows through Engine (multi_step 4, budget GRAMMAR_BUDGET, one
+    decode bucket of 8) with device tables ("auto") and without ("off"):
+    every constrained token legal, finished rows match their regex or
+    schema, greedy rows equal between the two, kernels A and B launched;
+    then grammar_timing."""
+    from rbg_tpu_torch.engine.config import SamplingParams
+    from rbg_tpu_torch.engine.tokenizer import ByteTokenizer
+    from rbg_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    eos = ByteTokenizer().eos_id
+    rows = grammar_rows(SamplingParams, eos)
+    streams, metrics, launches, table_bytes = {}, {}, {}, 0
+    for mode in ("auto", "off"):
+        eng = grammar_engine(params, model, dev, multi_step=4,
+                             grammar_state_budget=GRAMMAR_BUDGET, grammar_table=mode)
+        reset_launches()
+        t0 = time.perf_counter()
+        streams[mode] = run_rows(eng, rows)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[mode] = dict(LAUNCHES)
+        if dev == "cuda":
+            check_launches(launches[mode], LLAMA_KERNELS)
+        metrics[mode] = dict(eng.metrics, wall_s=wall)
+        texts = check_grammar_rows(eng, rows, streams[mode], eos)
+        if mode == "auto":
+            tabled = [eng._grammar_for(sp) is not None
+                      and eng._grammar_table(eng._grammar_for(sp)) is not None
+                      for _, sp in rows]
+            if tabled != [True, True, True, True, False, False, False, False]:
+                raise AssertionError(f"grammar: tabled rows {tabled}")
+            table_bytes = eng.grammar_table_bytes()
+            auto_eng, auto_texts = eng, texts
+        else:
+            del eng
+    for i, ((prompt, sp), a, b) in enumerate(zip(rows, streams["auto"], streams["off"])):
+        if sp.temperature == 0 and a != b:
+            j = next(k for k in range(max(len(a), len(b)))
+                     if k >= min(len(a), len(b)) or a[k] != b[k])
+            gap = grammar_gap(torch, auto_eng, prompt, a, j, sp, dev)
+            raise AssertionError(f"grammar: row {i} greedy tokens differ between "
+                                 f"tables auto and off at step {j} ({a[j:j + 1]} vs "
+                                 f"{b[j:j + 1]}); masked top-2 logit gap {gap:.4g}")
+    same_seeded = [a == b for (_, sp), a, b in zip(rows, streams["auto"], streams["off"])
+                   if sp.temperature > 0]
+    emit("grammar", card=card, model=model, layers=auto_eng.mcfg.num_layers,
+         rows=[{"constraint": ("regex" if sp.regex is not None else "json_schema"
+                               if sp.json_schema is not None else "json_mode"
+                               if sp.json_mode else "free"),
+                "seeded": sp.temperature > 0, **t} for (_, sp), t in zip(rows, auto_texts)],
+         greedy_equal_auto_off=True, seeded_equal_auto_off=same_seeded,
+         launches=launches, metrics=metrics, budget=GRAMMAR_BUDGET,
+         table_bytes=table_bytes)
+    del auto_eng
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+        grammar_timing(torch, params, model, card)
+
+
+def sse_request(port, path, body, timeout=600):
+    """POST a streaming request; returns (status, text, seconds to the
+    first non-empty text chunk, total seconds)."""
+    import http.client
+
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("POST", path, body=json.dumps({**body, "stream": True}).encode(),
+                     headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        if r.status != 200:
+            return r.status, r.read().decode(), None, time.perf_counter() - t0
+        text, ttft = "", None
+        while True:
+            line = r.readline()
+            if not line:
+                break
+            line = line.rstrip(b"\n")
+            if not line.startswith(b"data: ") or line == b"data: [DONE]":
+                continue
+            c = json.loads(line[6:])["choices"][0]
+            piece = c.get("text") or (c.get("delta") or {}).get("content") or ""
+            if piece and ttft is None:
+                ttft = time.perf_counter() - t0
+            text += piece
+        return 200, text, ttft, time.perf_counter() - t0
+    finally:
+        conn.close()
+
+
+def http_json(port, method, path, body=None, timeout=600):
+    import http.client
+
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=None if body is None else json.dumps(body).encode(),
+                     headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        return r.status, json.loads(r.read()), time.perf_counter() - t0
+    finally:
+        conn.close()
+
+
+def frontend_phase(torch, np, params, model, card, dev="cuda"):
+    """The port's OpenAI front end (``rbg_tpu_torch.engine.http_frontend``,
+    a thread of this process) in front of the port's server on the model
+    (grammar wired from the byte tokenizer): /healthz, /v1/models; a
+    guided_regex completion, a response_format json_schema chat and a
+    free completion, each non-streamed and streamed (greedy: the streamed
+    text equals the other) with TTFT and total latency; /v1/embeddings; an
+    unsupported response_format is a 400 with the reference's type."""
+    import re
+    import threading
+
+    from rbg_tpu_torch.engine import http_frontend
+    from rbg_tpu_torch.engine.config import EngineConfig
+    from rbg_tpu_torch.engine.server import start_server
+    from rbg_tpu_torch.engine.service import EngineService
+    from rbg_tpu_torch.engine.tokenizer import ByteTokenizer
+    from rbg_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    tok = ByteTokenizer()
+    # No radix cache: a request and its streamed twin prefill alike.
+    svc = EngineService(EngineConfig(model=model, num_pages=512, max_seq_len=1024,
+                                     multi_step=4, enable_radix_cache=False,
+                                     device=dev), params=params)
+    svc.engine.enable_json_grammar(tok)
+    srv = start_server(svc, tokenizer=tok)
+    ns = type("Args", (), {})()
+    ns.host, ns.port, ns.backend = "127.0.0.1", 0, srv.addr
+    ns.model, ns.tokenizer_path, ns.default_max_tokens = model, "", 16
+    fe = http_frontend.serve(ns)
+    threading.Thread(target=fe.serve_forever, daemon=True).start()
+    port = fe.server_address[1]
+    try:
+        st, health, _ = http_json(port, "GET", "/healthz")
+        st2, models, _ = http_json(port, "GET", "/v1/models")
+        if st != 200 or not health["ok"] or st2 != 200 or models["data"][0]["id"] != model:
+            raise AssertionError(f"frontend: healthz {health}, models {models}")
+        cases = {
+            "guided_regex": ("/v1/completions", {"prompt": "Call me at ",
+                                                 "guided_regex": GRAMMAR_REGEX,
+                                                 "max_tokens": 16}),
+            "json_schema": ("/v1/chat/completions", {
+                "messages": [{"role": "user", "content": "Lamp state?"}],
+                "max_tokens": 48, "response_format": {
+                    "type": "json_schema",
+                    "json_schema": {"name": "lamp", "schema": GRAMMAR_SCHEMA}}}),
+            "free": ("/v1/completions", {"prompt": "Hello, ", "max_tokens": 24}),
+        }
+        reset_launches()
+        report = {}
+        for name, (path, body) in cases.items():
+            st, resp, total = http_json(port, "POST", path, body)
+            if st != 200:
+                raise AssertionError(f"frontend {name}: {st} {resp}")
+            c = resp["choices"][0]
+            text = c["text"] if "text" in c else c["message"]["content"]
+            sst, stext, ttft, stotal = sse_request(port, path, body)
+            if sst != 200 or stext != text:
+                raise AssertionError(f"frontend {name}: streamed {stext!r} != {text!r}")
+            if name == "guided_regex" and not (c["finish_reason"] == "stop"
+                                               and re.fullmatch(GRAMMAR_REGEX, text)):
+                raise AssertionError(f"frontend guided_regex: {c}")
+            if name == "json_schema" and c["finish_reason"] == "stop":
+                doc = json.loads(text)
+                if list(doc) != ["state", "id"] or doc["state"] not in ("on", "off", "idle"):
+                    raise AssertionError(f"frontend json_schema: {doc}")
+            report[name] = {"text": text, "finish_reason": c["finish_reason"],
+                            "completion_tokens": resp["usage"]["completion_tokens"],
+                            "total_s": total, "stream_ttft_s": ttft,
+                            "stream_total_s": stotal}
+        launches = dict(LAUNCHES)
+        if dev == "cuda":
+            check_launches(launches, LLAMA_KERNELS)
+        st, emb, emb_s = http_json(port, "POST", "/v1/embeddings",
+                                   {"input": ["grammar on the card", "front end"]})
+        if st != 200 or len(emb["data"]) != 2 or len(emb["data"][0]["embedding"]) != \
+                svc.engine.mcfg.hidden_size:
+            raise AssertionError(f"frontend embeddings: {st}")
+        st, bad, _ = http_json(port, "POST", "/v1/chat/completions", {
+            "messages": [{"role": "user", "content": "x"}],
+            "response_format": {"type": "xml"}})
+        if st != 400 or bad["error"]["type"] != "invalid_request_error":
+            raise AssertionError(f"frontend: unsupported response_format gave {st} {bad}")
+        emit("frontend", card=card, model=model, requests=report, launches=launches,
+             embeddings_s=emb_s, bad_response_format={"status": st, **bad["error"]})
+    finally:
+        fe.shutdown()
+        fe.server_close()
+        srv.shutdown()
+        srv.server_close()
+        svc.stop()
+
+
 def check_launches(launches, kernels):
     if min(launches[k] for k in kernels) == 0:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
@@ -1466,6 +1937,10 @@ def llama_phases(torch, np, card):
     split_phase(torch, np, params, "llama3-8b", INT8_KERNELS, kv_dtype="int8")
     spec_phase(torch, np, params, "llama3-8b")
     lora_phase(torch, np, params, "llama3-8b", card)
+    grammar_phase(torch, np, params, "llama3-8b", card)
+    frontend_phase(torch, np, params, "llama3-8b", card)
+    gc.collect()
+    torch.cuda.empty_cache()
     int8 = engine_phase(torch, np, params, "llama3-8b", INT8_KERNELS,
                         kv_dtype="int8", multi_steps=(4,))
     (t8, l8), (t16, _) = int8[4], bf16[4]

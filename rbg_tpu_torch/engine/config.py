@@ -1,9 +1,9 @@
 """Engine configuration (``rbg_tpu/engine/config.py``) plus the device.
 
 The fields are the reference's serving knobs this port runs. Features the
-reference has and this port does not yet (the host KV tier, PD modes and
-grammar) are refused in ``validate`` / at admission with
-``NotImplementedError`` naming the ROADMAP item, never ignored. ``kv_dtype="int8"`` serves every model:
+reference has and this port does not yet (the host KV tier and PD modes)
+are refused in ``validate`` with ``NotImplementedError`` naming the
+ROADMAP item, never ignored. ``kv_dtype="int8"`` serves every model:
 GQA pools and MLA latent pools alike.
 """
 
@@ -72,6 +72,13 @@ class EngineConfig:
     # its prefix hit) exceeds early_reject_factor x slo_ttft_s.
     early_reject: str = "off"               # off | auto
     early_reject_factor: float = 1.5
+    # Grammar-constrained decoding: "auto" compiles finite-state grammars
+    # (regex / json_schema) to device tables [S, V] so their rows decode
+    # inside the fused window; a grammar over grammar_state_budget states,
+    # the pushdown json_mode grammar, or "off" takes the host-masked K = 0
+    # verify instead.
+    grammar_table: str = "auto"             # auto | off
+    grammar_state_budget: int = 512
     vocab_size: int = 0                     # override preset vocab (0 = keep)
     seed: int = 0
     device: Optional[str] = None            # None = cuda (raises without a card)
@@ -119,11 +126,18 @@ class EngineConfig:
                 raise ValueError("spec_k and spec_ngram must be >= 1")
         if self.ragged not in ("auto", "off"):
             raise ValueError(f"ragged {self.ragged!r} not in (auto, off)")
+        if self.grammar_table not in ("auto", "off"):
+            raise ValueError(f"grammar_table {self.grammar_table!r} not in "
+                             "(auto, off)")
+        if self.grammar_state_budget < 2:
+            raise ValueError("grammar_state_budget must be >= 2 (initial "
+                             "state + at least one successor)")
         if self.host_tier_bytes:
             raise _todo("host_tier_bytes", "host KV tier")
         if self.mode != "unified":
             # The reference refuses int8 KV outside unified mode too.
             raise _todo(f"mode={self.mode!r}", "PD prefill/decode modes")
+        self.model_config   # unknown preset → KeyError, before anything binds
 
 
 @dataclasses.dataclass
@@ -138,7 +152,8 @@ class SamplingParams:
     frequency_penalty: float = 0.0  # subtract per output occurrence
     seed: Optional[int] = None      # per-request random stream (reproducible)
     logprobs: bool = False          # emit chosen-token logprob per step
-    # Grammar fields of the reference, refused at admission by this port.
+    # Grammar constraints (at most one): the engine needs
+    # enable_json_grammar(tokenizer) to admit them.
     json_mode: bool = False
     regex: Optional[str] = None
     json_schema: Optional[dict] = None
@@ -161,12 +176,12 @@ class SamplingParams:
             raise ValueError("min_p must be in [0, 1)")
         if self.repetition_penalty <= 0:
             raise ValueError("repetition_penalty must be > 0")
-
-    def check_supported(self) -> None:
-        if (self.json_mode or self.regex is not None
-                or self.json_schema is not None):
-            raise _todo("grammar-constrained decoding (json_mode / regex / "
-                        "json_schema)", "grammar")
+        constraints = ((1 if self.json_mode else 0)
+                       + (1 if self.regex is not None else 0)
+                       + (1 if self.json_schema is not None else 0))
+        if constraints > 1:
+            raise ValueError("json_mode, regex, and json_schema are "
+                             "mutually exclusive constraints")
 
     @classmethod
     def from_wire(cls, obj: dict, *, default_max_tokens: int = 16,
@@ -186,6 +201,8 @@ class SamplingParams:
             seed=(int(obj["seed"]) if obj.get("seed") is not None else None),
             logprobs=bool(obj.get("logprobs", False)),
             json_mode=bool(obj.get("json_mode", False)),
+            # `is not None`: regex="" means "empty output only" and
+            # json_schema={} means "any JSON".
             regex=(str(obj["regex"]) if obj.get("regex") is not None else None),
             json_schema=(dict(obj["json_schema"])
                          if obj.get("json_schema") is not None else None),

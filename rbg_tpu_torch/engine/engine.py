@@ -23,12 +23,23 @@ prefix matching), then either
 Requests may name a LoRA adapter (``load_lora``): all adapters ride one
 stack, gathered per row inside each forward. Page exhaustion preempts the
 youngest request back to the queue.
+
+Grammar-constrained rows (``json_mode`` / ``regex`` / ``json_schema``,
+after ``enable_json_grammar``) mask their logits before sampling. A
+finite-state grammar within ``grammar_state_budget`` compiles to device
+tables (``next_state`` / ``legal`` [S, V]) and its rows decode inside the
+fused window, the state advanced on the device; the pushdown JSON
+grammar, a grammar over the budget and ``grammar_table="off"`` take a
+host-masked verify with no drafts (K = 0) instead. The unified and split
+prefill steps mask on the host: they fetch every token anyway.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import itertools
+import json
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -37,10 +48,15 @@ import torch
 
 from rbg_tpu_torch.engine.config import (EngineConfig, SamplingParams,
                                          resolve_device)
+from rbg_tpu_torch.engine.grammar import (JsonGrammar, JsonSchemaGrammar,
+                                          NfaGrammar, RegexGrammar,
+                                          TokenGrammar, TokenTrie,
+                                          compile_token_table,
+                                          token_bytes_for)
 from rbg_tpu_torch.engine.kvcache import (PageAllocator, PagedKVCache,
                                           pages_for_tokens)
 from rbg_tpu_torch.engine.radix_cache import RadixCache
-from rbg_tpu_torch.engine.sampler import row_keys, sample
+from rbg_tpu_torch.engine.sampler import NEG_INF, row_keys, sample
 from rbg_tpu_torch.engine.spec import NGramIndex
 from rbg_tpu_torch.models.llama import forward_paged, forward_ragged, init_params
 
@@ -71,6 +87,8 @@ class Request:
         self.last_token: Optional[int] = None
         self.ngram: Optional[NGramIndex] = None   # speculative mode
         self.lora_idx = 0                         # adapter slot (0 = base model)
+        self.gstate = None                        # grammar state (host)
+        self.grammar = None                       # this request's TokenGrammar
         self.t_submit = time.perf_counter()
         self.t_first: Optional[float] = None
         # Join accounting: the engine step at which the request entered
@@ -127,6 +145,15 @@ class Engine:
         self._lora_slots: Dict[str, int] = {}
         self._lora_raw: List[Tuple[dict, float]] = []
         self.lora_stack: Optional[dict] = None
+        # Grammar: the JSON grammar (enable_json_grammar), the tokenizer's
+        # token bytes, EOS and trie, the per-pattern/schema LRU, and the
+        # device tables of multi-grammar batches (_device_grammar_tables).
+        self.grammar: Optional[TokenGrammar] = None
+        self._token_bytes = None
+        self._grammar_eos = None
+        self._token_trie = None
+        self._regex_grammars = collections.OrderedDict()
+        self._gtable_dev = collections.OrderedDict()
         self.metrics = {"steps": 0, "decode_tokens": 0, "prefill_tokens": 0,
                         "radix_hit_tokens": 0, "preemptions": 0,
                         "unified_steps": 0, "decode_windows": 0, "joins": 0,
@@ -147,8 +174,8 @@ class Engine:
     def add_request(self, prompt: List[int],
                     sampling: Optional[SamplingParams] = None) -> int:
         sampling = sampling or SamplingParams()
-        sampling.check_supported()
         self._check_prompt(prompt)
+        self._grammar_check(sampling)
         if len(prompt) + sampling.max_new_tokens > self.cfg.max_seq_len:
             raise ValueError(
                 f"prompt+max_new_tokens {len(prompt)}+{sampling.max_new_tokens} "
@@ -156,6 +183,10 @@ class Engine:
         req = Request(prompt, sampling)
         req.lora_idx = self._resolve_lora(sampling)
         req.enqueue_step = self.metrics["steps"]
+        g = self._grammar_for(sampling)
+        if g is not None:
+            req.grammar = g
+            req.gstate = g.initial()
         self.requests[req.id] = req
         self.waiting.append(req)
         return req.id
@@ -288,6 +319,180 @@ class Engine:
 
     def _lora_kw(self, lids: Optional[torch.Tensor]) -> dict:
         return {} if lids is None else {"lora": self.lora_stack, "lora_ids": lids}
+
+    # ---- grammar-constrained decoding ----
+
+    _REGEX_GRAMMAR_CACHE = 64
+    # Multi-grammar combinations held on the device: each entry duplicates
+    # its grammars' blocks, so only the current one and one predecessor.
+    _GTABLE_DEV_CACHE = 2
+
+    def enable_json_grammar(self, tokenizer) -> None:
+        """Wire grammar-constrained decoding (json_mode, regex and
+        json_schema requests) to a tokenizer's token→bytes table. Without
+        it a constrained request is refused at admission."""
+        self._token_bytes = token_bytes_for(tokenizer)
+        self._grammar_eos = tokenizer.eos_id
+        # One trie per tokenizer, shared by the JSON grammar and every
+        # cached regex / schema grammar (it depends only on the vocab).
+        self._token_trie = TokenTrie(self._token_bytes)
+        self.grammar = TokenGrammar(JsonGrammar(), self._token_bytes,
+                                    self._grammar_eos, trie=self._token_trie)
+        self._regex_grammars = collections.OrderedDict()
+        self._gtable_dev = collections.OrderedDict()
+
+    def _regex_grammar(self, pattern: str) -> TokenGrammar:
+        return self._compiled_grammar(("re", pattern))
+
+    def _compiled_grammar(self, key, schema: Optional[dict] = None) -> TokenGrammar:
+        """The compiled TokenGrammar of a pattern (``("re", pattern)``) or
+        schema (``("schema", json.dumps(schema))``), LRU-bounded: repeat
+        constraints pay compilation once. Device blocks hang off the
+        grammar object, so they go when the LRU drops it. Raises
+        ValueError on an unsupported construct (an admission error)."""
+        tg = self._regex_grammars.get(key)
+        if tg is not None:
+            self._regex_grammars.move_to_end(key)
+            return tg
+        byte_grammar = (RegexGrammar(key[1]) if key[0] == "re"
+                        else JsonSchemaGrammar(schema))
+        tg = TokenGrammar(byte_grammar, self._token_bytes, self._grammar_eos,
+                          trie=self._token_trie)
+        if len(self._regex_grammars) >= self._REGEX_GRAMMAR_CACHE:
+            self._regex_grammars.popitem(last=False)
+        self._regex_grammars[key] = tg
+        return tg
+
+    def _grammar_for(self, sampling: SamplingParams) -> Optional[TokenGrammar]:
+        if sampling.json_mode:
+            return self.grammar
+        if sampling.regex is not None:
+            return self._regex_grammar(sampling.regex)
+        if sampling.json_schema is not None:
+            if not sampling.json_schema:
+                return self.grammar     # {} = any JSON
+            # Property order is kept in the key: properties are emitted in
+            # declaration order, so reordered schemas are other grammars.
+            key = ("schema", json.dumps(sampling.json_schema))
+            return self._compiled_grammar(key, sampling.json_schema)
+        return None
+
+    def _grammar_check(self, sampling: SamplingParams) -> None:
+        constrained = (sampling.json_mode or sampling.regex is not None
+                       or sampling.json_schema is not None)
+        if constrained and self.grammar is None:
+            raise ValueError(
+                "json_mode/regex/json_schema require a grammar table — the "
+                "server wires it from the tokenizer (enable_json_grammar)")
+        if constrained:
+            self._grammar_for(sampling)     # a bad pattern fails admission
+
+    def _gmask(self, grammar: TokenGrammar, state) -> np.ndarray:
+        """The grammar's mask padded to the MODEL vocab: ids past the
+        tokenizer's vocab are never legal constrained output."""
+        V = self.mcfg.vocab_size
+        m = grammar.mask(state)
+        if len(m) == V:
+            return m
+        out = np.zeros(V, bool)
+        out[:min(len(m), V)] = m[:V]
+        return out
+
+    def _grammar_table(self, tg: TokenGrammar):
+        """The host GrammarTable of a grammar, or None when its rows take
+        the host-masked verify (tables off, the pushdown JSON grammar, or
+        the state budget exceeded). The compile, and a budget failure, is
+        cached on the grammar object."""
+        if self.cfg.grammar_table == "off" or not isinstance(tg.grammar, NfaGrammar):
+            return None
+        budget = self.cfg.grammar_state_budget
+        cached = getattr(tg, "_table_cache", None)
+        if cached is not None and cached[0] == budget:
+            return cached[1]
+        table = compile_token_table(tg, budget, self.mcfg.vocab_size)
+        tg._table_cache = (budget, table)
+        return table
+
+    def _row_fusable(self, r: Request) -> bool:
+        """True when the row decodes inside the fused window: no grammar,
+        or a grammar with a device table."""
+        return r.grammar is None or self._grammar_table(r.grammar) is not None
+
+    def _grammar_dev_block(self, tg: TokenGrammar):
+        """A grammar's tables on the device: next_state [S, V] int32 (-1 =
+        illegal) and legal [S, V] bool, S the table's states padded to a
+        power of 2 (padding rows unreachable), so similar grammars share
+        shapes without a budget-sized block each. One upload per grammar,
+        cached on it."""
+        budget = self.cfg.grammar_state_budget
+        cached = getattr(tg, "_dev_block", None)
+        if cached is not None and cached[0] == budget:
+            return cached[1], cached[2]
+        t = self._grammar_table(tg)
+        V = self.mcfg.vocab_size
+        S = 1
+        while S < t.num_states:
+            S *= 2
+        nxt = np.full((S, V), -1, np.int32)
+        leg = np.zeros((S, V), bool)
+        nxt[:t.num_states] = t.next_state
+        leg[:t.num_states] = t.legal
+        nxt_dev = torch.from_numpy(nxt).to(self.device)
+        leg_dev = torch.from_numpy(leg).to(self.device)
+        tg._dev_block = (budget, nxt_dev, leg_dev)
+        return nxt_dev, leg_dev
+
+    def _device_grammar_tables(self, grammars):
+        """(next_state [S, V], legal [S, V], offsets) for a batch's
+        grammars: one grammar's own block as it is, several concatenated
+        on the device with per-grammar state offsets (a row's device state
+        = offset + its table's state id). Combinations sit in a shallow
+        LRU holding the grammars, so the id() keys stay valid."""
+        uniq = list({id(g): g for g in grammars}.values())
+        if len(uniq) == 1:
+            nxt, leg = self._grammar_dev_block(uniq[0])
+            return nxt, leg, {id(uniq[0]): 0}
+        key = tuple(sorted(id(g) for g in uniq))
+        hit = self._gtable_dev.get(key)
+        if hit is not None:
+            self._gtable_dev.move_to_end(key)
+            return hit[0], hit[1], hit[2]
+        offsets: Dict[int, int] = {}
+        nexts, legals = [], []
+        off = 0
+        for g in uniq:
+            nxt, leg = self._grammar_dev_block(g)
+            offsets[id(g)] = off
+            nexts.append(torch.where(nxt >= 0, nxt + off, -1))
+            legals.append(leg)
+            off += nxt.shape[0]
+        entry = (torch.cat(nexts), torch.cat(legals), offsets, uniq)
+        self._gtable_dev[key] = entry
+        if len(self._gtable_dev) > self._GTABLE_DEV_CACHE:
+            self._gtable_dev.popitem(last=False)
+        return entry[0], entry[1], entry[2]
+
+    def grammar_table_bytes(self) -> int:
+        """Device bytes held by grammar tables: the blocks of the grammars
+        in the LRU plus the cached multi-grammar combinations."""
+        held = [getattr(tg, "_dev_block", None)
+                for tg in self._regex_grammars.values()]
+        tensors = [t for b in held if b is not None for t in b[1:]]
+        tensors += [t for e in self._gtable_dev.values() for t in e[:2]]
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    def _grammar_masked(self, logits: torch.Tensor, reqs: List[Request]):
+        """Host-masked logits [B, V] for the rows of ``reqs`` (row n of
+        ``logits`` is reqs[n]; pad rows stay as they are): each grammar
+        row keeps only its state's legal tokens."""
+        if not any(r.gstate is not None for r in reqs):
+            return logits
+        gm = np.ones(tuple(logits.shape), bool)
+        for n, req in enumerate(reqs):
+            if req.gstate is not None:
+                gm[n] = self._gmask(req.grammar, req.gstate)
+        return torch.where(torch.from_numpy(gm).to(logits.device), logits,
+                           NEG_INF)
 
     def generate(self, prompts: List[List[int]],
                  sampling: Optional[SamplingParams] = None) -> List[List[int]]:
@@ -477,8 +682,11 @@ class Engine:
         out_counts = None
         if rows["pen"]:
             out_counts = self._penalty_counts(reqs, Bs)
-        toks, lps = self._sample(logits[0, idx], rows,
-                                 torch.from_numpy(key_pos).to(dev), out_counts)
+        # Grammar rows mask on the host (this step fetches every token
+        # anyway), before the penalties inside the sampler.
+        sel = self._grammar_masked(logits[0, idx], reqs)
+        toks, lps = self._sample(sel, rows, torch.from_numpy(key_pos).to(dev),
+                                 out_counts)
         toks = toks.cpu().numpy()
         lps = lps.cpu().numpy() if lps is not None else None
         for n, (req, _, _, is_decode) in enumerate(sample_rows):
@@ -527,8 +735,10 @@ class Engine:
         key_pos[:len(reqs)] = [r.seq_len for r in reqs]  # the sampled token's position
         srows = self._sampling_rows(reqs, Bs)
         out_counts = self._penalty_counts(reqs, Bs) if srows["pen"] else None
-        toks, lps = self._sample(logits[row_idx, tok_idx], srows,
-                                 torch.from_numpy(key_pos).to(dev), out_counts)
+        # The first output token already obeys the grammar.
+        sel = self._grammar_masked(logits[row_idx, tok_idx], reqs)
+        toks, lps = self._sample(sel, srows, torch.from_numpy(key_pos).to(dev),
+                                 out_counts)
         toks = toks.cpu().numpy()
         lps = lps.cpu().numpy() if lps is not None else None
         events = []
@@ -653,10 +863,14 @@ class Engine:
 
     def _decode_batch(self) -> List[Request]:
         """Running requests worth dispatching: rows whose length budget is
-        already spent by pending tokens can only finish."""
+        already spent by pending tokens can only finish. Table-less grammar
+        rows take the host-masked verify instead (``_decode_step``), except
+        in speculative mode, where the verify owns every row."""
         pend = self._pending_counts()
+        spec = self.cfg.speculative == "ngram"
         return [r for r in self.running
                 if r.state == "running"
+                and (spec or r.gstate is None or self._row_fusable(r))
                 and len(r.output) + pend.get(id(r), 0) < r.sampling.max_new_tokens]
 
     def _emit_pending(self, pending) -> List[StepEvent]:
@@ -721,6 +935,22 @@ class Engine:
               "lids": self._lora_rows(batch, B)}
         if st["sampling"]["pen"]:
             st["ocounts"] = self._penalty_counts(batch, B)
+        if any(r.gstate is not None for r in batch):
+            # Grammar rows: each row's state id into the batch's stacked
+            # tables. Rebuilt from req.gstate, which _emit advances token
+            # by token: every state it reaches is in the table.
+            gnext, glegal, offsets = self._device_grammar_tables(
+                [r.grammar for r in batch if r.gstate is not None])
+            gstate = np.zeros(B, np.int64)
+            gactive = np.zeros(B, bool)
+            for i, r in enumerate(batch):
+                if r.gstate is not None:
+                    t = self._grammar_table(r.grammar)
+                    gstate[i] = offsets[id(r.grammar)] + t.state_ids[r.gstate]
+                    gactive[i] = True
+            st.update(gnext=gnext, glegal=glegal,
+                      gstate=torch.from_numpy(gstate).to(dev),
+                      gactive=torch.from_numpy(gactive).to(dev))
         return st
 
     def _run_window(self, st: dict, K: int):
@@ -728,9 +958,14 @@ class Engine:
         position/length advance, the sampled token fed straight back. Rows
         at their length limit stop writing KV and stop advancing; their
         samples are discarded host-side. Keys are (row key, OUTPUT position
-        pos + 1). Returns (tokens [K, B], logprobs [K, B] or None)."""
+        pos + 1). Grammar rows mask with their state's legal row before
+        sampling (penalties come after, inside the sampler) and move to
+        ``next_state[state, token]``, all on the device; a -1 transition
+        keeps the state, as ``_emit`` does. Returns (tokens [K, B],
+        logprobs [K, B] or None)."""
         rows = st["sampling"]
         tok, pos, kvl = st["tok"], st["pos"], st["kvl"]
+        gs = st.get("gstate")
         toks_seq, lps_seq = [], []
         for _ in range(K):
             write_ok = st["mask"] & (pos < st["limit"])[:, None]     # [B, 1]
@@ -739,12 +974,18 @@ class Engine:
                 kvl, st["table"], self.cache.k_pages, self.cache.v_pages,
                 k_scales=self.cache.k_scales, v_scales=self.cache.v_scales,
                 **self._lora_kw(st["lids"]))
-            toks, lps = self._sample(logits[:, 0], rows, pos + 1,
-                                     st.get("ocounts"))
+            lg = logits[:, 0]
+            if gs is not None:
+                lg = torch.where(st["glegal"][gs] | ~st["gactive"][:, None],
+                                 lg, NEG_INF)
+            toks, lps = self._sample(lg, rows, pos + 1, st.get("ocounts"))
             active = write_ok[:, 0]
             if rows["pen"]:
                 st["ocounts"][torch.arange(st["B"], device=self.device),
                               toks] += active.long()
+            if gs is not None:
+                ns = st["gnext"][gs, toks]
+                gs = torch.where(st["gactive"] & active & (ns >= 0), ns, gs)
             pos = torch.where(active, pos + 1, pos)
             kvl = torch.where(active, kvl + 1, kvl)
             tok = torch.where(active, toks, tok)
@@ -752,12 +993,21 @@ class Engine:
             if lps is not None:
                 lps_seq.append(lps)
         st["tok"], st["pos"], st["kvl"] = tok, pos, kvl
+        if gs is not None:
+            st["gstate"] = gs
         return (torch.stack(toks_seq),
                 torch.stack(lps_seq) if lps_seq else None)
 
     def _decode_step(self) -> List[StepEvent]:
         if self.cfg.speculative == "ngram":
             return self._drain_decode() + self._spec_decode_step()
+        if any(r.gstate is not None and not self._row_fusable(r)
+               for r in self.running if r.state == "running"):
+            # Only table-less grammar rows pay the host-masked verify; the
+            # rest, tabled grammar rows too, keep the fused window (whose
+            # _decode_batch leaves those rows out).
+            events = self._spec_decode_step(grammar_only=True)
+            return events + self._fused_decode_step()
         return self._fused_decode_step()
 
     def _fused_decode_step(self) -> List[StepEvent]:
@@ -855,7 +1105,7 @@ class Engine:
         if have < len(req.prompt) + len(req.output):
             req.ngram.extend((req.prompt + req.output)[have:])
 
-    def _spec_decode_step(self) -> List[StepEvent]:
+    def _spec_decode_step(self, grammar_only: bool = False) -> List[StepEvent]:
         """Draft up to spec_k tokens per row from its n-gram index, run one
         (B, spec_k + 1) ``forward_paged`` over [last token, drafts], sample
         every position t with the key of position pos_t + 1 (the keys the
@@ -863,15 +1113,24 @@ class Engine:
         samples; the sample at the first mismatch (or after the last draft)
         is the next token. Penalized rows never draft (their counts change
         token by token). KV written for rejected drafts lies past the new
-        seq_len and is overwritten later."""
+        seq_len and is overwritten later.
+
+        Grammar rows walk their drafts along the automaton, cut at the
+        first illegal one, and mask position t with the state after the
+        first t drafts: exact for every accepted prefix. ``grammar_only``
+        (not speculative) verifies just the table-less grammar rows, with
+        no drafts (K = 0)."""
         events: List[StepEvent] = []
         batch = [r for r in self.running if r.state == "running"
+                 and (not grammar_only
+                      or (r.gstate is not None and not self._row_fusable(r)))
                  and len(r.output) < r.sampling.max_new_tokens]
         if not batch:
             return events
-        K = self.cfg.spec_k
+        K = self.cfg.spec_k if self.cfg.speculative == "ngram" else 0
         ps = self.cfg.page_size
         drafts: Dict[int, List[int]] = {}
+        gmask_rows: Dict[int, List[np.ndarray]] = {}
         # Oldest first: a row sheds its drafts before it preempts the
         # youngest for pages.
         for req in sorted(batch, key=lambda r: r.t_submit):
@@ -883,6 +1142,18 @@ class Engine:
             if cap > 0 and not req.sampling.needs_penalties():
                 self._ensure_ngram(req)
                 d = req.ngram.draft(cap)
+            if req.gstate is not None:
+                g, gs = req.grammar, req.gstate
+                masks = [self._gmask(g, gs)]
+                kept = []
+                for dt in d:
+                    gs = g.advance_token(gs, dt)
+                    if gs is None:
+                        break           # the draft leaves the grammar
+                    kept.append(dt)
+                    masks.append(self._gmask(g, gs))
+                d = kept
+                gmask_rows[id(req)] = masks
             while True:
                 need = pages_for_tokens(req.seq_len + 1 + len(d), ps) - len(req.pages)
                 if need <= 0:
@@ -918,7 +1189,17 @@ class Engine:
         out_counts = None
         if rows["pen"]:
             out_counts = self._penalty_counts(batch, B).repeat(T, 1)
-        toks, lps = self._sample(logits.transpose(0, 1).reshape(T * B, -1), tiled,
+        lg = logits.transpose(0, 1).reshape(T * B, -1)
+        if gmask_rows:
+            # Masks along each row's draft path: [T, B, V] → the sampler's
+            # position-major rows. A dropped draft's slots are never read.
+            gm = np.ones((T, B, self.mcfg.vocab_size), bool)
+            for i, r in enumerate(batch):
+                for t, m in enumerate(gmask_rows.get(id(r), ())):
+                    gm[t, i] = m
+            lg = torch.where(torch.from_numpy(gm.reshape(T * B, -1)).to(
+                self.device), lg, NEG_INF)
+        toks, lps = self._sample(lg, tiled,
                                  torch.from_numpy(key_pos.reshape(-1)).to(self.device),
                                  out_counts)
         vals = toks.reshape(T, B).cpu().numpy()
@@ -947,6 +1228,10 @@ class Engine:
         req.output.append(tok)
         if req.ngram is not None:
             req.ngram.append(tok)
+        if req.gstate is not None:
+            nxt = req.grammar.advance_token(req.gstate, tok)
+            if nxt is not None:     # EOS keeps the state
+                req.gstate = nxt
         req.last_token = tok
         finished = (len(req.output) >= req.sampling.max_new_tokens
                     or (req.sampling.stop_token is not None

@@ -37,6 +37,22 @@ CODE_REJECTED = "rejected"
 #: The server is draining (SIGTERM): new data ops are refused. Retryable.
 CODE_DRAINING = "draining"
 
+# The HTTP edge's mapping (``rbg_tpu/api/errors.py``) for the codes this
+# server emits: 429 tells clients to back off (Retry-After carries the
+# hint), 503 marks a draining server to rotate out, 504 a spent deadline.
+CODE_HTTP_STATUS = {
+    CODE_OVERLOADED: 429,
+    CODE_DRAINING: 503,
+    CODE_DEADLINE: 504,
+}
+
+#: code → OpenAI-style error ``type`` of the JSON error body.
+CODE_HTTP_ETYPE = {
+    CODE_OVERLOADED: "overloaded",
+    CODE_DRAINING: "unavailable",
+    CODE_DEADLINE: "timeout",
+}
+
 
 class Rejected(RuntimeError):
     """Structured service rejection; ``code`` rides the wire."""

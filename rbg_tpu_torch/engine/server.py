@@ -3,7 +3,9 @@
 
 Ops: ``health``, ``warmup``, ``metrics``, ``generate`` (streaming or not),
 ``generate_text`` (through the tokenizer), ``embed``, ``slo`` and
-``traces``. The disaggregated ops (``prefill``, ``kv_stream``,
+``traces``. ``generate`` and ``generate_text`` take the grammar fields
+(``json_mode``, ``regex``, ``json_schema``): the server wires the engine's
+grammar from its tokenizer. The disaggregated ops (``prefill``, ``kv_stream``,
 ``decode_stream``, ``decode_bundle``) are not ported and get the reply of
 an unknown op.
 
@@ -11,6 +13,7 @@ an unknown op.
     python -m rbg_tpu_torch.engine.server --model llama3-8b --kv-dtype int8
     python -m rbg_tpu_torch.engine.server --model deepseek-v2-lite --port 9000
     python -m rbg_tpu_torch.engine.server --device cpu --model tiny --port 0
+    python -m rbg_tpu_torch.engine.server --model llama3-8b --grammar-table off
 
 The server binds first (readiness probes connect), then builds the engine
 in the background; ``health`` reports ``ok`` once it is ready. It runs on
@@ -364,6 +367,8 @@ def build_config(args) -> EngineConfig:
         spec_ngram=args.spec_ngram, kv_dtype=args.kv_dtype, slo_ttft_s=args.slo_ttft_s,
         slo_tpot_s=args.slo_tpot_s, early_reject=args.early_reject,
         early_reject_factor=args.early_reject_factor,
+        grammar_table=args.grammar_table,
+        grammar_state_budget=args.grammar_state_budget,
         vocab_size=args.vocab_size, seed=args.seed, device=args.device)
 
 
@@ -415,10 +420,12 @@ def serve(args) -> None:
         try:
             if args.tokenizer_path:
                 server.tokenizer = load_tokenizer(args.tokenizer_path)
-            # Adapters are loaded before the service is published: health
-            # reports ready once it is.
+            # Adapters and the grammar are wired before the service is
+            # published: health reports ready once it is, and a json_mode
+            # request racing the wiring would be refused.
             service = EngineService(cfg, max_queue=args.max_queue or None,
                                     lora=lora_specs(args.lora))
+            service.engine.enable_json_grammar(server.tokenizer)
         except Exception:  # noqa: BLE001 — a server without an engine must die
             traceback.print_exc()
             os._exit(1)
@@ -458,6 +465,15 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="most drafted tokens per speculative verify step")
     ap.add_argument("--spec-ngram", type=int, default=3,
                     help="trailing n-gram length of the prompt lookup")
+    ap.add_argument("--grammar-table", choices=("auto", "off"),
+                    default="auto",
+                    help="device grammar tables: regex / json_schema rows "
+                         "decode inside the fused window; 'off' keeps the "
+                         "host-masked per-token verify")
+    ap.add_argument("--grammar-state-budget", type=int, default=512,
+                    help="most token-level states of one grammar table (S x "
+                         "V x 5 bytes on the card); a grammar over it takes "
+                         "the host-masked verify")
     ap.add_argument("--lora", action="append", default=[],
                     metavar="NAME=PATH.npz",
                     help="load a LoRA adapter (repeatable): '<target>.A' "

@@ -56,8 +56,10 @@ ALL_NAMES = COUNTERS | GAUGES | HISTOGRAMS
 
 # ---- span names ----
 
+SPAN_HTTP_REQUEST = "http.request"
 SPAN_ENGINE_OP = "engine.op"
 SPAN_SERVICE_QUEUE_WAIT = "service.queue_wait"
 SPAN_SERVICE_SCAN = "service.scan"
 
-SPANS = frozenset({SPAN_ENGINE_OP, SPAN_SERVICE_QUEUE_WAIT, SPAN_SERVICE_SCAN})
+SPANS = frozenset({SPAN_HTTP_REQUEST, SPAN_ENGINE_OP, SPAN_SERVICE_QUEUE_WAIT,
+                   SPAN_SERVICE_SCAN})

@@ -8,6 +8,8 @@
 * wire propagation: ``obj["trace"] = {"trace_id", "parent_id", "sampled"}``
   (:func:`inject`); :func:`from_wire` continues an incoming context, and
   joins the in-process state of a trace this process already holds;
+  :func:`ingress_span` accepts a W3C ``traceparent`` header at the HTTP
+  edge;
 * :class:`TraceSink` (``SINK``): recent and slowest finished traces, which
   the ``traces`` op returns.
 
@@ -238,6 +240,33 @@ def from_wire(ctx, name: str, **attrs) -> "Span | _NullSpan":
     sp = Span(name, tid, parent, None, attrs)
     sp._state = SINK._open(tid, sp)
     return sp
+
+
+def ingress_span(name: str, traceparent: Optional[str] = None,
+                 **attrs) -> "Span | _NullSpan":
+    """HTTP-edge ingress: accept a W3C ``traceparent`` header
+    (``00-<32 hex trace id>-<16 hex span id>-<flags>``; flags bit 0 =
+    sampled). A valid sampled header continues that trace, a valid
+    unsampled one suppresses tracing for the request (the client made the
+    head decision); anything else falls back to a local decision."""
+    if not _CFG.enabled:
+        return NULL_SPAN
+    if traceparent:
+        parts = traceparent.strip().split("-")
+        if len(parts) >= 4 and len(parts[1]) == 32 and len(parts[2]) == 16:
+            try:
+                tid = parts[1].lower()
+                parent = parts[2].lower()
+                sampled = bool(int(parts[3], 16) & 1)
+                int(tid, 16)
+            except ValueError:
+                pass
+            else:
+                if not sampled:
+                    return NULL_SPAN
+                return from_wire({"trace_id": tid, "parent_id": parent,
+                                  "sampled": True}, name, **attrs)
+    return start_trace(name, **attrs)
 
 
 def inject(obj: dict, span=None) -> dict:

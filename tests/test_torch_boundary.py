@@ -21,6 +21,7 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "rbg_tpu"
              or m.startswith("rbg_tpu."))
 assert len(names) >= 15, names
+assert {"rbg_tpu_torch.engine.grammar", "rbg_tpu_torch.engine.http_frontend"} <= set(names)
 assert not bad, bad
 print("ok", len(names))
 """

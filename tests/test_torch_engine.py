@@ -198,6 +198,53 @@ def test_mla_int8_latent_pools_serve():
 @pytest.mark.parametrize("field", [dict(json_mode=True), dict(regex="a+"),
                                    dict(json_schema={})])
 def test_unsupported_sampling_raises(weights, field):
+    """A constrained request on an engine whose grammar was never wired
+    (enable_json_grammar) is refused at admission, as the reference
+    refuses it."""
     te = Engine(EngineConfig(**BASE), params=weights[1], device="cpu")
-    with pytest.raises(NotImplementedError):
+    je = JEngine(JConfig(use_pallas="never", **BASE), params=weights[0])
+    with pytest.raises(ValueError) as want:
+        je.add_request([1, 2, 3], JSampling(**field))
+    with pytest.raises(ValueError, match="require a grammar table") as got:
         te.add_request([1, 2, 3], SamplingParams(**field))
+    assert str(got.value) == str(want.value)
+    assert not te.waiting
+
+
+@pytest.mark.parametrize("make", [
+    lambda m: m.EngineConfig(model="nope").validate(),
+    lambda m: m.EngineConfig(model="tiny", grammar_table="maybe").validate(),
+    lambda m: m.EngineConfig(model="tiny", grammar_state_budget=1).validate(),
+    lambda m: m.SamplingParams(json_mode=True, regex="a").validate(),
+    lambda m: m.SamplingParams(regex="a", json_schema={}).validate(),
+], ids=["unknown_preset", "grammar_table", "state_budget", "json_and_regex",
+        "regex_and_schema"])
+def test_validate_matches_reference(make):
+    """validate refuses what the reference's refuses, with its exception
+    type and message: an unknown preset (KeyError, before a server binds
+    its port), two grammar constraints, a bad grammar_table, a budget
+    below 2."""
+    import rbg_tpu.engine.config as jcfg
+    import rbg_tpu_torch.engine.config as tcfg
+
+    with pytest.raises((KeyError, ValueError)) as want:
+        make(jcfg)
+    with pytest.raises((KeyError, ValueError)) as got:
+        make(tcfg)
+    assert type(got.value) is type(want.value)
+    assert str(got.value) == str(want.value)
+
+
+def test_server_with_unknown_preset_exits_before_listening():
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run(
+        [sys.executable, "-m", "rbg_tpu_torch.engine.server", "--model", "nope",
+         "--device", "cpu", "--port", "0"], cwd=root, capture_output=True,
+        text=True, timeout=120, env={**os.environ, "PYTHONPATH": root})
+    assert r.returncode != 0
+    assert "engine listening" not in r.stdout
+    assert "unknown model preset 'nope'" in r.stderr

@@ -88,9 +88,21 @@ def test_bad_requests_get_error_replies(server):
     r, _, _ = request_once(server, {"op": "generate", "prompt": [1, 999],
                                     "max_new_tokens": 2}, timeout=30)
     assert "outside model vocab" in r["error"]
+    # json_mode is served: the server wired the grammar from its
+    # tokenizer, so every token stays legal under the JSON grammar.
+    from rbg_tpu_torch.engine.grammar import JsonGrammar, TokenGrammar, token_bytes_for
+    from rbg_tpu_torch.engine.tokenizer import ByteTokenizer
+
     r, _, _ = request_once(server, {"op": "generate", "prompt": [1, 2],
-                                    "json_mode": True}, timeout=30)
-    assert "not ported" in r["error"]
+                                    "json_mode": True, "max_new_tokens": 6},
+                           timeout=30)
+    assert "error" not in r and len(r["tokens"]) == 6
+    tok = ByteTokenizer()
+    g = TokenGrammar(JsonGrammar(), token_bytes_for(tok), tok.eos_id)
+    s = g.initial()
+    for t in r["tokens"]:
+        s = g.advance_token(s, t)
+        assert s is not None, r["tokens"]
     r, _, _ = request_once(server, {"op": "generate", "prompt": [1, 2],
                                     "top_p": 0.0}, timeout=30)
     assert "bad sampling params" in r["error"]
