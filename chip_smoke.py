@@ -83,6 +83,25 @@ Phases, each printing one JSON line:
              completion, each also streamed (equal text), TTFT and total
              latency, /v1/embeddings, and a 400 for an unsupported
              response_format.
+   tier    — the host KV tier: TIER_PROMPT_LENS (1024-1920 tokens) through
+             an engine whose pool holds about two of them, with a 2 GiB
+             host tier, twice, one request at a time (kernels A, B). Pass
+             1 spills, pass 2 promotes; every promoted page's checksum,
+             taken on the card, equals the page's before its spill; pass
+             2's greedy tokens equal a device-radix-hit engine's at the
+             same hit depth; the accounting closes. TTFT cold, device hit
+             and host hit; spill and promote GB/s beside one pinned
+             ``copy_`` of the same bytes each way.
+   router  — the port's router (``rbg_tpu_torch.engine.router``) in front
+             of two servers on one params dict: bench_serving --addr with
+             BENCH_ARGS straight at one server, through a router with that
+             server alone, and through the router with both (every request
+             completes, both serve; kernels A, B); a repeated prefix sticks
+             to one server with radix hits there; a greedy stream cut after
+             3 token frames by a relay that resets the connection resumes
+             on the sibling equal to the uninterrupted stream (B = 1, idle
+             servers); the OpenAI front end through the router (a
+             guided_regex completion, a streamed chat).
    int8    — the same engine script with kv_dtype="int8" (kernels C, D),
              multi_step 4, its three witnesses on int8 pools and the server
              over int8 pools.
@@ -112,9 +131,9 @@ Phases, each printing one JSON line:
    version, then interleaved timed reps; then each kernel's device ms on
    the probe's pack (the probe's calls/s read host time at its size).
 
-Then a line {"kernels": [...]} (launches counted over the phase that drives
-each kernel's path: the llama3-8b server for A and B, the int8 engine for
-C and D, the deepseek-v2-lite server for E and F, its int8 engine for G
+Then a line {"kernels": [...]} (launches counted over the phases that drive
+each kernel's path: the llama3-8b server, tier and router phases for A and
+B, the int8 engine for C and D, the deepseek-v2-lite server for E and F, its int8 engine for G
 and H, the probe for I) and, last, {"ok": true, "device": {...}}. Any
 failure exits non-zero before the last line; without a CUDA device nothing
 runs.
@@ -125,6 +144,7 @@ import json
 import os
 import socket
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -1502,7 +1522,8 @@ def grammar_phase(torch, np, params, model, card, dev="cuda"):
 
 def sse_request(port, path, body, timeout=600):
     """POST a streaming request; returns (status, text, seconds to the
-    first non-empty text chunk, total seconds)."""
+    first non-empty text chunk, total seconds). A 200 stream that ends
+    without ``data: [DONE]`` raises."""
     import http.client
 
     t0 = time.perf_counter()
@@ -1513,19 +1534,24 @@ def sse_request(port, path, body, timeout=600):
         r = conn.getresponse()
         if r.status != 200:
             return r.status, r.read().decode(), None, time.perf_counter() - t0
-        text, ttft = "", None
+        text, ttft, done = "", None, False
         while True:
             line = r.readline()
             if not line:
                 break
             line = line.rstrip(b"\n")
-            if not line.startswith(b"data: ") or line == b"data: [DONE]":
+            if line == b"data: [DONE]":
+                done = True
+                continue
+            if not line.startswith(b"data: "):
                 continue
             c = json.loads(line[6:])["choices"][0]
             piece = c.get("text") or (c.get("delta") or {}).get("content") or ""
             if piece and ttft is None:
                 ttft = time.perf_counter() - t0
             text += piece
+        if not done:
+            raise AssertionError(f"{path}: stream ended without [DONE] after {text!r}")
         return 200, text, ttft, time.perf_counter() - t0
     finally:
         conn.close()
@@ -1635,6 +1661,445 @@ def frontend_phase(torch, np, params, model, card, dev="cuda"):
         srv.shutdown()
         srv.server_close()
         svc.stop()
+
+
+# tier phase: six prompts of 1024-1920 tokens (544 pages at page 16)
+# against a device pool of 300 usable pages, so admissions evict; a host
+# tier of 2 GiB (1024 llama3-8b pages) keeps every spilled page.
+TIER_PROMPT_LENS = [1024, 1920, 1280, 1792, 1536, 1152]
+TIER_NUM_PAGES = 301
+TIER_HOST_BYTES = 2 << 30
+
+
+def page_checksums(torch, pool, ids):
+    """Per-page checksum of pool pages taken on the card: the page's raw
+    16-bit words, weighted by position (a swap of two words changes it),
+    summed in int64. [len(ids)] int64 on the host."""
+    x = pool.index_select(1, torch.tensor(ids, device=pool.device))
+    w = x.view(torch.int16).transpose(0, 1).reshape(len(ids), -1).to(torch.int64)
+    pos = torch.arange(w.shape[1], device=pool.device, dtype=torch.int64) % 65521 + 1
+    return (w * pos).sum(1).tolist()
+
+
+def tier_probe(torch, tier, page_size, sync):
+    """Wrap a HostKVTier's spill and promote: checksums of the leaf's pages
+    taken on the card before each spill, keyed by their prefix key, are
+    held against the promoted pages' checksums after each promotion; each
+    call's seconds (the card synchronized around it, a spill nested in a
+    promotion's alloc subtracted) and pages are recorded."""
+    from rbg_tpu_torch.kvtransfer.chunks import prefix_keys
+
+    rec = {"before": {}, "checked": 0, "mismatch": [], "spill": [], "promote": [],
+           "nested": 0.0, "probe_s": 0.0}
+    spill, promote = tier.spill_from_device, tier.promote_to_device
+
+    def sums(cache, ids):
+        return list(zip(page_checksums(torch, cache.k_pages, ids),
+                        page_checksums(torch, cache.v_pages, ids)))
+
+    def spill_probe(prefix, page_ids, cache):
+        t_in = time.perf_counter()
+        keys = prefix_keys(prefix, page_size)
+        first = len(prefix) // page_size - len(page_ids)
+        for j, c in enumerate(sums(cache, page_ids)):
+            rec["before"][keys[first + j]] = c
+        sync()
+        t0 = time.perf_counter()
+        n = spill(prefix, page_ids, cache)
+        t1 = time.perf_counter()
+        rec["spill"].append((len(page_ids), t1 - t0))
+        rec["probe_s"] += t0 - t_in
+        rec["nested"] += t1 - t_in
+        return n
+
+    def promote_probe(tokens, start, alloc_fn, cache, release_fn=None):
+        sync()
+        rec["nested"] = 0.0
+        t0 = time.perf_counter()
+        extra, pages, out = promote(tokens, start, alloc_fn, cache, release_fn)
+        sync()
+        dt = time.perf_counter() - t0 - rec["nested"]
+        if extra:
+            t1 = time.perf_counter()
+            rec["promote"].append((len(pages), dt))
+            keys = prefix_keys(tokens[:start + extra], page_size)
+            first = start // page_size
+            for j, c in enumerate(sums(out, pages)):
+                want = rec["before"].get(keys[first + j])
+                rec["checked"] += 1
+                if want != c:
+                    rec["mismatch"].append((first + j, want, c))
+            rec["probe_s"] += time.perf_counter() - t1
+        return extra, pages, out
+
+    tier.spill_from_device, tier.promote_to_device = spill_probe, promote_probe
+    return rec
+
+
+def timed_generate(eng, prompt, sp, rec=None):
+    """(tokens, seconds to the first token, prefix-hit tokens) of one
+    request run alone; the checksum time of a ``tier_probe`` record is
+    taken out of the TTFT."""
+    hits = eng.metrics["radix_hit_tokens"] + eng.metrics["host_hit_tokens"]
+    probe0 = rec["probe_s"] if rec else 0.0
+    t0 = time.perf_counter()
+    rid = eng.add_request(prompt, sp)
+    out, ttft = [], None
+    while eng.has_work():
+        for ev in eng.step():
+            if ev.request_id == rid:
+                if ttft is None:
+                    ttft = time.perf_counter() - t0 - (
+                        rec["probe_s"] - probe0 if rec else 0.0)
+                out.append(ev.token)
+    return out, ttft, (eng.metrics["radix_hit_tokens"]
+                       + eng.metrics["host_hit_tokens"] - hits)
+
+
+def copy_gbps(torch, nbytes, dev="cuda"):
+    """One plain pinned ``copy_`` of ``nbytes`` each way (device to host,
+    host to device), the tier link's yardstick: GB/s, median of 5."""
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    on_dev = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=dev == "cuda")
+    out = {}
+    for name, dst, src in (("d2h", host, on_dev), ("h2d", on_dev, host)):
+        times = []
+        for _ in range(6):
+            sync()
+            t0 = time.perf_counter()
+            dst.copy_(src, non_blocking=True)
+            sync()
+            times.append(time.perf_counter() - t0)
+        out[name] = nbytes / statistics.median(times[1:]) / 1e9
+    return out
+
+
+def tier_phase(torch, np, params, card, model="llama3-8b", dev="cuda"):
+    """The host KV tier at llama3-8b (bf16 pools): TIER_PROMPT_LENS through
+    an engine whose pool holds about two of them, twice, one request at a
+    time. Pass 1 runs cold and spills; pass 2 promotes. Promoted pages must
+    equal, checksum for checksum on the card, the pages before their spill;
+    pass 2's greedy tokens must equal a device-radix-hit run's (an engine
+    with a pool for all six, its second pass) at the same hit depth.
+    Returns the tier path's launches (the tier engine's two passes). On
+    the CPU (``dev="cpu"``, a rehearsal at tiny) no kernel launches."""
+    from rbg_tpu_torch.engine.config import EngineConfig, SamplingParams
+    from rbg_tpu_torch.engine.engine import Engine
+    from rbg_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+
+    rng = np.random.RandomState(12)
+    V = params["embed"].shape[0]
+    prompts = [rng.randint(1, V, n).tolist() for n in TIER_PROMPT_LENS]
+    sp = SamplingParams(max_new_tokens=16)
+    cfg = dict(model=model, max_seq_len=2048, prefill_chunk=512, multi_step=4,
+               device=dev)
+    eng = Engine(EngineConfig(num_pages=TIER_NUM_PAGES, host_tier_bytes=TIER_HOST_BYTES,
+                              **cfg), params=params)
+    ps = eng.cfg.page_size
+    page_bytes = (eng.cache.k_pages[:, 0].nbytes + eng.cache.v_pages[:, 0].nbytes)
+    rec = tier_probe(torch, eng.host_tier, ps, sync)
+    reset_launches()
+    cold = [timed_generate(eng, p, sp, rec) for p in prompts]
+    after1 = dict(eng.host_tier.stats())
+    host = [timed_generate(eng, p, sp, rec) for p in prompts]
+    sync()
+    launches = dict(LAUNCHES)
+    if dev == "cuda":
+        check_launches(launches, LLAMA_KERNELS)
+    stats = eng.host_tier.stats()
+    closes = eng.host_tier.accounting_closes()
+    del eng
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+    ref = Engine(EngineConfig(num_pages=2048, **cfg), params=params)
+    ref_cold = [timed_generate(ref, p, sp) for p in prompts]
+    hit = [timed_generate(ref, p, sp) for p in prompts]
+    del ref
+    gc.collect()
+
+    spill_pages = sum(n for n, _ in rec["spill"])
+    promote_pages = sum(n for n, _ in rec["promote"])
+    biggest = max(n for n, _ in rec["spill"] + rec["promote"])
+    link = copy_gbps(torch, biggest * page_bytes, dev)
+    spill_s = sum(t for _, t in rec["spill"])
+    promote_s = sum(t for _, t in rec["promote"])
+
+    def ttft(runs):
+        v = [r[1] for r in runs]
+        return {"median_s": statistics.median(v), "each_s": v}
+
+    agree = [sum(a == b for a, b in zip(h[0], c[0])) for h, c in zip(host, cold)]
+    emit("tier", card=card, model=model, prompt_lens=TIER_PROMPT_LENS,
+         num_pages=TIER_NUM_PAGES, host_tier_bytes=TIER_HOST_BYTES,
+         page_bytes=page_bytes, stats_after_pass1=after1, stats=stats,
+         accounting_closes=closes, launches=launches,
+         pages_checked=rec["checked"], checksum_mismatches=rec["mismatch"][:4],
+         hit_tokens={"host_pass2": [h[2] for h in host],
+                     "device_pass2": [d[2] for d in hit]},
+         pass2_vs_cold_agree=agree, of=sp.max_new_tokens,
+         ttft={"cold": ttft(cold), "device_hit": ttft(hit), "host_hit": ttft(host),
+               "cold_ref_engine": ttft(ref_cold)},
+         spill={"calls": len(rec["spill"]), "pages_copied": spill_pages, "seconds": spill_s,
+                "s_per_page": spill_s / max(1, spill_pages),
+                "gbps": spill_pages * page_bytes / spill_s / 1e9 if spill_s else None},
+         promote={"calls": len(rec["promote"]), "pages_copied": promote_pages,
+                  "seconds": promote_s, "s_per_page": promote_s / max(1, promote_pages),
+                  "gbps": (promote_pages * page_bytes / promote_s / 1e9
+                           if promote_s else None)},
+         pinned_copy={"bytes": biggest * page_bytes, **link})
+    if not (stats["spilled_pages"] > 0 and stats["promoted_pages"] > 0 and closes):
+        raise AssertionError(f"tier: no spill/promote round trip or open "
+                             f"accounting: {stats}")
+    if rec["mismatch"] or rec["checked"] != stats["promoted_pages"]:
+        raise AssertionError(f"tier: promoted pages differ from the spilled ones "
+                             f"({len(rec['mismatch'])} of {rec['checked']} checked, "
+                             f"{stats['promoted_pages']} promoted)")
+    if [h[2] for h in host] != [d[2] for d in hit] or \
+            [h[0] for h in host] != [d[0] for d in hit]:
+        raise AssertionError("tier: host-hit tokens differ from device-hit tokens")
+    return launches
+
+
+class CutProxy:
+    """A TCP relay in front of one engine server. Once armed with ``k``, the
+    next streamed request is cut after k token frames: the relay resets
+    both connections, as a backend that died mid-stream would."""
+
+    def __init__(self, upstream):
+        import socketserver
+        import threading
+
+        from rbg_tpu_torch.engine.protocol import recv_msg, send_msg
+
+        proxy = self
+        self.cut_after = None
+        self.cuts = 0
+
+        class Relay(socketserver.BaseRequestHandler):
+            def handle(self):
+                obj = recv_msg(self.request)
+                if obj is None:
+                    return
+                host, port = upstream.rsplit(":", 1)
+                with socket.create_connection((host, int(port)), timeout=600) as up:
+                    send_msg(up, obj)
+                    frames = 0
+                    while True:
+                        f = recv_msg(up)
+                        if f is None:
+                            return
+                        if (obj.get("stream") and f.get("tokens")
+                                and proxy.cut_after is not None
+                                and frames >= proxy.cut_after):
+                            proxy.cut_after = None
+                            proxy.cuts += 1
+                            for s in (self.request, up):
+                                s.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
+                                             struct.pack("ii", 1, 0))
+                            return
+                        send_msg(self.request, f)
+                        frames += bool(f.get("tokens"))
+                        if not obj.get("stream") or f.get("done") or "error" in f:
+                            return
+
+        class Server(socketserver.ThreadingTCPServer):
+            allow_reuse_address = True
+            daemon_threads = True
+
+        self.server = Server(("127.0.0.1", 0), Relay)
+        self.addr = f"127.0.0.1:{self.server.server_address[1]}"
+        threading.Thread(target=self.server.serve_forever, daemon=True).start()
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+
+
+def start_router(backends):
+    """The port's router (``rbg_tpu_torch.engine.router``) in this process
+    with static unified backends; returns (server, address)."""
+    import threading
+
+    from rbg_tpu_torch.engine import router
+
+    rs = router.RouterServer(("127.0.0.1", 0), router.Handler)
+    rs.state = router.RouterState(router.Registry(None), None,
+                                  {"worker": list(backends)})
+    threading.Thread(target=rs.serve_forever, daemon=True).start()
+    return rs, f"127.0.0.1:{rs.server_address[1]}"
+
+
+def stream_tokens(addr, req):
+    from rbg_tpu_torch.engine.protocol import recv_msg, send_msg
+
+    host, port = addr.rsplit(":", 1)
+    tokens = []
+    with socket.create_connection((host, int(port)), timeout=600) as s:
+        send_msg(s, {**req, "stream": True})
+        while True:
+            f = recv_msg(s)
+            if f is None or "error" in f:
+                raise AssertionError(f"stream through the router broke: {f}")
+            tokens.extend(f.get("tokens") or [])
+            if f.get("done"):
+                return tokens
+
+
+def router_phase(torch, np, params, card, model="llama3-8b", dev="cuda", **engine_kw):
+    """The port's router in front of two llama3-8b servers on the card (one
+    params dict, a pool each): bench_serving --addr with BENCH_ARGS straight
+    at one server, through a router with that server alone, and through
+    the router with both (radix caches emptied before each run, the same
+    prompts and arrivals), every request completing and both servers
+    serving; a repeated prefix sticking to one server with
+    radix hits there; a greedy stream cut after 3 token frames (B = 1, idle
+    servers) resumed on the sibling equal to the uninterrupted stream; the
+    OpenAI front end through the router. Returns the router path's
+    launches (the bench through the router). On the CPU (``dev="cpu"``, a
+    rehearsal at tiny) no kernel launches."""
+    import re
+    import threading
+
+    from rbg_tpu_torch.engine import bench_serving, http_frontend
+    from rbg_tpu_torch.engine.config import EngineConfig
+    from rbg_tpu_torch.engine.server import start_server
+    from rbg_tpu_torch.engine.service import EngineService
+    from rbg_tpu_torch.engine.tokenizer import ByteTokenizer
+    from rbg_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    args = bench_serving.parse_args(BENCH_ARGS)
+    svcs = [EngineService(EngineConfig(
+        model=model, page_size=args.page_size, num_pages=args.num_pages,
+        max_seq_len=args.max_seq_len, max_batch=args.max_batch,
+        prefill_chunk=args.prefill_chunk, multi_step=args.multi_step,
+        device=dev, **engine_kw), params=params) for _ in range(2)]
+    tok = ByteTokenizer()
+    for s in svcs:
+        s.engine.enable_json_grammar(tok)
+    srvs = [start_server(s, tokenizer=tok) for s in svcs]
+    proxy = CutProxy(srvs[0].addr)
+    rs, raddr = start_router([s.addr for s in srvs])
+    closers = [rs, proxy.server] + srvs
+
+    def empty_radix():
+        # Both servers idle: empty their prefix caches so a run prefills
+        # what an earlier run left cached.
+        for s in svcs:
+            s.engine.radix.evict(s.engine.allocator.num_pages)
+
+    try:
+        for s in srvs:
+            w = request_once(s.addr, {"op": "warmup", "input_len": args.input_len},
+                             timeout=600)
+            if not w.get("ok"):
+                raise AssertionError(f"warmup {w}")
+        empty_radix()
+        direct = bench_serving.run(bench_serving.parse_args(
+            BENCH_ARGS + ["--addr", srvs[0].addr]))
+        # The router's own cost: the same run through a router whose only
+        # backend is that server.
+        one_rs, one_addr = start_router([srvs[0].addr])
+        closers.insert(0, one_rs)
+        empty_radix()
+        via_one = bench_serving.run(bench_serving.parse_args(
+            BENCH_ARGS + ["--addr", one_addr]))
+        empty_radix()
+        joins = [s.engine.metrics["joins"] for s in svcs]
+        reset_launches()
+        routed = bench_serving.run(bench_serving.parse_args(
+            BENCH_ARGS + ["--addr", raddr]))
+        launches = dict(LAUNCHES)
+        served = [s.engine.metrics["joins"] - j for s, j in zip(svcs, joins)]
+        if routed["completed"] != routed["requests"] or min(served) == 0:
+            raise AssertionError(f"router bench: {routed}, served {served}")
+        if dev == "cuda":
+            check_launches(launches, LLAMA_KERNELS)
+
+        V = params["embed"].shape[0]
+        rng = np.random.RandomState(13)
+        shared = rng.randint(1, V, 512).tolist()
+        hits = [s.engine.metrics["radix_hit_tokens"] for s in svcs]
+        joins = [s.engine.metrics["joins"] for s in svcs]
+        for tail in range(3):
+            r = request_once(raddr, {"op": "generate", "max_new_tokens": 4,
+                                     "prompt": shared + rng.randint(1, V, 16).tolist()},
+                             timeout=600)
+            if r.get("error"):
+                raise AssertionError(f"affinity request: {r}")
+        hit = [s.engine.metrics["radix_hit_tokens"] - h for s, h in zip(svcs, hits)]
+        took = [s.engine.metrics["joins"] - j for s, j in zip(svcs, joins)]
+        if sorted(took) != [0, 3] or hit[took.index(3)] < 2 * 512 - 32:
+            raise AssertionError(f"repeated prefix: requests {took}, radix hits {hit}")
+
+        # The cut: a router of its own whose first pick is the relayed server.
+        cut_rs, cut_addr = start_router([proxy.addr, srvs[1].addr])
+        closers.insert(0, cut_rs)
+        req = {"op": "generate", "prompt": rng.randint(1, V, 300).tolist(),
+               "max_new_tokens": 64}
+        whole = stream_tokens(cut_addr, req)
+        empty_radix()
+        proxy.cut_after = 3
+        resumed = stream_tokens(cut_addr, req)
+        # The router counts the failover just after relaying the last frame.
+        t_wait = time.monotonic() + 5
+        while cut_rs.state.metrics["failovers"] < 1 and time.monotonic() < t_wait:
+            time.sleep(0.01)
+        cut_metrics = dict(cut_rs.state.metrics)
+        if proxy.cuts != 1 or cut_metrics["failovers"] != 1 or resumed != whole:
+            raise AssertionError(f"cut stream: cuts {proxy.cuts}, {cut_metrics}, "
+                                 f"resumed {resumed} vs {whole}")
+
+        ns = type("Args", (), {})()
+        ns.host, ns.port, ns.backend = "127.0.0.1", 0, raddr
+        ns.model, ns.tokenizer_path, ns.default_max_tokens = model, "", 16
+        fe = http_frontend.serve(ns)
+        closers.insert(0, fe)
+        threading.Thread(target=fe.serve_forever, daemon=True).start()
+        port = fe.server_address[1]
+        st, health, _ = http_json(port, "GET", "/healthz")
+        # guided_regex on both: random weights' free tokens mostly lie
+        # outside the byte tokenizer's 256 bytes and decode to nothing.
+        st1, comp, comp_s = http_json(port, "POST", "/v1/completions", {
+            "prompt": "Routed to ", "guided_regex": GRAMMAR_REGEX, "max_tokens": 12})
+        st2, chat, chat_ttft, chat_s = sse_request(port, "/v1/chat/completions", {
+            "messages": [{"role": "user", "content": "Which server?"}],
+            "guided_regex": GRAMMAR_REGEX, "max_tokens": 12})
+        text = comp["choices"][0]["text"] if st1 == 200 else None
+        if st != 200 or not health.get("ok") or st1 != 200 or st2 != 200 \
+                or not re.fullmatch(GRAMMAR_REGEX, text) \
+                or not re.fullmatch(GRAMMAR_REGEX, chat) or chat_ttft is None:
+            raise AssertionError(f"front end through the router: {st} {health}, "
+                                 f"{st1} {comp}, {st2} {chat!r}")
+        m = request_once(raddr, {"op": "health"}, timeout=30)
+        emit("router", card=card, model=model, args=" ".join(BENCH_ARGS),
+             launches={k: launches[k] for k in LLAMA_KERNELS},
+             served_per_backend=served,
+             ttft_s={"direct": direct["ttft_s"], "router_one": via_one["ttft_s"],
+                     "router": routed["ttft_s"]},
+             itl_ms={"direct": direct["itl_ms"], "router_one": via_one["itl_ms"],
+                     "router": routed["itl_ms"]},
+             tokens_per_s={"direct": direct.get("output_tok_per_s"),
+                           "router_one": via_one.get("output_tok_per_s"),
+                           "router": routed.get("output_tok_per_s")},
+             direct=direct, router_one=via_one, routed=routed,
+             affinity={"requests": took, "radix_hit_tokens": hit},
+             cut={"after_frames": 3, "tokens": len(whole), "equal": True,
+                  "metrics": cut_metrics},
+             frontend={"completion": text, "completion_s": comp_s,
+                       "chat_stream": chat, "chat_ttft_s": chat_ttft, "chat_s": chat_s},
+             router_metrics=m["metrics"])
+        return launches
+    finally:
+        for c in closers:
+            c.shutdown()
+            c.server_close()
+        for s in svcs:
+            s.stop()
 
 
 def check_launches(launches, kernels):
@@ -1939,6 +2404,11 @@ def llama_phases(torch, np, card):
     lora_phase(torch, np, params, "llama3-8b", card)
     grammar_phase(torch, np, params, "llama3-8b", card)
     frontend_phase(torch, np, params, "llama3-8b", card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths = [tier_phase(torch, np, params, card), router_phase(torch, np, params, card)]
+    for k in LLAMA_KERNELS:
+        launches[k] += sum(p[k] for p in paths)
     gc.collect()
     torch.cuda.empty_cache()
     int8 = engine_phase(torch, np, params, "llama3-8b", INT8_KERNELS,

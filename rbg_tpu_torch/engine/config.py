@@ -1,9 +1,9 @@
 """Engine configuration (``rbg_tpu/engine/config.py``) plus the device.
 
 The fields are the reference's serving knobs this port runs. Features the
-reference has and this port does not yet (the host KV tier and PD modes)
-are refused in ``validate`` with ``NotImplementedError`` naming the
-ROADMAP item, never ignored. ``kv_dtype="int8"`` serves every model:
+reference has and this port does not yet (PD modes) are refused in
+``validate`` with ``NotImplementedError`` naming the ROADMAP item, never
+ignored. ``kv_dtype="int8"`` serves every model:
 GQA pools and MLA latent pools alike.
 """
 
@@ -44,7 +44,7 @@ class EngineConfig:
     prefill_chunk: int = 64                 # chunked-prefill bucket
     decode_buckets: Tuple[int, ...] = (1, 2, 4, 8, 16, 32, 64)
     enable_radix_cache: bool = True
-    host_tier_bytes: int = 0                # only 0 is ported
+    host_tier_bytes: int = 0                # host-DRAM KV spill tier (0 = off)
     # Decode steps run per window before the sampled tokens reach the host
     # (one device→host fetch per window).
     multi_step: int = 1
@@ -132,8 +132,17 @@ class EngineConfig:
         if self.grammar_state_budget < 2:
             raise ValueError("grammar_state_budget must be >= 2 (initial "
                              "state + at least one successor)")
-        if self.host_tier_bytes:
-            raise _todo("host_tier_bytes", "host KV tier")
+        if self.host_tier_bytes < 0:
+            raise ValueError("host_tier_bytes must be >= 0 (0 disables "
+                             "the host spill tier)")
+        if self.host_tier_bytes and self.kv_dtype == "int8":
+            raise ValueError("host_tier_bytes with kv_dtype='int8': the "
+                             "spill tier does not carry page scales yet")
+        if self.host_tier_bytes and not self.enable_radix_cache:
+            raise ValueError(
+                "host_tier_bytes needs the radix cache (spills come from "
+                "its evictions) — a silently absent tier would discard "
+                "every evicted prefix the operator budgeted RAM to keep")
         if self.mode != "unified":
             # The reference refuses int8 KV outside unified mode too.
             raise _todo(f"mode={self.mode!r}", "PD prefill/decode modes")

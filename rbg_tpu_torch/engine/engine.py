@@ -59,6 +59,8 @@ from rbg_tpu_torch.engine.radix_cache import RadixCache
 from rbg_tpu_torch.engine.sampler import NEG_INF, row_keys, sample
 from rbg_tpu_torch.engine.spec import NGramIndex
 from rbg_tpu_torch.models.llama import forward_paged, forward_ragged, init_params
+from rbg_tpu_torch.obs import names as obs_names
+from rbg_tpu_torch.obs.metrics import REGISTRY
 
 
 @dataclasses.dataclass
@@ -127,6 +129,13 @@ class Engine:
         self.allocator = PageAllocator(cfg.num_pages)
         self.radix = (RadixCache(self.allocator, cfg.page_size)
                       if cfg.enable_radix_cache else None)
+        # Host-DRAM spill tier under the device pool (engine/kvtier.py):
+        # radix evictions spill into it, admission promotes out of it.
+        self.host_tier = None
+        if cfg.host_tier_bytes and self.radix is not None \
+                and not self.cache.quantized:
+            from rbg_tpu_torch.engine.kvtier import HostKVTier
+            self.host_tier = HostKVTier(cfg.page_size, cfg.host_tier_bytes)
         self.waiting: List[Request] = []
         self.running: List[Request] = []
         self.requests: Dict[int, Request] = {}
@@ -155,7 +164,8 @@ class Engine:
         self._regex_grammars = collections.OrderedDict()
         self._gtable_dev = collections.OrderedDict()
         self.metrics = {"steps": 0, "decode_tokens": 0, "prefill_tokens": 0,
-                        "radix_hit_tokens": 0, "preemptions": 0,
+                        "radix_hit_tokens": 0, "host_hit_tokens": 0,
+                        "preemptions": 0,
                         "unified_steps": 0, "decode_windows": 0, "joins": 0,
                         "join_wait_steps_max": 0, "join_excess_steps_max": 0,
                         "spec_drafted": 0, "spec_accepted": 0, "spec_steps": 0}
@@ -192,13 +202,17 @@ class Engine:
         return req.id
 
     def prefix_peek(self, prompt: List[int]) -> int:
-        """Prefix-hit depth this prompt would get at admission. Read from
-        submitter threads by the TTFT predictor while the loop thread owns
-        the trie: a stale or zero answer only skews one prediction."""
+        """Prefix-hit depth (device radix + host tier) this prompt would
+        get at admission. Read from submitter threads by the TTFT predictor
+        while the loop thread owns the trie: a stale or zero answer only
+        skews one prediction."""
         if self.radix is None or len(prompt) < 2:
             return 0
         try:
-            return self.radix.peek(prompt[:-1])
+            m = self.radix.peek(prompt[:-1])
+            if self.host_tier is not None:
+                m += self.host_tier.peek(prompt[:-1], m)
+            return m
         except Exception:  # noqa: BLE001 — racy read, degrade to a miss
             return 0
 
@@ -514,12 +528,18 @@ class Engine:
                 break
             req = self.waiting[0]
             matched, shared_pages = 0, []
+            radix_matched = host_matched = 0
             if (self.radix is not None and req.state == "waiting"
                     and req.lora_idx == 0):
                 # Keep at least the prompt's last token for prefill (logits).
-                # Adapter requests skip the cache: their KV is not the base
-                # model's for the same tokens.
+                # Adapter requests skip the cache (and the host tier): their
+                # KV is not the base model's for the same tokens.
                 matched, shared_pages = self.radix.match(req.prompt[:-1])
+                radix_matched = matched
+                if self.host_tier is not None:
+                    matched, shared_pages = self._promote_host(
+                        req, matched, shared_pages)
+                    host_matched = matched - radix_matched
             # Pages for the prompt + first token only: decode grows page by
             # page, and preemption reclaims on exhaustion.
             need = (pages_for_tokens(len(req.prompt) + 1, self.cfg.page_size)
@@ -543,25 +563,101 @@ class Engine:
             del self.last_join_waits[:-1024]
             req.blocked_steps = 0
             self.metrics["joins"] += 1
-            self.metrics["radix_hit_tokens"] += matched
             req.pages = shared_pages + pages
             req.prefill_pos = matched
             req.seq_len = matched
             req.state = "prefill"
             self.running.append(req)
+            # Hit accounting on admission success only, the two tiers'
+            # counters summing to the request's hit: a promotion whose
+            # request then fails its remaining alloc counts nothing (the
+            # promoted pages entered the radix, so the retry's match
+            # re-finds them), and a blocked request re-attempting every
+            # step must not inflate the tier counters.
+            self.metrics["radix_hit_tokens"] += radix_matched
+            self.metrics["host_hit_tokens"] += host_matched
+            if self.host_tier is not None and req.lora_idx == 0:
+                if host_matched:
+                    REGISTRY.inc(obs_names.KVC_TIER_HITS_TOTAL, tier="host")
+                elif radix_matched:
+                    REGISTRY.inc(obs_names.KVC_TIER_HITS_TOTAL,
+                                 tier="device")
+                else:
+                    REGISTRY.inc(obs_names.KVC_TIER_MISSES_TOTAL)
         if blocked:
             # Every request still waiting sat this step out for capacity.
             for r in self.waiting:
                 r.blocked_steps += 1
+
+    def _promote_host(self, req: Request, matched: int,
+                      shared_pages: List[int]):
+        """Extend a radix hit from the host spill tier: promoted pages
+        move onto freshly allocated device pages and enter the radix
+        cache, so this request — and every later one — device-hits them.
+        Token accounting is the caller's, on admission success only."""
+        h_tokens, h_pages, self.cache = self.host_tier.promote_to_device(
+            req.prompt[:-1], matched, self._alloc, self.cache,
+            release_fn=self.allocator.release)
+        if h_tokens:
+            # The radix insert takes the cache's own reference on the
+            # promoted pages (share()); the request's ref stays separate,
+            # exactly like a radix hit.
+            self.radix.insert(req.prompt[:matched + h_tokens],
+                              shared_pages + h_pages)
+            shared_pages = shared_pages + h_pages
+            matched += h_tokens
+        self._publish_tier_gauges()
+        return matched, shared_pages
 
     def _alloc(self, n: int) -> Optional[List[int]]:
         if n <= 0:
             return []
         pages = self.allocator.alloc(n)
         if pages is None and self.radix is not None:
-            self.radix.evict(n - self.allocator.free_pages)
+            self.radix.evict(
+                n - self.allocator.free_pages,
+                on_evict=(self._spill_evicted if self.host_tier is not None
+                          else None))
             pages = self.allocator.alloc(n)
+            if self.host_tier is not None:
+                self._publish_tier_gauges()
         return pages
+
+    def _spill_evicted(self, prefix_tokens: List[int],
+                       page_ids: List[int]) -> None:
+        """Radix eviction hook: copy the evicted leaf's device pages into
+        the host tier BEFORE their allocator release (device contents are
+        still valid here; ids may recycle right after).
+
+        Pages a RUNNING request still pins (refcount > 1: the cache's ref
+        plus the request's) are NOT spilled: they stay device-resident and
+        re-enter the radix when that request finishes — a copy would leave
+        the same content resident in both tiers. A request's match/share
+        always takes a PREFIX of a node's pages, so the pinned region is a
+        prefix of ``page_ids`` and the free tail is contiguous. A pending
+        decode window writes only its rows' own pages, never a radix page
+        at refcount 1, and the tier's gather runs on the engine's stream,
+        after that window's kernels."""
+        k = 0
+        while k < len(page_ids) \
+                and self.allocator.refcount(page_ids[k]) > 1:
+            k += 1
+        if k == len(page_ids):
+            return
+        self.host_tier.spill_from_device(prefix_tokens, page_ids[k:],
+                                         self.cache)
+
+    def _publish_tier_gauges(self) -> None:
+        if self.radix is None or self.host_tier is None:
+            return
+        pages = self.radix.cached_pages
+        c = self.cache
+        per_page = ((c.k_pages.nbytes + c.v_pages.nbytes)
+                    / max(1, c.k_pages.shape[1]))
+        REGISTRY.set_gauge(obs_names.KVC_TIER_PAGES, float(pages),
+                           tier="device")
+        REGISTRY.set_gauge(obs_names.KVC_TIER_BYTES,
+                           float(pages * per_page), tier="device")
 
     # ---- ragged unified prefill/decode step ----
 
@@ -1249,6 +1345,8 @@ class Engine:
             # Cache the full sequence (prompt + output) for future prefixes;
             # adapter KV must not match base requests.
             self.radix.insert(req.prompt + req.output[:-1], req.pages)
+            if self.host_tier is not None:
+                self._publish_tier_gauges()
         self.allocator.release(req.pages)
         req.pages = []
         self.requests.pop(req.id, None)

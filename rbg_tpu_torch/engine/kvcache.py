@@ -105,6 +105,12 @@ class PageAllocator:
                 self._free.append(p)
             assert self._refs[p] >= 0, f"double free of page {p}"
 
+    def refcount(self, p: int) -> int:
+        """Current reference count of one page (the host-tier spill hook
+        reads it: a page another holder still pins must not spill — it
+        stays device-resident)."""
+        return int(self._refs[p])
+
 
 def pages_for_tokens(n_tokens: int, page_size: int) -> int:
     return (n_tokens + page_size - 1) // page_size

@@ -1,7 +1,9 @@
 """Wire protocol of the engine server: newline-delimited JSON over TCP
 (a copy of the framing in ``rbg_tpu/engine/protocol.py`` and the error
 codes of ``rbg_tpu/api/errors.py``), so the reference's clients and router
-talk to this port's server unchanged.
+talk to this port's server unchanged, and the port's router to either.
+The reference's binary lanes (a KV bundle's bytes after the header) come
+with PD serving.
 
 Ops served here:
   {"op": "health"}                          → {"ok": true, "mode": ...}
@@ -36,6 +38,13 @@ CODE_DEADLINE = "deadline_exceeded"
 CODE_REJECTED = "rejected"
 #: The server is draining (SIGTERM): new data ops are refused. Retryable.
 CODE_DRAINING = "draining"
+#: A streamed KV handoff broke (PD serving); the router re-routes in
+#: bundle mode.
+CODE_KV_STREAM = "kv_stream_failed"
+
+#: Codes the router may retry on a sibling backend (a shed or draining
+#: backend is HEALTHY — never evicted).
+RETRYABLE_REJECT_CODES = (CODE_OVERLOADED, CODE_DRAINING)
 
 # The HTTP edge's mapping (``rbg_tpu/api/errors.py``) for the codes this
 # server emits: 429 tells clients to back off (Retry-After carries the

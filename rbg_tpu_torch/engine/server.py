@@ -14,6 +14,7 @@ an unknown op.
     python -m rbg_tpu_torch.engine.server --model deepseek-v2-lite --port 9000
     python -m rbg_tpu_torch.engine.server --device cpu --model tiny --port 0
     python -m rbg_tpu_torch.engine.server --model llama3-8b --grammar-table off
+    python -m rbg_tpu_torch.engine.server --model llama3-8b --host-tier-bytes $((8<<30))
 
 The server binds first (readiness probes connect), then builds the engine
 in the background; ``health`` reports ``ok`` once it is ready. It runs on
@@ -21,8 +22,11 @@ the card unless ``--device`` says otherwise. With ``--auth-token`` (or
 ``RBG_DATA_TOKEN``) every op but ``health``, ``metrics`` and ``slo``
 needs the token. SIGTERM drains: in-flight requests finish, new data ops
 are refused with code ``draining``, and the process exits 0 when nothing
-is in flight or the drain deadline passes. ``start_server`` serves an
-existing EngineService from a thread of the calling process.
+is in flight or the drain deadline passes. With ``--host-tier-bytes``
+the engine spills evicted prefix pages to host memory and promotes them
+back on a hit; ``metrics`` then carries ``host_tier`` (the tier's stats)
+and ``device_tier_pages``. ``start_server`` serves an existing
+EngineService from a thread of the calling process.
 """
 
 from __future__ import annotations
@@ -191,9 +195,14 @@ class Handler(socketserver.BaseRequestHandler):
                 "ok": True, "elapsed_s": round(time.perf_counter() - t0, 2)})
             return
         if op == "metrics":
-            send_msg(self.request, {
-                "metrics": {**service.stats(), "draining": srv.draining},
-                "mode": "unified"})
+            stats = service.stats()
+            eng = service.engine
+            if eng.host_tier is not None:
+                stats["host_tier"] = eng.host_tier.stats()
+                stats["device_tier_pages"] = (
+                    eng.radix.cached_pages if eng.radix is not None else 0)
+            stats["draining"] = srv.draining
+            send_msg(self.request, {"metrics": stats, "mode": "unified"})
             return
         if op == "generate_text":
             self._generate_text(srv, service, obj)
@@ -369,6 +378,7 @@ def build_config(args) -> EngineConfig:
         early_reject_factor=args.early_reject_factor,
         grammar_table=args.grammar_table,
         grammar_state_budget=args.grammar_state_budget,
+        host_tier_bytes=args.host_tier_bytes,
         vocab_size=args.vocab_size, seed=args.seed, device=args.device)
 
 
@@ -501,6 +511,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--slo-tpot-s", type=float, default=0.5,
                     help="per-output-token target after the first token "
                          "(0 disables the dimension)")
+    ap.add_argument("--host-tier-bytes", type=int, default=0,
+                    help="host-DRAM KV spill tier budget in bytes: device "
+                         "page-pool evictions spill prefix pages here and "
+                         "admission promotes them back on a hit (0 = off; "
+                         "needs the radix cache; not with --kv-dtype int8)")
     ap.add_argument("--early-reject", choices=("off", "auto"), default="off",
                     help="shed at admission when the predicted TTFT (queue "
                          "wait + prefill net of the prefix hit) exceeds "

@@ -39,6 +39,42 @@ class Registry:
         with self._lock:
             self._gauges[key] = value
 
+    def gauge(self, name: str, **labels) -> Optional[float]:
+        with self._lock:
+            return self._gauges.get(_key(name, labels))
+
+    def counter(self, name: str, **labels) -> float:
+        with self._lock:
+            return self._counters.get(_key(name, labels), 0.0)
+
+    def label_values(self, name: str, label: str) -> set:
+        """Distinct values one label takes across every live series of a
+        family — what a staleness sweep diffs against its live set."""
+        out = set()
+        with self._lock:
+            for store in (self._counters, self._gauges, self._hist):
+                for key in store:
+                    if key[0] == name:
+                        v = dict(key[1]).get(label)
+                        if v is not None:
+                            out.add(v)
+        return out
+
+    def remove_series(self, name: str, **labels) -> int:
+        """Drop every series of ``name`` whose labels include ``labels``
+        (no labels = the whole family): an evicted backend's per-backend
+        series must leave the registry. Returns the number removed."""
+        want = set(labels.items())
+        removed = 0
+        with self._lock:
+            for store in (self._counters, self._gauges, self._hist):
+                dead = [k for k in store
+                        if k[0] == name and want.issubset(set(k[1]))]
+                for k in dead:
+                    del store[k]
+                removed += len(dead)
+        return removed
+
     def observe(self, name: str, value: float, exemplar: Optional[str] = None,
                 **labels):
         """Record one value; ``exemplar`` is a trace id remembered for the

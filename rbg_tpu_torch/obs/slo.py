@@ -191,7 +191,8 @@ def slo_response(window=None) -> dict:
     """The ``slo`` op's reply: every tracker's snapshot plus the windowed
     signals of the process's sampler. ``window`` (seconds) picks the
     headline window; malformed input reads as 60, clamped to [1, 3600].
-    ``cache`` stays empty: the port has no KV tier hierarchy."""
+    ``cache`` is the per-tier KV cache panel (empty while no host tier
+    ever published)."""
     try:
         w = float(window)
     except (TypeError, ValueError):
@@ -221,11 +222,41 @@ def slo_response(window=None) -> dict:
                 names.SLO_TPOT_SECONDS, window_s)),
         }
 
+    def cache_tiers(window_s: float) -> dict:
+        """Per-tier KV cache-hierarchy panel (engine/kvtier.py): resident
+        pages/bytes (live gauges) plus windowed hit / spill / promote /
+        evict rates — empty when no tier ever published (host tier off)."""
+        def r(v, nd=4):
+            return round(v, nd) if v is not None else None
+        tiers = {}
+        for tier in sorted(REGISTRY.label_values(names.KVC_TIER_PAGES,
+                                                 "tier")):
+            tiers[tier] = {
+                "pages": REGISTRY.gauge(names.KVC_TIER_PAGES, tier=tier),
+                "bytes": REGISTRY.gauge(names.KVC_TIER_BYTES, tier=tier),
+                "hits_per_s": r(sampler.rate(
+                    names.KVC_TIER_HITS_TOTAL, window_s, tier=tier)),
+                "evicted_pages_per_s": r(sampler.rate(
+                    names.KVC_TIER_EVICTED_PAGES_TOTAL, window_s,
+                    tier=tier)),
+            }
+        if not tiers:
+            return {}
+        return {
+            "tiers": tiers,
+            "misses_per_s": r(sampler.rate(
+                names.KVC_TIER_MISSES_TOTAL, window_s)),
+            "spill_pages_per_s": r(sampler.rate(
+                names.KVC_TIER_SPILLED_PAGES_TOTAL, window_s)),
+            "promote_pages_per_s": r(sampler.rate(
+                names.KVC_TIER_PROMOTED_PAGES_TOTAL, window_s)),
+        }
+
     return {
         "window_s": w,
         "sampler": sampler.stats(),
         "signals": signals(w),
         "signals_by_window": {f"{int(ws)}s": signals(ws) for ws in WINDOWS_S},
-        "cache": {},
+        "cache": cache_tiers(w),
         "trackers": [t.snapshot(group_by=("role",)) for t in trackers()],
     }

@@ -6,7 +6,8 @@ them over ``WINDOWS_S``.
 
 * ``rbg_*`` names must be in ``obs/names.py`` (a typo raises instead of
   reading 0);
-* a query sums every series of the name, whatever its labels;
+* a query sums every series of the name whose labels include the ones
+  it passes (``rate`` only; none: every series);
 * a counter that went down was reset: it counts as grown from 0.
 """
 
@@ -88,20 +89,21 @@ class _Sampler:
         return inside
 
     @staticmethod
-    def _increase(win: List[tuple], name: str, field: int,
+    def _increase(win: List[tuple], name: str, labels: dict, field: int,
                   hist_part: Optional[int] = None):
         """Summed increase of the name's series over ``win`` and the span
         it covers (None, None under two samples). ``field`` picks the
         snapshot store; ``hist_part`` sum (0) or count (1) of a histogram."""
         if len(win) < 2:
             return None, None
+        want = set(labels.items())
         total = 0.0
         prev: Dict[tuple, float] = {}
         first = True
         for sample in win:
             seen = set()
             for key, v in sample[field].items():
-                if key[0] != name:
+                if key[0] != name or not want.issubset(key[1]):
                     continue
                 if hist_part is not None:
                     v = v[hist_part]
@@ -117,10 +119,11 @@ class _Sampler:
             first = False
         return total, win[-1][0] - win[0][0]
 
-    def rate(self, name: str, window_s: float) -> Optional[float]:
+    def rate(self, name: str, window_s: float, **labels) -> Optional[float]:
         """Per-second counter rate over the window."""
         _check_name(name)
-        total, elapsed = self._increase(self._window(window_s), name, field=1)
+        total, elapsed = self._increase(self._window(window_s), name, labels,
+                                        field=1)
         if total is None or not elapsed:
             return None
         return total / elapsed
@@ -130,8 +133,8 @@ class _Sampler:
         Δcount, both from one window)."""
         _check_name(name)
         win = self._window(window_s)
-        dsum, _ = self._increase(win, name, field=2, hist_part=0)
-        dcount, _ = self._increase(win, name, field=2, hist_part=1)
+        dsum, _ = self._increase(win, name, {}, field=2, hist_part=0)
+        dcount, _ = self._increase(win, name, {}, field=2, hist_part=1)
         if dsum is None or not dcount:
             return None
         return dsum / dcount

@@ -2,7 +2,7 @@
 process has JAX loaded by tests/conftest.py): importing every
 rbg_tpu_torch module and chip_smoke.py loads neither JAX nor any rbg_tpu
 module, and the entry points refuse to run without a card unless asked
-for the CPU."""
+for the CPU (the router, which runs no model, starts without one)."""
 
 import os
 import subprocess
@@ -21,7 +21,10 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "rbg_tpu"
              or m.startswith("rbg_tpu."))
 assert len(names) >= 15, names
-assert {"rbg_tpu_torch.engine.grammar", "rbg_tpu_torch.engine.http_frontend"} <= set(names)
+assert {"rbg_tpu_torch.engine.grammar", "rbg_tpu_torch.engine.http_frontend",
+        "rbg_tpu_torch.engine.router", "rbg_tpu_torch.engine.routertier",
+        "rbg_tpu_torch.engine.kvtier", "rbg_tpu_torch.engine.kvpool",
+        "rbg_tpu_torch.utils.locktrace"} <= set(names)
 assert not bad, bad
 print("ok", len(names))
 """
@@ -42,10 +45,11 @@ print("ok")
 """
 
 
-def _run(code):
+def _run(code, *args):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
-    return subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+    argv = list(args) if args else ["-c", code]
+    return subprocess.run([sys.executable] + argv, cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
 
 
@@ -57,3 +61,9 @@ def test_port_imports_no_jax_and_no_rbg_tpu():
 def test_entry_points_need_a_card_unless_asked_for_cpu():
     r = _run(NO_CARD)
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-3000:]
+
+
+def test_router_help_runs_without_a_card():
+    r = _run(None, "-m", "rbg_tpu_torch.engine.router", "--help")
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "--backends" in r.stdout and "--directory" in r.stdout

@@ -157,10 +157,14 @@ def test_sampled_streams_match_jax(weights, monkeypatch, multi_step):
     assert streams[1][0] != streams[1][2]       # seeded alike, other prompts
 
 
-@pytest.mark.parametrize("bad", [
-    dict(mode="prefill"), dict(host_tier_bytes=1 << 20), dict(mode="decode")])
-def test_unsupported_configs_raise(bad):
-    with pytest.raises(NotImplementedError):
+@pytest.mark.parametrize("bad,exc", [
+    (dict(mode="prefill"), NotImplementedError),
+    # The host tier is ported; with int8 KV it is refused as the
+    # reference refuses it.
+    (dict(host_tier_bytes=1 << 20, kv_dtype="int8"), ValueError),
+    (dict(mode="decode"), NotImplementedError)], ids=["bad0", "bad1", "bad2"])
+def test_unsupported_configs_raise(bad, exc):
+    with pytest.raises(exc):
         Engine(EngineConfig(**{**BASE, **bad}), device="cpu")
 
 
