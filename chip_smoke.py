@@ -102,10 +102,29 @@ Phases, each printing one JSON line:
              on the sibling equal to the uninterrupted stream (B = 1, idle
              servers); the OpenAI front end through the router (a
              guided_regex completion, a streamed chat).
+   pd      — prefill/decode disaggregation in process (engine/pd.py, one
+             weights dict): PD_PROMPT_LENS (1100-2032 tokens) one at a
+             time through a unified Engine, then PDPair (whole bundles) and
+             PDStreamPair (layer_split 4; admit_layers 0 and 8) over an
+             in-process link and a paced one (0.5 GB/s, 5 ms a frame): greedy
+             tokens equal the unified engine's on every path, every
+             imported page's payload checksum equals its exported page's,
+             the layer-sliced admission engages on the paced link (kernels
+             A, B); then, without that witness's probe, TTFT through PD
+             against unified, export and commit GB/s by the workers' own
+             clocks beside one pinned copy_, and the first decode token
+             with and without layer slicing beside the layer-admit lead.
    int8    — the same engine script with kv_dtype="int8" (kernels C, D),
              multi_step 4, its three witnesses on int8 pools and the server
              over int8 pools.
-6. serving (llama3-8b at full width and depth, random weights from a seed,
+6. pd_servers (after the phases above free their llama3-8b weights): ``python
+   -m rbg_tpu_torch.engine.server --mode prefill`` and ``--mode decode`` at
+   llama3-8b as processes on the card (random weights from seed 0), warmed,
+   behind the port's router with --kv-stream auto (pushed chunk streams)
+   and then off (whole bundles): 8 requests one at a time each, every one
+   completes, greedy tokens equal between the two, and the first 3 equal
+   to the in-process unified engine's on the same weights.
+7. serving (llama3-8b at full width and depth, random weights from a seed,
    after the phases above free theirs):
    bench_serving   — ``rbg_tpu_torch.engine.bench_serving.run`` with
              BENCH_ARGS (16 Poisson requests of 512-token prompts and 64 new
@@ -118,27 +137,32 @@ Phases, each printing one JSON line:
              slo, traces, an auth refusal, start_drain refusing a new
              generate while a stream finishes; tiny's embeddings on the card
              against the CPU port.
-   bench_slo — ``rbg_tpu_torch.engine.bench_slo --setups unified`` at tiny:
-             a spawned server on the card, two rates.
-7. deepseek-v2-lite (MLA + MoE) at full width and depth, random weights
+   bench_slo — ``rbg_tpu_torch.engine.bench_slo --setups unified,pd`` at
+             llama3-8b with BENCH_SLO_ARGS (24 Poisson requests of
+             512-token prompts and 32 new tokens at 1/s): a spawned server
+             on the card, then a spawned PD group (kv pool, prefill and
+             decode servers on the card, the router): every request
+             completes on both; TTFT, ITL and goodput of each.
+8. deepseek-v2-lite (MLA + MoE) at full width and depth, random weights
    from a seed, after llama3-8b is freed: engine (kernels E, F; multi_step
    1 and 4), witnesses (ragged_compare, decode_compare and block_compare:
    F at T > 1) and server, as for llama3-8b; then on the same weights over
    int8 latent pools (kernels G, H): engine (multi_step 4), int8 witnesses
    (H at T > 1) and server.
-8. ragged_ab — rbg_tpu_torch.bench.block_ragged_probe: kernel I against
+9. ragged_ab — rbg_tpu_torch.bench.block_ragged_probe: kernel I against
    kernel B on a prefill-heavy pack, both checked against the plain
    version, then interleaved timed reps; then each kernel's device ms on
    the probe's pack (the probe's calls/s read host time at its size).
 
 Then a line {"kernels": [...]} (launches counted over the phases that drive
-each kernel's path: the llama3-8b server, tier and router phases for A and
-B, the int8 engine for C and D, the deepseek-v2-lite server for E and F, its int8 engine for G
+each kernel's path: the llama3-8b server, tier, router and pd phases for A
+and B, the int8 engine for C and D, the deepseek-v2-lite server for E and F, its int8 engine for G
 and H, the probe for I) and, last, {"ok": true, "device": {...}}. Any
 failure exits non-zero before the last line; without a CUDA device nothing
 runs.
 """
 
+import dataclasses
 import gc
 import json
 import os
@@ -1150,7 +1174,7 @@ def lora_phase(torch, np, params, model, card):
 
     from rbg_tpu_torch.engine.config import SamplingParams
     from rbg_tpu_torch.engine.engine import Engine
-    from rbg_tpu_torch.engine.protocol import request_once
+    from rbg_tpu_torch.engine.protocol import request_obj
     from rbg_tpu_torch.engine.server import (build_config, lora_specs, parse_args,
                                              start_server)
     from rbg_tpu_torch.engine.service import EngineService
@@ -1181,14 +1205,14 @@ def lora_phase(torch, np, params, model, card):
     srv = start_server(svc)
     try:
         msg = {"op": "generate", "prompt": prompt, "max_new_tokens": 16}
-        base = request_once(srv.addr, msg, timeout=300)
+        base = request_obj(srv.addr, msg, timeout=300)
         reset_launches()
         with ThreadPoolExecutor(3) as ex:
-            mixed = list(ex.map(lambda n: request_once(
+            mixed = list(ex.map(lambda n: request_obj(
                 srv.addr, {**msg, **({"lora": n} if n else {})}, timeout=300),
                 ("a", "b", None)))
         launches = dict(LAUNCHES)
-        bad = request_once(srv.addr, {**msg, "lora": "nope"}, timeout=60)
+        bad = request_obj(srv.addr, {**msg, "lora": "nope"}, timeout=60)
     finally:
         srv.shutdown()
         srv.server_close()
@@ -1874,7 +1898,7 @@ class CutProxy:
         import socketserver
         import threading
 
-        from rbg_tpu_torch.engine.protocol import recv_msg, send_msg
+        from rbg_tpu_torch.engine.protocol import recv_obj, send_msg
 
         proxy = self
         self.cut_after = None
@@ -1882,7 +1906,7 @@ class CutProxy:
 
         class Relay(socketserver.BaseRequestHandler):
             def handle(self):
-                obj = recv_msg(self.request)
+                obj = recv_obj(self.request)
                 if obj is None:
                     return
                 host, port = upstream.rsplit(":", 1)
@@ -1890,7 +1914,7 @@ class CutProxy:
                     send_msg(up, obj)
                     frames = 0
                     while True:
-                        f = recv_msg(up)
+                        f = recv_obj(up)
                         if f is None:
                             return
                         if (obj.get("stream") and f.get("tokens")
@@ -1935,14 +1959,14 @@ def start_router(backends):
 
 
 def stream_tokens(addr, req):
-    from rbg_tpu_torch.engine.protocol import recv_msg, send_msg
+    from rbg_tpu_torch.engine.protocol import recv_obj, send_msg
 
     host, port = addr.rsplit(":", 1)
     tokens = []
     with socket.create_connection((host, int(port)), timeout=600) as s:
         send_msg(s, {**req, "stream": True})
         while True:
-            f = recv_msg(s)
+            f = recv_obj(s)
             if f is None or "error" in f:
                 raise AssertionError(f"stream through the router broke: {f}")
             tokens.extend(f.get("tokens") or [])
@@ -1967,6 +1991,7 @@ def router_phase(torch, np, params, card, model="llama3-8b", dev="cuda", **engin
 
     from rbg_tpu_torch.engine import bench_serving, http_frontend
     from rbg_tpu_torch.engine.config import EngineConfig
+    from rbg_tpu_torch.engine.protocol import request_obj
     from rbg_tpu_torch.engine.server import start_server
     from rbg_tpu_torch.engine.service import EngineService
     from rbg_tpu_torch.engine.tokenizer import ByteTokenizer
@@ -1994,7 +2019,7 @@ def router_phase(torch, np, params, card, model="llama3-8b", dev="cuda", **engin
 
     try:
         for s in srvs:
-            w = request_once(s.addr, {"op": "warmup", "input_len": args.input_len},
+            w = request_obj(s.addr, {"op": "warmup", "input_len": args.input_len},
                              timeout=600)
             if not w.get("ok"):
                 raise AssertionError(f"warmup {w}")
@@ -2026,7 +2051,7 @@ def router_phase(torch, np, params, card, model="llama3-8b", dev="cuda", **engin
         hits = [s.engine.metrics["radix_hit_tokens"] for s in svcs]
         joins = [s.engine.metrics["joins"] for s in svcs]
         for tail in range(3):
-            r = request_once(raddr, {"op": "generate", "max_new_tokens": 4,
+            r = request_obj(raddr, {"op": "generate", "max_new_tokens": 4,
                                      "prompt": shared + rng.randint(1, V, 16).tolist()},
                              timeout=600)
             if r.get("error"):
@@ -2075,7 +2100,7 @@ def router_phase(torch, np, params, card, model="llama3-8b", dev="cuda", **engin
                 or not re.fullmatch(GRAMMAR_REGEX, chat) or chat_ttft is None:
             raise AssertionError(f"front end through the router: {st} {health}, "
                                  f"{st1} {comp}, {st2} {chat!r}")
-        m = request_once(raddr, {"op": "health"}, timeout=30)
+        m = request_obj(raddr, {"op": "health"}, timeout=30)
         emit("router", card=card, model=model, args=" ".join(BENCH_ARGS),
              launches={k: launches[k] for k in LLAMA_KERNELS},
              served_per_backend=served,
@@ -2100,6 +2125,378 @@ def router_phase(torch, np, params, card, model="llama3-8b", dev="cuda", **engin
             c.server_close()
         for s in svcs:
             s.stop()
+
+
+PD_PROMPT_LENS = [1536, 1100, 2032]
+PD_NEW_TOKENS = 16
+PD_NUM_PAGES = 1024
+PD_LAYER_SPLIT = 4
+PD_ADMIT_LAYERS = 8
+# The paced in-process link of the layer-slicing witness and reading. The
+# first-token frame follows every page but the last (the prefill's last
+# step exports the pages it finalized first), so layer slicing overlaps
+# decode with that page's layer chunks only: 8 frames of 256 KiB at
+# layer_split 4. A per-frame latency keeps them on the wire for 40 ms, so
+# the row is admitted at 8 layers with 6 frames to go (2032 tokens of
+# llama3-8b KV are 254 MiB: 0.53 s at 0.5 GB/s, a 4 Gbit/s link).
+PD_LINK_BYTES_PER_S = 5e8
+PD_LINK_LATENCY_S = 0.005
+# The across-process group: 8 requests one after another (batch 1, so the
+# greedy tokens of the two wire paths compare bit for bit).
+PD_SERVER_PROMPT_LENS = [1024, 700, 1500, 333, 1200, 900, 1400, 640]
+PD_SERVER_NEW_TOKENS = 32
+PD_WARM_LEN = 1024
+PD_SERVER_ARGS = ["--num-pages", "1024", "--max-seq-len", "2080", "--max-batch",
+                  "8", "--prefill-chunk", "512", "--multi-step", "4"]
+
+
+def pd_probe(torch, pair, sync):
+    """Wrap a PD pair's export and import for the witness: the bytes of
+    every export, the ``payload_checksum`` of every exported page (keyed
+    by prompt and page index) and of every imported page read back from
+    the decode pool when its row is admitted (after a layer-sliced
+    admission's window chain: its pages but the one that now holds the
+    decode token's KV). It synchronizes the card around each commit and
+    takes host time in the path, so a run that reads times goes without
+    it."""
+    from rbg_tpu_torch.engine.kvtier import _to_host
+    from rbg_tpu_torch.kvtransfer.chunks import payload_checksum
+
+    rec = {"export_bytes": [], "sums": {}, "checked": 0, "mismatch": [],
+           "sliced": False}
+    pf, dw = pair.prefill, pair.decode
+
+    def sums(k, v):
+        return [payload_checksum(k[:, j].tobytes(), v[:, j].tobytes())
+                for j in range(k.shape[1])]
+
+    def check(prompt, pages, n):
+        cache = dw.engine.cache
+        ids = torch.tensor(pages[:n], dtype=torch.long, device=cache.k_pages.device)
+        got = sums(_to_host(cache.k_pages.index_select(1, ids)),
+                   _to_host(cache.v_pages.index_select(1, ids)))
+        for j, c in enumerate(got):
+            want = rec["sums"].get((tuple(prompt), j))
+            rec["checked"] += 1
+            if want != c:
+                rec["mismatch"].append((len(prompt), j))
+
+    export, commit = pf._export_pages, dw._commit_pages
+    admit, sliced = dw._admit_row, dw.finalize_stream_layer_sliced
+
+    def export_probe(req, lo, hi):
+        k, v = export(req, lo, hi)
+        rec["export_bytes"].append(k.nbytes + v.nbytes)
+        for j, c in enumerate(sums(k, v)):
+            rec["sums"][(tuple(req.prompt), lo + j)] = c
+        return k, v
+
+    def commit_probe(pages, k_host, v_host, wire, layer_lo=None, layer_hi=None):
+        sync()
+        commit(pages, k_host, v_host, wire, layer_lo, layer_hi)
+        sync()
+
+    def admit_probe(prompt, first_token, pages, sampling):
+        if not rec["sliced"]:
+            check(prompt, pages, -(-len(prompt) // pf.engine.cfg.page_size))
+        return admit(prompt, first_token, pages, sampling)
+
+    def sliced_probe(receiver, sampling=None, min_layers=1, deadline=None):
+        rec["sliced"] = True
+        try:
+            rid = sliced(receiver, sampling, min_layers, deadline)
+        finally:
+            rec["sliced"] = False
+        req = dw.engine.requests.get(rid)
+        if req is not None:
+            prompt = receiver.assembler.meta.prompt
+            check(prompt, req.pages, len(prompt) // pf.engine.cfg.page_size)
+        return rid
+
+    pf._export_pages, dw._commit_pages = export_probe, commit_probe
+    dw._admit_row, dw.finalize_stream_layer_sliced = admit_probe, sliced_probe
+    return rec
+
+
+def rate(nbytes, secs):
+    return {"bytes": nbytes, "seconds": secs,
+            "gbps": nbytes / secs / 1e9 if secs else None}
+
+
+def pd_phase(torch, np, params, card, model="llama3-8b", dev="cuda"):
+    """PD disaggregation in process at llama3-8b (bf16 pools, one weights
+    dict): PD_PROMPT_LENS one at a time through a unified Engine, then
+    through ``PDPair`` (whole bundles) and ``PDStreamPair`` (layer_split
+    PD_LAYER_SPLIT, admit_layers 0 and PD_ADMIT_LAYERS) over an in-process
+    link and over one paced to PD_LINK_BYTES_PER_S and PD_LINK_LATENCY_S a
+    frame, each under ``pd_probe`` (checksums);
+    then, without the probe, the bundle pair and the paced stream pairs
+    again for their times. Every request's greedy tokens must equal the
+    unified engine's; every imported page's payload checksum must equal
+    its exported page's; on the paced link the layer-sliced admission must
+    engage (a row admitted below full layer coverage) at least once;
+    kernels A and B must launch. Prints TTFT through PD against unified,
+    export and commit GB/s (the workers' ``transfer_s`` / ``commit_s``)
+    beside one pinned ``copy_`` of the same bytes, and the first decode
+    token's time with and without layer slicing beside the layer-admit
+    lead (full coverage less layer-k coverage: the time slicing lets the
+    first step overlap the transfer).
+    Returns (launches of the PD path, the prompts and unified tokens). On
+    the CPU (``dev="cpu"``, a rehearsal at tiny) no kernel launches."""
+    from rbg_tpu_torch.engine.config import EngineConfig, SamplingParams
+    from rbg_tpu_torch.engine.engine import Engine
+    from rbg_tpu_torch.engine.pd import PDPair, PDStreamPair
+    from rbg_tpu_torch.kvtransfer.transport import FakeICITransport, InProcTransport
+    from rbg_tpu_torch.obs import names as obs_names
+    from rbg_tpu_torch.obs.metrics import REGISTRY
+    from rbg_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    rng = np.random.RandomState(17)
+    V = params["embed"].shape[0]
+    prompts = [rng.randint(1, V, n).tolist() for n in PD_PROMPT_LENS]
+    sp = SamplingParams(max_new_tokens=PD_NEW_TOKENS)
+    cfg = EngineConfig(model=model, num_pages=PD_NUM_PAGES, max_seq_len=2048,
+                       prefill_chunk=512, multi_step=4, device=dev)
+    uni = Engine(dataclasses.replace(cfg, enable_radix_cache=False), params=params)
+    uni.generate([prompts[1][:64]], sp)      # first use of the card's libraries
+    unified = [timed_generate(uni, p, sp) for p in prompts]
+    want = [u[0] for u in unified]
+    del uni
+    gc.collect()
+
+    def paced():
+        return FakeICITransport(bytes_per_s=PD_LINK_BYTES_PER_S,
+                                latency_s=PD_LINK_LATENCY_S)
+
+    # Witness runs (checksums on every page) on every path, then timing
+    # runs without checksums: the bundle pair's TTFT, export and commit
+    # rates, and the paced link's first decode token with and without
+    # layer slicing.
+    arms = [("bundle", None, 0, True)]
+    arms += [(f"stream_{link}_admit{admit}", make, admit, True)
+             for link, make in (("inproc", InProcTransport), ("paced", paced))
+             for admit in (0, PD_ADMIT_LAYERS)]
+    arms += [("timed_bundle", None, 0, False),
+             ("timed_paced_admit0", paced, 0, False),
+             (f"timed_paced_admit{PD_ADMIT_LAYERS}", paced, PD_ADMIT_LAYERS, False)]
+    lead_key = (obs_names.KVT_LAYER_ADMIT_LEAD_SECONDS, ())
+    reset_launches()
+    runs, recs, rates, leads = {}, {}, {}, {}
+    for name, make, admit, witness in arms:
+        if make is None:
+            pair = PDPair(cfg, params=params)
+        else:
+            pair = PDStreamPair(cfg, params=params, transport=make(),
+                                layer_split=PD_LAYER_SPLIT, admit_layers=admit)
+        if witness:
+            recs[name] = pd_probe(torch, pair, sync)
+        lead0 = REGISTRY.snapshot_values()[1].get(lead_key, (0.0, 0))
+        if make is None:
+            out = [pair.generate([p], sp, collect_ttft=True) for p in prompts]
+            runs[name] = {"tokens": [o[0][0] for o in out],
+                          "ttft_s": [o[1][0] for o in out]}
+        else:
+            rs = [pair.generate_one(p, sp) for p in prompts]
+            runs[name] = {"tokens": [r["tokens"] for r in rs],
+                          "t_first_decode_s": [r["t_first_decode"] for r in rs],
+                          "layers_at_admit": [r["layers_at_admit"] for r in rs],
+                          "overlap": [r["overlap"] for r in rs]}
+        if not witness:
+            # The workers' own clocks: the export's gather and pinned copy,
+            # the commit's staging and index_copy_ (enqueued, not waited).
+            pm, dm = pair.prefill.metrics, pair.decode.metrics
+            rates[name] = {"export": rate(pm["bytes_out"], pm["transfer_s"]),
+                           "commit": rate(dm["bytes_in"], dm["commit_s"])}
+            lead1 = REGISTRY.snapshot_values()[1].get(lead_key, (0.0, 0))
+            leads[name] = {"sum_s": lead1[0] - lead0[0], "count": lead1[1] - lead0[1]}
+        del pair
+        gc.collect()
+    sync()
+    launches = dict(LAUNCHES)
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+    L = int(params["blocks"]["wq"].shape[0])
+    biggest = max(b for r in recs.values() for b in r["export_bytes"])
+    link = copy_gbps(torch, biggest, dev)
+    checked = sum(r["checked"] for r in recs.values())
+    mismatch = [m for r in recs.values() for m in r["mismatch"]]
+    engaged = [a for name in (f"stream_paced_admit{PD_ADMIT_LAYERS}",
+                              f"timed_paced_admit{PD_ADMIT_LAYERS}")
+               for a in runs[name]["layers_at_admit"] if a is not None and a < L]
+    equal = {name: r["tokens"] == want for name, r in runs.items()}
+    emit("pd", card=card, model=model, prompt_lens=PD_PROMPT_LENS,
+         new_tokens=PD_NEW_TOKENS, layer_split=PD_LAYER_SPLIT,
+         admit_layers=PD_ADMIT_LAYERS, link_bytes_per_s=PD_LINK_BYTES_PER_S,
+         link_latency_s=PD_LINK_LATENCY_S,
+         launches={k: launches.get(k, 0) for k in LLAMA_KERNELS},
+         tokens_equal_to_unified=equal, pages_checked=checked,
+         checksum_mismatches=mismatch[:4],
+         ttft_s={"unified": [u[1] for u in unified],
+                 "pd_bundle": runs["timed_bundle"]["ttft_s"]},
+         t_first_decode_s={name: r["t_first_decode_s"] for name, r in runs.items()
+                           if "ttft_s" not in r},
+         layers_at_admit={name: r["layers_at_admit"] for name, r in runs.items()
+                          if "ttft_s" not in r},
+         overlap={name: r["overlap"] for name, r in runs.items() if "ttft_s" not in r},
+         layer_admit_lead=leads, rates=rates, pinned_copy={"bytes": biggest, **link})
+    if not all(equal.values()):
+        raise AssertionError(f"pd: tokens differ from the unified engine's: {equal}")
+    if mismatch or checked == 0:
+        raise AssertionError(f"pd: {len(mismatch)} of {checked} imported pages differ "
+                             f"from their exported pages")
+    if not engaged:
+        raise AssertionError("pd: layer-sliced admission never admitted below full "
+                             "layer coverage on the paced link")
+    if dev == "cuda":
+        check_launches(launches, LLAMA_KERNELS)
+    return {k: launches.get(k, 0) for k in LLAMA_KERNELS}, (prompts, want)
+
+
+def _spawn_server(args, root, env, log):
+    port = free_port()
+    proc = subprocess.Popen([sys.executable, "-m", "rbg_tpu_torch.engine.server",
+                             "--port", str(port)] + args, cwd=root, env=env,
+                            stdout=subprocess.DEVNULL, stderr=log)
+    return proc, f"127.0.0.1:{port}"
+
+
+def _wait_healthy(procs, addrs, log, timeout=600):
+    from rbg_tpu_torch.engine.protocol import request_obj
+
+    t0 = time.perf_counter()
+    for proc, addr in zip(procs, addrs):
+        while True:
+            if proc.poll() is not None or time.perf_counter() - t0 > timeout:
+                log.seek(0)
+                raise AssertionError(f"server {addr} never became healthy: "
+                                     + log.read().decode()[-3000:])
+            try:
+                if (request_obj(addr, {"op": "health"}, timeout=5) or {}).get("ok"):
+                    break
+            except OSError:
+                pass
+            time.sleep(0.5)
+    return time.perf_counter() - t0
+
+
+def pd_process_phase(torch, np, card, model="llama3-8b", dev="cuda", ref=None):
+    """A PD group across processes: ``python -m rbg_tpu_torch.engine.server
+    --mode prefill`` and ``--mode decode`` at llama3-8b on the card (random
+    weights from seed 0, as init_phase draws them), each warmed, behind
+    the port's router with --kv-stream auto (KV pushed prefill→decode as
+    chunk streams) and then off (whole bundles over the wire): every one
+    of the 8 requests completes on both, and each request's greedy tokens
+    are equal between the two, and the first ``len(ref[0])`` requests'
+    tokens begin with ``ref``'s: (prompts, tokens) of the in-process
+    unified engine on the same weights. The caller has
+    freed its own llama3-8b weights and emptied the allocator's cache."""
+    import threading
+
+    from rbg_tpu_torch.engine import router
+    from rbg_tpu_torch.engine.protocol import request_obj
+
+    root = Path(__file__).resolve().parent
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RBG_SERVE_PORT", "RBG_PORT_SERVE", "RBG_KV_POOL_ADDR")}
+    env["PYTHONPATH"] = str(root)
+    args = ["--model", model] + PD_SERVER_ARGS + (["--device", "cpu"] if dev == "cpu" else [])
+    from rbg_tpu_torch.models.config import get_config
+
+    rng = np.random.RandomState(23)
+    V = get_config(model).vocab_size
+    prompts = [rng.randint(1, V, n).tolist() for n in PD_SERVER_PROMPT_LENS]
+    if ref is not None:
+        prompts = list(ref[0]) + prompts[len(ref[0]):]
+    closers, procs = [], []
+    with tempfile.TemporaryFile() as log:
+        try:
+            for mode in ("prefill", "decode"):
+                proc, addr = _spawn_server(["--mode", mode] + args, root, env, log)
+                procs.append((proc, addr))
+            ready_s = _wait_healthy([p for p, _ in procs], [a for _, a in procs], log)
+            (_, paddr), (_, daddr) = procs
+            warm = {}
+            for _, addr in procs:
+                w = request_obj(addr, {"op": "warmup", "input_len": PD_WARM_LEN},
+                                timeout=900)
+                if not (w or {}).get("ok"):
+                    raise AssertionError(f"pd server warmup {addr}: {w}")
+                warm[addr] = w["elapsed_s"]
+            health = {a: request_obj(a, {"op": "health"}, timeout=30) for _, a in procs}
+            results = {}
+            for setting in ("auto", "off"):
+                rs = router.RouterServer(("127.0.0.1", 0), router.Handler)
+                rs.state = router.RouterState(router.Registry(None), None,
+                                              {"prefill": [paddr], "decode": [daddr]},
+                                              kv_stream=setting == "auto")
+                threading.Thread(target=rs.serve_forever, daemon=True).start()
+                closers.append(rs)
+                raddr = f"127.0.0.1:{rs.server_address[1]}"
+                outs, walls = [], []
+                for p in prompts:
+                    t0 = time.perf_counter()
+                    r = request_obj(raddr, {"op": "generate", "prompt": p,
+                                            "max_new_tokens": PD_SERVER_NEW_TOKENS},
+                                    timeout=600)
+                    walls.append(time.perf_counter() - t0)
+                    outs.append(r)
+                results[setting] = {"replies": outs, "wall_s": walls,
+                                    "router": dict(rs.state.metrics)}
+            metrics = {a: request_obj(a, {"op": "metrics"}, timeout=30)["metrics"]
+                       for _, a in procs}
+        finally:
+            for c in closers:
+                c.shutdown()
+                c.server_close()
+            for proc, _ in procs:
+                proc.terminate()
+            for proc, _ in procs:
+                try:
+                    proc.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+    toks = {s: [r.get("tokens") for r in res["replies"]] for s, res in results.items()}
+    done = {s: sum(1 for r in res["replies"]
+                   if isinstance(r.get("tokens"), list)
+                   and len(r["tokens"]) == PD_SERVER_NEW_TOKENS)
+            for s, res in results.items()}
+    same = [a == b for a, b in zip(toks["auto"], toks["off"])]
+    vs_ref = ([t is not None and t[:len(w)] == w for t, w in zip(toks["auto"], ref[1])]
+              if ref is not None else None)
+    emit("pd_servers", card=card, model=model, args=" ".join(args),
+         prompt_lens=[len(p) for p in prompts], new_tokens=PD_SERVER_NEW_TOKENS,
+         ready_s=ready_s, warmup_s=warm, modes=[h.get("mode") for h in health.values()],
+         devices=[h.get("device") for h in health.values()], completed=done,
+         tokens_equal_auto_off=same, first_tokens_equal_inprocess_unified=vs_ref,
+         ttft_s={s: [r.get("ttft_s") for r in res["replies"]] for s, res in results.items()},
+         wall_s={s: res["wall_s"] for s, res in results.items()},
+         router={s: {k: res["router"].get(k) for k in
+                     ("pd_requests", "kv_stream_routed", "kv_stream_fallbacks",
+                      "kv_bytes_routed", "failovers")}
+                 for s, res in results.items()},
+         prefill_metrics={k: metrics[paddr].get(k) for k in
+                          ("streams", "bundles", "bytes_out", "transfer_s",
+                           "stream_chunks")},
+         decode_metrics={k: metrics[daddr].get(k) for k in
+                         ("streams_in", "bundles", "bytes_in", "stream_commits",
+                          "commit_s", "stream_errors", "free_pages")})
+    n = len(prompts)
+    if done != {"auto": n, "off": n}:
+        raise AssertionError(f"pd servers: not every request completed: {done}, "
+                             f"{[r for res in results.values() for r in res['replies'] if 'error' in r][:2]}")
+    if not all(same):
+        raise AssertionError(f"pd servers: tokens differ between --kv-stream auto and "
+                             f"off: {same}")
+    if vs_ref is not None and not all(vs_ref):
+        raise AssertionError(f"pd servers: tokens differ from the in-process unified "
+                             f"engine's: {vs_ref}")
+    if results["auto"]["router"]["kv_stream_routed"] != n \
+            or results["off"]["router"]["kv_stream_routed"] != 0:
+        raise AssertionError(f"pd servers: stream routing {results['auto']['router']} / "
+                             f"{results['off']['router']}")
 
 
 def check_launches(launches, kernels):
@@ -2199,7 +2596,7 @@ def server_phase(torch, np, params, model, kernels, card, kv_dtype="model"):
     from concurrent.futures import ThreadPoolExecutor
 
     from rbg_tpu_torch.engine.config import EngineConfig
-    from rbg_tpu_torch.engine.protocol import request_once, request_stream
+    from rbg_tpu_torch.engine.protocol import request_obj, request_stream
     from rbg_tpu_torch.engine.server import start_server
     from rbg_tpu_torch.engine.service import EngineService
     from rbg_tpu_torch.ops.kernels import LAUNCHES, reset_launches
@@ -2211,10 +2608,10 @@ def server_phase(torch, np, params, model, kernels, card, kv_dtype="model"):
                         params=params)
     srv = start_server(svc)
     try:
-        h = request_once(srv.addr, {"op": "health"}, timeout=30)
+        h = request_obj(srv.addr, {"op": "health"}, timeout=30)
         if not (h and h["ok"]):
             raise AssertionError(f"health {h}")
-        w = request_once(srv.addr, {"op": "warmup", "input_len": 32}, timeout=600)
+        w = request_obj(srv.addr, {"op": "warmup", "input_len": 32}, timeout=600)
         if not w.get("ok"):
             raise AssertionError(f"warmup {w}")
         rng = np.random.RandomState(2)
@@ -2230,7 +2627,7 @@ def server_phase(torch, np, params, model, kernels, card, kv_dtype="model"):
                 toks = [t for f in frames for t in f.get("tokens", [])]
                 return {"tokens": toks, "ttft_s": final.get("ttft_s"),
                         "error": final.get("error"), "frames": len(frames)}
-            return request_once(srv.addr, msg, timeout=600)
+            return request_obj(srv.addr, msg, timeout=600)
 
         reset_launches()
         t0 = time.perf_counter()
@@ -2243,7 +2640,7 @@ def server_phase(torch, np, params, model, kernels, card, kv_dtype="model"):
                     or not all(0 <= t < V for t in r["tokens"]):
                 raise AssertionError(f"request (prompt {plen}): {r}")
         check_launches(launches, kernels)
-        m = request_once(srv.addr, {"op": "metrics"}, timeout=30)
+        m = request_obj(srv.addr, {"op": "metrics"}, timeout=30)
         total = sum(n for _, n, _ in reqs)
         if svc.engine.cache.quantized != (kv_dtype == "int8"):
             raise AssertionError(f"server pool is not {kv_dtype}")
@@ -2283,7 +2680,7 @@ def tiny_phase(torch, np):
     greedy tokens equal the CPU port's on those weights."""
     from rbg_tpu_torch.engine.config import EngineConfig, SamplingParams
     from rbg_tpu_torch.engine.engine import Engine
-    from rbg_tpu_torch.engine.protocol import request_once
+    from rbg_tpu_torch.engine.protocol import request_obj
     from rbg_tpu_torch.engine.server import build_config, parse_args
     from rbg_tpu_torch.models.config import get_config
     from rbg_tpu_torch.models.llama import init_params
@@ -2329,11 +2726,11 @@ def tiny_phase(torch, np):
                     raise AssertionError("default server never became healthy: "
                                          + log.read().decode()[-3000:])
                 try:
-                    health = request_once(addr, {"op": "health"}, timeout=5)
+                    health = request_obj(addr, {"op": "health"}, timeout=5)
                 except OSError:
                     time.sleep(0.5)
             ready_s = time.perf_counter() - t0
-            replies = [request_once(addr, {"op": "generate", "prompt": p,
+            replies = [request_obj(addr, {"op": "generate", "prompt": p,
                                            "max_new_tokens": 16}, timeout=300)
                        for p in prompts[:2]]
         finally:
@@ -2387,9 +2784,10 @@ def init_phase(torch, model):
 
 
 def llama_phases(torch, np, card):
-    """llama3-8b: bf16 engine, witness and server (A, B), then the int8
-    engine, witness and server (C, D). Returns {kernel: launches on its
-    path}."""
+    """llama3-8b: bf16 engine, witness and server (A, B), the tier, router
+    and in-process PD phases (A, B), then the int8 engine, witness and
+    server (C, D). Returns ({kernel: launches on its path}, the PD
+    phase's prompts and unified tokens)."""
     params = init_phase(torch, "llama3-8b")
     bf16 = engine_phase(torch, np, params, "llama3-8b", LLAMA_KERNELS, sampled=True)
     ragged_compare(torch, np, params, "llama3-8b")
@@ -2407,6 +2805,10 @@ def llama_phases(torch, np, card):
     gc.collect()
     torch.cuda.empty_cache()
     paths = [tier_phase(torch, np, params, card), router_phase(torch, np, params, card)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    pd_launches, pd_ref = pd_phase(torch, np, params, card)
+    paths.append(pd_launches)
     for k in LLAMA_KERNELS:
         launches[k] += sum(p[k] for p in paths)
     gc.collect()
@@ -2423,7 +2825,7 @@ def llama_phases(torch, np, card):
     decode_compare(torch, np, params, "llama3-8b", kv_dtype="int8")
     block_compare(torch, np, params, "llama3-8b", kv_dtype="int8")
     server_phase(torch, np, params, "llama3-8b", INT8_KERNELS, card, kv_dtype="int8")
-    return launches
+    return launches, pd_ref
 
 
 def deepseek_phases(torch, np, card):
@@ -2452,6 +2854,12 @@ BENCH_ARGS = ["--model", "llama3-8b", "--requests", "16", "--rate", "4",
               "--input-len", "512", "--output-len", "64", "--num-pages", "2048",
               "--max-seq-len", "2048", "--max-batch", "8", "--multi-step", "4",
               "--slo-ttft-s", "2.0", "--slo-tpot-s", "0.5", "--json"]
+# bench_slo's two setups at llama3-8b, one low rate (the pd setup runs two
+# llama3-8b servers on the card: 1024 pages, 2 GiB, each).
+BENCH_SLO_ARGS = ["--setups", "unified,pd", "--model", "llama3-8b", "--rates", "1",
+                  "--requests", "24", "--input-len", "512", "--output-len", "32",
+                  "--num-pages", "1024", "--max-seq-len", "1024", "--max-batch", "8",
+                  "--prefill-chunk", "512", "--slo-ttft-s", "2.0", "--slo-tpot-s", "0.5"]
 # Auth token of the in-process llama3-8b server (bench --addr and the
 # serving-surface checks).
 SMOKE_TOKEN = "chip-smoke-token"
@@ -2480,8 +2888,9 @@ def bench_record(out, launches, mode, card, **extra):
 def serving_phases(torch, np, card):
     """bench_serving at llama3-8b (full depth, bf16 pools): in process, then
     with --addr against the port's server in this process (auth token on);
-    then the serving surface on that server and bench_slo at tiny."""
+    then the serving surface on that server and bench_slo at llama3-8b."""
     from rbg_tpu_torch.engine import bench_serving
+    from rbg_tpu_torch.engine.protocol import request_obj
     from rbg_tpu_torch.engine.server import start_server
     from rbg_tpu_torch.ops.kernels import LAUNCHES, reset_launches
 
@@ -2497,7 +2906,7 @@ def serving_phases(torch, np, card):
     svc = bench_serving.build_service(args)
     srv = start_server(svc, auth_token=SMOKE_TOKEN)
     try:
-        w = request_once(srv.addr, {"op": "warmup", "input_len": args.input_len,
+        w = request_obj(srv.addr, {"op": "warmup", "input_len": args.input_len,
                                     "token": SMOKE_TOKEN}, timeout=600)
         if not w.get("ok"):
             raise AssertionError(f"warmup {w}")
@@ -2521,12 +2930,7 @@ def serving_phases(torch, np, card):
     del svc
     gc.collect()
     torch.cuda.empty_cache()
-    bench_slo_phase()
-
-
-def request_once(addr, obj, timeout=120):
-    from rbg_tpu_torch.engine.protocol import request_once as once
-    return once(addr, obj, timeout=timeout)
+    bench_slo_phase(card)
 
 
 def surface_phase(torch, np, svc, srv):
@@ -2536,7 +2940,8 @@ def surface_phase(torch, np, svc, srv):
     runs on; then tiny's embeddings on the card against the CPU port."""
     from rbg_tpu_torch.engine.config import EngineConfig
     from rbg_tpu_torch.engine.engine import Engine
-    from rbg_tpu_torch.engine.protocol import CODE_DRAINING, recv_msg, send_msg
+    from rbg_tpu_torch.engine.protocol import (
+        CODE_DRAINING, recv_obj, request_obj, send_msg)
     from rbg_tpu_torch.engine.server import start_drain
     from rbg_tpu_torch.engine.service import embed_prompts
     from rbg_tpu_torch.models.config import get_config
@@ -2544,7 +2949,7 @@ def surface_phase(torch, np, svc, srv):
     from rbg_tpu_torch.obs import trace
 
     def ask(obj, token=SMOKE_TOKEN):
-        return request_once(srv.addr, {**obj, "token": token} if token else obj,
+        return request_obj(srv.addr, {**obj, "token": token} if token else obj,
                             timeout=600)
 
     V = svc.engine.mcfg.vocab_size
@@ -2607,13 +3012,13 @@ def surface_phase(torch, np, svc, srv):
     with socket.create_connection((host, int(port)), timeout=600) as s:
         send_msg(s, {"op": "generate", "prompt": prompts[0], "stream": True,
                      "max_new_tokens": 64, "token": SMOKE_TOKEN})
-        if "error" in recv_msg(s):
+        if "error" in recv_obj(s):
             raise AssertionError("stream refused")
         start_drain(srv, 120.0)
         drained = ask({"op": "generate", "prompt": [1, 2], "max_new_tokens": 2})
         n = 0
         while True:
-            frame = recv_msg(s)
+            frame = recv_obj(s)
             if frame is None or "error" in frame:
                 raise AssertionError(f"stream cut by the drain: {frame}")
             n += len(frame.get("tokens", []))
@@ -2632,22 +3037,31 @@ def surface_phase(torch, np, svc, srv):
          stream_tokens_through_drain=n)
 
 
-def bench_slo_phase():
-    """bench_slo --setups unified at tiny: a spawned server on the card,
-    two rates through bench_serving --addr."""
+def bench_slo_phase(card):
+    """bench_slo --setups unified,pd at llama3-8b (BENCH_SLO_ARGS): a
+    spawned server on the card, then a spawned PD group (kv pool, prefill
+    and decode servers on the card, the router), one low rate each through
+    bench_serving --addr: every request completes; TTFT, ITL and goodput
+    of both setups."""
     from rbg_tpu_torch.engine import bench_slo
 
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "slo.json")
         t0 = time.perf_counter()
-        bench_slo.main(["--setups", "unified", "--model", "tiny", "--rates", "4,8",
-                        "--requests", "8", "--input-len", "32", "--output-len", "16",
-                        "--json-out", path])
+        bench_slo.main(BENCH_SLO_ARGS + ["--json-out", path])
         with open(path) as f:
-            rows = json.load(f)["results"]["unified"]
-    emit("bench_slo", seconds=time.perf_counter() - t0, rows=rows)
-    if [r["completed"] for r in rows] != [8, 8]:
-        raise AssertionError(f"bench_slo: {rows}")
+            art = json.load(f)
+    res = art["results"]
+    emit("bench_slo", card=card, seconds=time.perf_counter() - t0,
+         rows=res["unified"], pd_rows=res["pd"],
+         slo_targets=art["slo_targets"], pd_over_unified=art["pd_over_unified"],
+         readings={s: [{"rate_rps": r["offered_rate_rps"], "ttft_s": r["ttft_s"],
+                        "itl_ms": r["itl_ms"], "goodput_rps": r.get("goodput_rps")}
+                       for r in rows] for s, rows in res.items()})
+    n = int(BENCH_SLO_ARGS[BENCH_SLO_ARGS.index("--requests") + 1])
+    for setup, rows in res.items():
+        if [r["completed"] for r in rows] != [n]:
+            raise AssertionError(f"bench_slo {setup}: {rows}")
 
 
 def probe_phase(torch):
@@ -2711,9 +3125,10 @@ def main():
 
     kern = kernels_phase(torch, np)
     tiny_phase(torch, np)
-    launches = llama_phases(torch, np, card)
+    launches, pd_ref = llama_phases(torch, np, card)
     gc.collect()
     torch.cuda.empty_cache()
+    pd_process_phase(torch, np, card, ref=pd_ref)
     serving_phases(torch, np, card)
     gc.collect()
     torch.cuda.empty_cache()

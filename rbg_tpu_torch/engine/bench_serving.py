@@ -121,7 +121,7 @@ def _drive_inprocess(args, prompts, arrivals):
 
 def _drive_remote(args, prompts, arrivals):
     """Streamed ``generate`` requests over the wire against ``--addr``."""
-    from rbg_tpu_torch.engine.protocol import recv_msg, send_msg
+    from rbg_tpu_torch.engine.protocol import recv_obj, send_msg
 
     results = [_Result() for _ in prompts]
     host, port = args.addr.rsplit(":", 1)
@@ -138,7 +138,7 @@ def _drive_remote(args, prompts, arrivals):
                 send_msg(s, req)
                 last = t0
                 while True:
-                    frame = recv_msg(s)
+                    frame = recv_obj(s)
                     if frame is None or "error" in frame:
                         break
                     toks = frame.get("tokens", [])

@@ -1,10 +1,10 @@
 """Engine configuration (``rbg_tpu/engine/config.py``) plus the device.
 
-The fields are the reference's serving knobs this port runs. Features the
-reference has and this port does not yet (PD modes) are refused in
-``validate`` with ``NotImplementedError`` naming the ROADMAP item, never
-ignored. ``kv_dtype="int8"`` serves every model:
-GQA pools and MLA latent pools alike.
+The fields are the reference's serving knobs this port runs. ``mode`` is
+the PD-disaggregation role: ``unified`` serves generate, ``prefill`` runs
+prompts to their first token and exports the KV pages, ``decode`` imports
+them and decodes (``engine/pd.py``). ``kv_dtype="int8"`` serves every
+model, GQA pools and MLA latent pools alike, in unified mode.
 """
 
 from __future__ import annotations
@@ -28,10 +28,6 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
-
-
-def _todo(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP: {item})")
 
 
 @dataclasses.dataclass
@@ -60,7 +56,7 @@ class EngineConfig:
     # forwards, then the fused decode window. Speculative mode and batches
     # holding an adapter row take the split paths either way.
     ragged: str = "auto"                    # auto | off
-    mode: str = "unified"                   # only "unified" is ported
+    mode: str = "unified"                   # unified | prefill | decode
     kv_dtype: str = "model"                 # model | int8 (quantized KV pool)
     # Per-request SLO targets every finished request is judged against
     # (obs/slo.py): seconds to first token, seconds per output token after
@@ -143,9 +139,13 @@ class EngineConfig:
                 "host_tier_bytes needs the radix cache (spills come from "
                 "its evictions) — a silently absent tier would discard "
                 "every evicted prefix the operator budgeted RAM to keep")
-        if self.mode != "unified":
-            # The reference refuses int8 KV outside unified mode too.
-            raise _todo(f"mode={self.mode!r}", "PD prefill/decode modes")
+        if self.mode not in ("unified", "prefill", "decode"):
+            raise ValueError(f"mode {self.mode!r} not in (unified, prefill, "
+                             "decode)")
+        if self.kv_dtype == "int8" and self.mode != "unified":
+            raise ValueError(
+                "int8 KV is unified-mode only for now (PD bundles carry "
+                "unquantized pages)")
         self.model_config   # unknown preset → KeyError, before anything binds
 
 

@@ -1,5 +1,5 @@
 """Serving engine: continuous batching over a paged KV pool
-(``rbg_tpu/engine/engine.py``, unified mode).
+(``rbg_tpu/engine/engine.py``).
 
 One scheduler step admits waiting requests onto the pool (with radix
 prefix matching), then either
@@ -23,6 +23,15 @@ prefix matching), then either
 Requests may name a LoRA adapter (``load_lora``): all adapters ride one
 stack, gathered per row inside each forward. Page exhaustion preempts the
 youngest request back to the queue.
+
+A PD role changes two things (``engine/pd.py`` drives them): in
+``prefill`` mode a finished request stays ``exported`` with its pages held
+until the prefill worker has copied them out and calls
+``release_request``; a prefill worker may admit a request whose prefix KV
+came from the shared pool (``add_request_with_prefix``). A decode worker
+imports KV and appends running rows itself; tokens it emits outside
+``step()`` (the layer-sliced first step) wait in ``_deferred_events`` and
+come out first from the next ``step()``.
 
 Grammar-constrained rows (``json_mode`` / ``regex`` / ``json_schema``,
 after ``enable_json_grammar``) mask their logits before sampling. A
@@ -163,6 +172,9 @@ class Engine:
         self._token_trie = None
         self._regex_grammars = collections.OrderedDict()
         self._gtable_dev = collections.OrderedDict()
+        # Events emitted outside step() (a decode worker's layer-sliced
+        # first step) come out first from the NEXT step(), in order.
+        self._deferred_events: List[StepEvent] = []
         self.metrics = {"steps": 0, "decode_tokens": 0, "prefill_tokens": 0,
                         "radix_hit_tokens": 0, "host_hit_tokens": 0,
                         "preemptions": 0,
@@ -201,6 +213,64 @@ class Engine:
         self.waiting.append(req)
         return req.id
 
+    def add_request_with_prefix(self, prompt: List[int],
+                                sampling: Optional[SamplingParams],
+                                prefix_len: int,
+                                k_data, v_data) -> Optional[int]:
+        """Admit a request whose first ``prefix_len`` tokens' KV arrives
+        precomputed (host pages fetched from the shared KV pool, ``[L,
+        n_pages, page, KV, hd]`` numpy, bfloat16 as int16 bits): the pages
+        are copied into this engine's pools in place and prefill resumes at
+        ``prefix_len``. ``prefix_len`` must be page-aligned and <
+        len(prompt) (the last token always prefills, for its logits).
+        Returns None when no pages are free (the caller falls back to a
+        cold prefill through the normal admission queue)."""
+        from rbg_tpu_torch.engine.kvtier import _to_device
+
+        sampling = sampling or SamplingParams()
+        self._check_prompt(prompt)
+        self._grammar_check(sampling)
+        lora_idx = self._resolve_lora(sampling)  # before alloc: no page leak
+        ps = self.cfg.page_size
+        if prefix_len % ps or not 0 < prefix_len < len(prompt):
+            raise ValueError(f"prefix_len {prefix_len} must be page-aligned "
+                             f"and in (0, {len(prompt)})")
+        if len(prompt) + sampling.max_new_tokens > self.cfg.max_seq_len:
+            raise ValueError("prompt+max_new_tokens exceeds max_seq_len")
+        n_prefix = prefix_len // ps
+        c = self.cache
+        for name, data, pool in (("k", k_data, c.k_pages), ("v", v_data, c.v_pages)):
+            want = (pool.shape[0], n_prefix) + tuple(pool.shape[2:])
+            if (tuple(data.shape) != want
+                    or data.dtype.itemsize != pool.element_size()):
+                # Foreign pool data (a replica of another model geometry
+                # sharing the pool): refused before any page is taken.
+                raise ValueError(
+                    f"prefix KV rejected: {name} pages {tuple(data.shape)} "
+                    f"{data.dtype} do not fit the pool's {want} {pool.dtype}")
+        need = pages_for_tokens(len(prompt) + 1, ps)
+        pages = self._alloc(need)
+        if pages is None:
+            return None
+        ids = torch.tensor(pages[:n_prefix], dtype=torch.long, device=self.device)
+        c.k_pages.index_copy_(1, ids, _to_device(np.ascontiguousarray(k_data), c.k_pages))
+        c.v_pages.index_copy_(1, ids, _to_device(np.ascontiguousarray(v_data), c.v_pages))
+        req = Request(prompt, sampling)
+        req.lora_idx = lora_idx
+        g = self._grammar_for(sampling)
+        if g is not None:
+            req.grammar = g
+            req.gstate = g.initial()
+        req.pages = pages
+        req.prefill_pos = prefix_len
+        req.seq_len = prefix_len
+        req.state = "prefill"
+        self.requests[req.id] = req
+        self.running.append(req)
+        self.metrics["pool_hit_tokens"] = (
+            self.metrics.get("pool_hit_tokens", 0) + prefix_len)
+        return req.id
+
     def prefix_peek(self, prompt: List[int]) -> int:
         """Prefix-hit depth (device radix + host tier) this prompt would
         get at admission. Read from submitter threads by the TTFT predictor
@@ -222,14 +292,16 @@ class Engine:
     def step(self) -> List[StepEvent]:
         """One scheduler iteration: admit, then the ragged unified step while
         any row prefills (``_unified_eligible``), else the split paths:
-        the batched prefill step, then the decode step."""
+        the batched prefill step, then the decode step. Events deferred
+        since the last call come out first."""
+        events, self._deferred_events = self._deferred_events, []
         self.metrics["steps"] += 1
         self._admit()
         if self._unified_eligible():
             self.metrics["unified_steps"] += 1
-            events = self._unified_step()
+            events += self._unified_step()
         else:
-            events = self._prefill_step() + self._decode_step()
+            events += self._prefill_step() + self._decode_step()
         self.join_hint = False
         return events
 
@@ -1341,6 +1413,11 @@ class Engine:
     def _finish(self, req: Request):
         req.state = "finished"
         self.running = [r for r in self.running if r is not req]
+        if self.cfg.mode == "prefill":
+            # Disaggregated prefill: the pages ARE the product — the PD layer
+            # exports them to a decode peer, then calls release_request().
+            req.state = "exported"
+            return
         if self.radix is not None and req.lora_idx == 0:
             # Cache the full sequence (prompt + output) for future prefixes;
             # adapter KV must not match base requests.
@@ -1350,6 +1427,13 @@ class Engine:
         self.allocator.release(req.pages)
         req.pages = []
         self.requests.pop(req.id, None)
+
+    def release_request(self, req_id: int):
+        """Release an exported request's pages (prefill mode)."""
+        req = self.requests.pop(req_id)
+        if req.pages:
+            self.allocator.release(req.pages)
+            req.pages = []
 
     def cancel_request(self, req_id: int) -> bool:
         """Abort a request: drop it from the queues and recycle its pages

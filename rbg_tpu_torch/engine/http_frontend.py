@@ -35,7 +35,7 @@ from typing import List, Optional
 from rbg_tpu_torch.engine.config import SamplingParams
 from rbg_tpu_torch.engine.protocol import CODE_HTTP_ETYPE as _CODE_ETYPE
 from rbg_tpu_torch.engine.protocol import CODE_HTTP_STATUS as _CODE_STATUS
-from rbg_tpu_torch.engine.protocol import recv_msg, request_once, send_msg
+from rbg_tpu_torch.engine.protocol import recv_obj, request_obj, send_msg
 from rbg_tpu_torch.engine.tokenizer import IncrementalDetokenizer, load_tokenizer
 from rbg_tpu_torch.obs import names as obs_names
 from rbg_tpu_torch.obs import trace
@@ -142,7 +142,7 @@ class Handler(BaseHTTPRequestHandler):
         if self.path == "/healthz":
             ok, draining = True, False
             try:
-                h = request_once(st.backend, {"op": "health"}, timeout=5)
+                h = request_obj(st.backend, {"op": "health"}, timeout=5)
                 ok = bool(h and (h.get("ok") or "pd" in h))
                 draining = bool(h and h.get("draining"))
             except OSError:
@@ -221,7 +221,7 @@ class Handler(BaseHTTPRequestHandler):
         # and ship the whole batch as ONE op → one batched forward.
         prompts = [st.tokenizer.encode(s, add_bos=False) for s in inputs]
         try:
-            resp = request_once(st.backend,
+            resp = request_obj(st.backend,
                                 st.backend_req({"op": "embed",
                                                 "prompts": prompts}),
                                 timeout=300)
@@ -376,7 +376,7 @@ class Handler(BaseHTTPRequestHandler):
         try:
             # Transport timeout shadows the end-to-end budget (+5 s grace
             # for the backend's own structured deadline reply to arrive).
-            resp = request_once(st.backend, st.backend_req(req),
+            resp = request_obj(st.backend, st.backend_req(req),
                                 timeout=(req["timeout_s"] + 5
                                          if "timeout_s" in req else 300))
         except OSError as e:
@@ -464,7 +464,7 @@ class Handler(BaseHTTPRequestHandler):
         # can't see codes buried inside a 200 event stream.
         try:
             send_msg(conn, st.backend_req(req))
-            first_frame = recv_msg(conn)
+            first_frame = recv_obj(conn)
         except OSError as e:
             conn.close()
             return self._error(502, f"backend: {e}", "server_error")
@@ -542,7 +542,7 @@ class Handler(BaseHTTPRequestHandler):
                         frame, first_frame = first_frame, None
                     else:
                         try:
-                            frame = recv_msg(conn)
+                            frame = recv_obj(conn)
                         except socket.timeout:
                             if time.monotonic() - last_progress > idle_cap:
                                 break

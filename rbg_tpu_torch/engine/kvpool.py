@@ -1,6 +1,6 @@
 """Shared cross-request KV pool — the Mooncake-store analog
-(``rbg_tpu/engine/kvpool.py``'s store; the ``kv-pool`` TCP server and its
-client come with PD serving).
+(``rbg_tpu/engine/kvpool.py``): the page store, the ``kv-pool`` TCP
+server and the prefill workers' client.
 
 ``KVPoolStore`` is a host-memory page store: a token-trie over
 page-aligned prefixes (one node per page), LRU-evicted against a byte
@@ -10,16 +10,38 @@ stays private to each engine. The host KV tier (``engine/kvtier.py``)
 keeps its spilled pages here. A page whose dtype numpy lacks (bfloat16)
 is stored as a view of its raw bits, so ``nbytes`` and the payload CRC
 are those of the device page.
+
+* ``KVPoolServer`` — the ``kv-pool`` role's process
+  (``python -m rbg_tpu_torch.engine.kvpool``): ops ``pool_match`` /
+  ``pool_put`` / ``pool_stats`` and the cluster prefix directory's
+  ``dir_*`` ops over the engine wire's binary lanes. It imports no torch
+  and needs no card.
+* ``KVPoolClient`` — used by prefill workers: consult before computing,
+  export after.
+
+Wire security (flag-gated): ``--auth-token`` (env ``RBG_DATA_TOKEN``)
+requires a shared bearer token on every data op (``health`` stays open),
+and ``--cert-dir`` serves TLS, wrapped per connection on the handler's
+thread. Clients pass ``token=`` / ``ca_path=``.
+
+    python -m rbg_tpu_torch.engine.kvpool --port 9200 --page-size 16
 """
 
 from __future__ import annotations
 
+import argparse
+import json
+import os
+import socket
+import socketserver
+import ssl
 import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from rbg_tpu_torch.kvtransfer.chunks import payload_checksum
+from rbg_tpu_torch.engine.protocol import recv_msg, send_msg, token_ok
+from rbg_tpu_torch.kvtransfer.chunks import host_dtype, payload_checksum
 from rbg_tpu_torch.obs import names as obs_names
 from rbg_tpu_torch.obs.metrics import REGISTRY
 from rbg_tpu_torch.utils.locktrace import named_lock
@@ -372,3 +394,283 @@ class KVPoolStore:
         with self._lock:
             return {**self.metrics, "bytes": self.bytes,
                     "max_bytes": self.max_bytes}
+
+
+# ---- wire service ----
+
+
+class _Handler(socketserver.BaseRequestHandler):
+    def setup(self):
+        # TLS wraps PER CONNECTION on the worker thread, never on the
+        # accept loop — a wrapped listener would run the handshake inside
+        # serve_forever, letting one silent peer (port scanner, half-open
+        # flow) freeze every prefill replica's pool access (same pattern
+        # as the admin wire, runtime/admin.py).
+        ctx = self.server.ssl_context
+        self._tls_failed = False
+        if ctx is not None:
+            self.request.settimeout(10.0)  # bound the handshake
+            try:
+                self.request = ctx.wrap_socket(self.request, server_side=True)
+            except OSError:  # ssl.SSLError / timeout / reset — drop peer
+                self._tls_failed = True
+                return
+            self.request.settimeout(None)
+
+    def handle(self):
+        if self._tls_failed:
+            return
+        store: KVPoolStore = self.server.store
+        while True:
+            try:
+                obj, k, v = recv_msg(self.request)
+            except (ConnectionError, json.JSONDecodeError):
+                return
+            if obj is None:
+                return
+            try:
+                self._dispatch(store, obj, k, v)
+            except Exception as e:  # noqa: BLE001 — reply, don't die:
+                # a malformed frame (bad shape/dtype, truncated payload)
+                # must produce an error REPLY, not a dead handler thread
+                # and an EOF on the client.
+                try:
+                    send_msg(self.request, {"error": f"{type(e).__name__}: {e}"})
+                except OSError:
+                    return
+
+    def _dispatch(self, store, obj, k, v):
+        op = obj.get("op")
+        token = self.server.auth_token
+        if token and op != "health":
+            # Shared-token gate on every data op: an unauthenticated peer
+            # must neither read KV (match leaks computed activations) nor
+            # poison the store (put). Constant-time compare.
+            if not token_ok(obj.get("token"), token):
+                send_msg(self.request, {"error": "unauthorized"})
+                return
+        ps = obj.get("page_size")
+        if (op in ("pool_match", "pool_put") and ps is not None
+                and ps != store.page_size):
+            # Page-size handshake: a mismatched client would interpret
+            # the page arrays wrong (silently corrupt KV) — refuse.
+            send_msg(self.request, {"error": (
+                f"page_size mismatch: pool={store.page_size} "
+                f"client={ps}")})
+            return
+        if op == "pool_match":
+            matched, km, vm = store.match(obj["prompt"])
+            if matched == 0:
+                send_msg(self.request, {"matched": 0})
+            else:
+                kb, vb = km.tobytes(), vm.tobytes()
+                # End-to-end: the checksum covers the stacked payload as
+                # sent, so a peer fetch is verified at the RECEIVER —
+                # corruption on this hop degrades to a miss, never KV.
+                send_msg(self.request, {
+                    "matched": matched,
+                    "k_shape": list(km.shape), "v_shape": list(vm.shape),
+                    "dtype": self.server.wire_dtype.get(str(km.dtype),
+                                                        str(km.dtype)),
+                    "checksum": payload_checksum(kb, vb),
+                }, kb, vb)
+        elif op == "pool_put":
+            # bfloat16 pages are held as int16 bits; the wire name they
+            # arrived under is what a match answers with.
+            dt = host_dtype(obj["dtype"])
+            self.server.wire_dtype[str(dt)] = obj["dtype"]
+            ks = np.frombuffer(k, dtype=dt).reshape(obj["k_shape"])
+            vs = np.frombuffer(v, dtype=dt).reshape(obj["v_shape"])
+            stored = store.put(obj["prompt"], ks, vs)
+            send_msg(self.request, {"stored_pages": stored})
+        elif op in ("dir_register", "dir_lookup", "dir_invalidate",
+                    "dir_stats"):
+            d = store.directory
+            if d is None:
+                send_msg(self.request, {"error": "no directory configured"})
+                return
+            if op == "dir_register":
+                n = d.register_keys(list(obj.get("keys") or ()),
+                                    obj.get("backend") or "",
+                                    slice_id=obj.get("slice_id") or "",
+                                    tier=obj.get("tier") or "device")
+                send_msg(self.request, {"registered": n})
+            elif op == "dir_lookup":
+                if "prompt" in obj:
+                    # Key chain computed HERE with the pool's page size —
+                    # routers hold no engine config.
+                    from rbg_tpu_torch.kvtransfer.chunks import prefix_keys
+                    keys = prefix_keys(list(obj["prompt"]),
+                                       store.page_size)
+                else:
+                    keys = list(obj.get("keys") or ())
+                matched, detail = d.lookup_entries(keys)
+                reply = {
+                    "matched": matched,
+                    "matched_tokens": matched * store.page_size,
+                    "holders": [e["backend"] for e in detail]}
+                if obj.get("detail"):
+                    # Tier + hotness per holder — the router's tier-
+                    # fetch-cost scoring input.
+                    reply["detail"] = detail
+                send_msg(self.request, reply)
+            elif op == "dir_invalidate":
+                reason = obj.get("reason") or "explicit"
+                n = 0
+                if obj.get("keys"):
+                    # keys + backend = that replica's claims for those
+                    # keys only (per-replica host-tier eviction must not
+                    # wipe siblings' claims for a shared prefix hash).
+                    n += d.invalidate_keys(list(obj["keys"]), reason,
+                                           backend=obj.get("backend")
+                                           or "")
+                elif obj.get("backend"):
+                    n += d.invalidate_backend(obj["backend"], reason)
+                if obj.get("slice_id"):
+                    n += d.invalidate_slice(obj["slice_id"], reason)
+                send_msg(self.request, {"invalidated": n})
+            else:
+                send_msg(self.request, {"directory": d.stats(),
+                                        "mode": "kvpool"})
+        elif op == "pool_stats" or op == "metrics":
+            stats = {"metrics": store.stats(), "mode": "kvpool"}
+            if store.directory is not None:
+                stats["directory"] = store.directory.stats()
+            send_msg(self.request, stats)
+        elif op == "health":
+            send_msg(self.request, {"ok": True, "mode": "kvpool"})
+        else:
+            send_msg(self.request, {"error": f"unsupported op {op!r}"})
+
+
+class KVPoolServer(socketserver.ThreadingTCPServer):
+    allow_reuse_address = True
+    daemon_threads = True
+
+    def __init__(self, addr, store: KVPoolStore,
+                 auth_token: Optional[str] = None,
+                 ssl_context: Optional[ssl.SSLContext] = None):
+        super().__init__(addr, _Handler)
+        self.store = store
+        self.auth_token = auth_token
+        self.ssl_context = ssl_context
+        # host numpy dtype name → wire dtype name of the pages put here.
+        self.wire_dtype: Dict[str, str] = {}
+
+
+class KVPoolClient:
+    """Prefill-side client. One short-lived connection per op (the ops are
+    rare relative to decode steps: once per admitted prompt)."""
+
+    def __init__(self, addr: str, timeout: float = 30.0,
+                 page_size: Optional[int] = None,
+                 token: Optional[str] = None,
+                 ca_path: Optional[str] = None):
+        host, port = addr.rsplit(":", 1)
+        self.host = host
+        self.addr = (host, int(port))
+        self.timeout = timeout
+        self.page_size = page_size   # engine's page size; server verifies
+        self.token = (token if token is not None
+                      else os.environ.get("RBG_DATA_TOKEN") or None)
+        self._ssl = None
+        if ca_path:
+            from rbg_tpu_torch.runtime.tlsutil import client_context
+            self._ssl = client_context(ca_path)
+
+    def _roundtrip(self, obj, k=None, v=None):
+        if self.page_size is not None:
+            obj["page_size"] = self.page_size
+        if self.token:
+            obj["token"] = self.token
+        with socket.create_connection(self.addr, timeout=self.timeout) as raw:
+            if self._ssl is not None:
+                with self._ssl.wrap_socket(raw,
+                                           server_hostname=self.host) as s:
+                    send_msg(s, obj, k, v)
+                    resp = recv_msg(s)
+            else:
+                send_msg(raw, obj, k, v)
+                resp = recv_msg(raw)
+        if resp[0] is None:
+            # EOF without a reply (pool restarting / handler died):
+            # RuntimeError keeps this inside the callers' degrade path.
+            raise RuntimeError("kv pool closed the connection mid-request")
+        return resp
+
+    def match(self, prompt: List[int]):
+        obj, k, v = self._roundtrip({"op": "pool_match", "prompt": list(prompt)})
+        if obj.get("error"):
+            raise RuntimeError(obj["error"])
+        if obj["matched"] == 0:
+            return 0, None, None
+        cs = obj.get("checksum")
+        if cs is not None \
+                and payload_checksum(k or b"", v or b"") != int(cs):
+            # Bytes rotted on the peer-fetch hop: a miss (the caller
+            # recomputes — correct and cheap), never corrupt KV.
+            REGISTRY.inc(obs_names.KVT_INTEGRITY_FAILURES_TOTAL,
+                         surface="peer_fetch")
+            return 0, None, None
+        dt = host_dtype(obj["dtype"])
+        km = np.frombuffer(k, dtype=dt).reshape(obj["k_shape"])
+        vm = np.frombuffer(v, dtype=dt).reshape(obj["v_shape"])
+        return obj["matched"], km, vm
+
+    def put(self, prompt: List[int], k: np.ndarray, v: np.ndarray,
+            dtype: Optional[str] = None) -> int:
+        """``dtype``: the pages' wire dtype name, where the host array's
+        own differs (bfloat16 pages held as int16 bits)."""
+        k = np.ascontiguousarray(k)
+        v = np.ascontiguousarray(v)
+        obj, _, _ = self._roundtrip({
+            "op": "pool_put", "prompt": list(prompt),
+            "k_shape": list(k.shape), "v_shape": list(v.shape),
+            "dtype": dtype or str(k.dtype),
+        }, k.tobytes(), v.tobytes())
+        if obj.get("error"):
+            raise RuntimeError(obj["error"])
+        return obj["stored_pages"]
+
+    def stats(self) -> dict:
+        obj, _, _ = self._roundtrip({"op": "pool_stats"})
+        return obj.get("metrics", {})
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser("rbg-tpu-torch kv-pool server")
+    ap.add_argument("--port", type=int, default=9100)
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--max-bytes", type=int, default=1 << 30)
+    ap.add_argument("--auth-token",
+                    default=os.environ.get("RBG_DATA_TOKEN", ""),
+                    help="require this bearer token on every data op "
+                         "(default: $RBG_DATA_TOKEN; empty = open wire)")
+    ap.add_argument("--cert-dir", default="",
+                    help="serve TLS with certs from this dir (bootstrapped "
+                         "via runtime.tlsutil.ensure_certs, same CA "
+                         "machinery as the admin wire)")
+    args = ap.parse_args(argv)
+    from rbg_tpu_torch.kvtransfer.directory import PrefixDirectory
+    store = KVPoolStore(args.page_size, max_bytes=args.max_bytes,
+                        directory=PrefixDirectory(
+                            page_size=args.page_size))
+    ctx = None
+    if args.cert_dir:
+        from rbg_tpu_torch.runtime.tlsutil import ensure_certs, server_context
+        _ca, cert, key = ensure_certs(args.cert_dir)
+        ctx = server_context(cert, key)
+    srv = KVPoolServer(("0.0.0.0", args.port), store,
+                       auth_token=args.auth_token or None, ssl_context=ctx)
+    print(f"kv-pool serving on :{args.port}"
+          f"{' [tls]' if ctx else ''}{' [auth]' if args.auth_token else ''}",
+          flush=True)
+    try:
+        srv.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -77,12 +77,16 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
 
 
 def _to_device(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    """Host pages back as a tensor of ``like``'s dtype on its device."""
-    t = torch.from_numpy(a)
-    if like.dtype in _BITS_VIEW:
-        t = t.view(like.dtype)
+    """Host pages back as a tensor of ``like``'s dtype on its device: one
+    copy into host memory (pinned on the card; read-only wire buffers
+    welcome), then one host-to-device copy on the current stream."""
+    bits = _BITS_VIEW.get(like.dtype)
+    host = torch.empty(a.shape, dtype=bits or like.dtype,
+                       pin_memory=like.device.type != "cpu")
+    host.numpy()[...] = a
+    t = host.view(like.dtype) if bits is not None else host
     if like.device.type != "cpu":
-        t = t.pin_memory().to(like.device, non_blocking=True)
+        t = t.to(like.device, non_blocking=True)
     return t
 
 

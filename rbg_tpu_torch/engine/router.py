@@ -29,18 +29,16 @@ Resilience (reference parity with the deployed sglang-router):
   f(seed, position)) and the router resumes the client stream exactly
   where it broke — already-delivered tokens are skipped, never replayed.
 
-Not ported yet (ROADMAP queue 1 item 4, PD disaggregation and the KV
-transfer plane): the PD legs of ``_route`` (prefill → KV bundle or pushed
-stream → decode) and the cluster prefix directory client
-(``--directory``). Both raise ``NotImplementedError``; a deployment of
-unified workers never reaches them. A ``directory=`` object passed to
-``RouterState`` in process is used as the reference uses it. The port's
-wire carries JSON headers only (no binary KV lanes), so ``_request_once``,
-``_send`` and ``_recv`` below keep the reference's
-``(header, k_bytes, v_bytes)`` shape with empty lanes.
+In a PD group the router runs the prefill leg (KV bundle back over the
+wire, or a KV stream pushed straight to a decode replica chosen first,
+transfer-cost-aware) and then the decode leg; a pushed stream that fails
+re-routes in bundle mode, token-exact. ``--directory`` consults the
+cluster prefix directory the kv-pool server hosts.
 
     python -m rbg_tpu_torch.engine.router --port 9100 \\
         --backends '{"worker": ["127.0.0.1:9000", "127.0.0.1:9001"]}'
+    python -m rbg_tpu_torch.engine.router --port 9100 --directory 127.0.0.1:9200 \\
+        --backends '{"prefill": ["127.0.0.1:9001"], "decode": ["127.0.0.1:9002"]}'
 """
 
 from __future__ import annotations
@@ -93,32 +91,6 @@ REPLICATE_MAX_PER_PREFIX = 3
 # small so least-outstanding still dominates.
 KV_COST_WEIGHT = 4.0
 DEFAULT_KV_LINK_RATE = 1e9   # bytes/s assumed before any real transfer
-
-_PD_TODO = ("is not ported yet (ROADMAP: queue 1 item 4, PD "
-            "disaggregation and the KV transfer plane)")
-
-
-def _no_lanes(k_bytes, v_bytes) -> None:
-    if k_bytes is not None or v_bytes is not None:
-        raise NotImplementedError(f"KV bundle lanes on the wire {_PD_TODO}")
-
-
-def _request_once(addr: str, obj: dict, k_bytes=None, v_bytes=None,
-                  timeout: float = 120.0):
-    """``protocol.request_once`` in the reference's ``(header, k_bytes,
-    v_bytes)`` shape."""
-    _no_lanes(k_bytes, v_bytes)
-    return request_once(addr, obj, timeout=timeout), None, None
-
-
-def _send(sock: socket.socket, obj: dict, k_bytes=None, v_bytes=None) -> None:
-    _no_lanes(k_bytes, v_bytes)
-    send_msg(sock, obj)
-
-
-def _recv(sock: socket.socket):
-    return recv_msg(sock), None, None
-
 
 class _Rejected(Exception):
     """A structured upstream rejection (overloaded / draining / deadline)
@@ -379,8 +351,8 @@ class BackendPool:
         readmitted = []
         for addr in self.evicted():
             try:
-                resp, _, _ = _request_once(addr, {"op": "health"},
-                                           timeout=timeout)
+                resp, _, _ = request_once(addr, {"op": "health"},
+                                          timeout=timeout)
             except (OSError, ConnectionError, json.JSONDecodeError):
                 continue
             if resp and resp.get("ok"):
@@ -389,8 +361,8 @@ class BackendPool:
                 readmitted.append(addr)
         for addr in self.draining():
             try:
-                resp, _, _ = _request_once(addr, {"op": "health"},
-                                           timeout=timeout)
+                resp, _, _ = request_once(addr, {"op": "health"},
+                                          timeout=timeout)
             except (OSError, ConnectionError, json.JSONDecodeError):
                 continue
             if resp and resp.get("ok") and not resp.get("draining"):
@@ -484,7 +456,7 @@ class RouterState:
                  token: Optional[str] = None,
                  retry_budget: Optional[RetryBudget] = None,
                  slo_targets: Optional[SLOTargets] = None,
-                 directory=None,
+                 directory=None, kv_stream: bool = True,
                  router_id: Optional[str] = None, tier=None):
         from rbg_tpu_torch.kvtransfer.transport import LinkStats
 
@@ -513,10 +485,10 @@ class RouterState:
         # affinity route to ANY replica holding the prefix, not just the
         # last-serving one. Optional — lookups degrade to the local LRU.
         self.directory = directory
-        # Chunked prefill→decode KV streaming (push_to) rides the PD legs,
-        # which wait for ROADMAP queue 1 item 4: health reports the
-        # reference's default and nothing else reads it.
-        self.kv_stream = True
+        # Chunked prefill→decode KV streaming (push_to): on by default;
+        # backends that don't support it reply with a bundle and nothing
+        # changes.
+        self.kv_stream = kv_stream
         # Measured prefill→decode link rates (merged from prefill replies'
         # observed push rates) feeding transfer-cost-aware decode choice.
         self.linkstats = LinkStats("router")
@@ -902,6 +874,7 @@ class RouterState:
     def call(self, role: str, obj: dict, k_bytes=None, v_bytes=None,
              timeout: float = LEG_TIMEOUT_S, prompt=None,
              deadline: Optional[float] = None,
+             pinned: Optional[str] = None,
              kv_bytes: int = 0) -> Tuple[str, dict, bytes, bytes]:
         """One blocking request with failover across the role's backends.
         Transport failures (connect refused, peer closed) evict + retry on
@@ -922,10 +895,14 @@ class RouterState:
         raises ``_Rejected`` carrying the frame with the smallest
         retry_after_s — the edge maps it to 429/503 + Retry-After.
 
+        ``pinned`` restricts the leg to ONE address (a decode_stream leg —
+        the KV lives only there; failover is the caller's re-route).
         ``kv_bytes`` engages transfer-cost-aware candidate ordering: the
         estimated move time over each backend's MEASURED link rate is
         weighed against its queue depth."""
-        if kv_bytes:
+        if pinned is not None:
+            cands = [pinned]
+        elif kv_bytes:
             cands = self.candidates(role, cost=self.kv_cost_fn(kv_bytes))
         else:
             cands = self.candidates_for(role, prompt)
@@ -965,8 +942,8 @@ class RouterState:
             self.pool.acquire(addr)
             t_dispatch = time.monotonic()
             try:
-                resp, rk, rv = _request_once(addr, obj, k_bytes, v_bytes,
-                                             timeout=timeout)
+                resp, rk, rv = request_once(addr, obj, k_bytes, v_bytes,
+                                            timeout=timeout)
             except (OSError, ConnectionError, json.JSONDecodeError) as e:
                 self.pool.fail(addr)
                 aspan.end(outcome="transport_error")
@@ -1029,7 +1006,7 @@ class Handler(socketserver.BaseRequestHandler):
         state: RouterState = self.server.state
         while True:
             try:
-                obj, _, _ = _recv(self.request)
+                obj, _, _ = recv_msg(self.request)
             except (ConnectionError, json.JSONDecodeError):
                 return
             if obj is None:
@@ -1189,29 +1166,103 @@ class Handler(socketserver.BaseRequestHandler):
                         "regex", "json_schema", "lora", "stop_token",
                         "stream", "token")
 
-    def _route(self, state: RouterState, obj: dict, deadline: float):
+    def _route(self, state: RouterState, obj: dict, deadline: float,
+               force_bundle: bool = False):
         """Resolve the final leg shared by blocking and streaming paths.
-        PD mode (in the reference) runs the (always blocking,
-        failover-wrapped) prefill hop here, and raises
-        ``NotImplementedError`` in the port until PD serving lands;
-        returns (role, (header, k_bytes, v_bytes), affinity_prompt,
-        t_first) for the leg the caller owns — the caller can re-send
-        that payload to any sibling of ``role``, the affinity prompt
-        (None on cache-less legs) steers cache-aware ordering, and
-        ``t_first`` (PD only, else None) is the monotonic instant the
-        prefill hop returned: the FIRST TOKEN exists from then on, so PD
-        TTFT ends here, not when decode completes.
+        PD mode runs the (always blocking, failover-wrapped) prefill hop
+        here; returns (role, (header, k_bytes, v_bytes), affinity_prompt,
+        t_first, pinned) for the leg the caller owns — the caller can
+        re-send that payload to any sibling of ``role`` (decode failover;
+        ``pinned`` non-None means the payload only works on THAT address
+        — a pushed KV stream — and failover is a bundle re-route), the
+        affinity prompt (None on cache-less legs) steers cache-aware
+        ordering, and ``t_first`` (PD only, else None) is the monotonic
+        instant the prefill hop returned: the FIRST TOKEN exists from
+        then on, so PD TTFT ends here, not when decode completes.
 
-        The reference's pushed-KV-stream legs (a decode address pinned
-        per request, a bundle re-route when it fails) come back with the
-        PD legs."""
-        state.metrics["requests"] += 1
+        KVCache-centric path (default): the decode replica is chosen
+        FIRST — transfer-cost-aware: queue depth + estimated KV bytes
+        over its measured link rate — and the prefill request carries
+        ``push_to``, so KV chunks stream prefill→decode as they compute.
+        A prefill that can't push (older build, no transport, early
+        connect failure) replies with the bundle and nothing changes."""
+        if not force_bundle:    # a fallback re-route is the SAME request
+            state.metrics["requests"] += 1
         obj = self._pin_seed(obj)
         if state.pd_mode():
-            # The prefill → KV bundle / pushed stream → decode legs.
-            raise NotImplementedError(f"PD routing {_PD_TODO}")
+            if not force_bundle:
+                state.metrics["pd_requests"] += 1
+            # Forward sampling fields: the FIRST token is sampled by the
+            # prefill engine — without them it would always be greedy,
+            # diverging from unified mode for the identical request.
+            pf_req = {"op": "prefill", "prompt": obj["prompt"]}
+            for key in ("temperature", "top_k", "top_p", "min_p",
+                        "repetition_penalty", "presence_penalty",
+                        "frequency_penalty", "seed", "json_mode", "regex",
+                        "json_schema", "lora", "stop_token", "token"):
+                if key in obj:
+                    pf_req[key] = obj[key]
+            decode_addr = None
+            if state.kv_stream and not force_bundle:
+                est = state.est_kv_bytes(len(obj.get("prompt") or ()))
+                dcands = state.candidates("decode",
+                                          cost=state.kv_cost_fn(est))
+                if dcands and not state.pool.is_down(dcands[0]):
+                    decode_addr = dcands[0]
+                    pf_req["push_to"] = decode_addr
+                    pf_req["stream_id"] = f"rtr-{random.getrandbits(48):x}"
+            # Cache affinity on the prefill leg: the replica that served
+            # this prefix before has it in its radix cache / pool hot set.
+            # The prefill leg spends from the SAME deadline the decode leg
+            # inherits — a slow prefill shrinks the decode budget.
+            _, hdr, kb, vb = state.call("prefill", pf_req,
+                                        prompt=obj.get("prompt"),
+                                        deadline=deadline)
+            hdr.pop("_router_t_dispatch", None)
+            t_first = time.monotonic()
+            if "error" in hdr:
+                raise RuntimeError(f"prefill failed: {hdr}")
+            if hdr.get("pushed"):
+                # KV already streamed (or streaming) prefill→decode; the
+                # router never touched the payload bytes.
+                state.metrics["kv_stream_routed"] += 1
+                state.note_kv_observed(len(obj.get("prompt") or ()),
+                                       int(hdr.get("kv_bytes") or 0))
+                state.merge_link_rates(hdr.get("link_rates"))
+                fwd = {"op": "decode_stream",
+                       "stream_id": hdr["stream_id"]}
+                for key in self._FWD_DECODE_KEYS:
+                    if key in obj:
+                        fwd[key] = obj[key]
+                return "decode", (fwd, None, None), None, t_first, \
+                    decode_addr
+            if hdr.get("pushed") is False:
+                # Push failed before the reply (decode peer unreachable):
+                # the prefill ran but holds no bundle — re-run it in
+                # bundle mode (its radix/pool hot set makes the re-prefill
+                # cheap) instead of failing the request.
+                state.metrics["kv_stream_fallbacks"] += 1
+                pf_req.pop("push_to", None)
+                pf_req.pop("stream_id", None)
+                _, hdr, kb, vb = state.call("prefill", pf_req,
+                                            prompt=obj.get("prompt"),
+                                            deadline=deadline)
+                hdr.pop("_router_t_dispatch", None)
+                t_first = time.monotonic()
+                if "error" in hdr:
+                    raise RuntimeError(f"prefill failed: {hdr}")
+            state.metrics["kv_bytes_routed"] += len(kb or b"") + len(vb or b"")
+            state.note_kv_observed(len(obj.get("prompt") or ()),
+                                   len(kb or b"") + len(vb or b""))
+            fwd = dict(hdr)
+            fwd["op"] = "decode_bundle"
+            for key in self._FWD_DECODE_KEYS:
+                if key in obj:
+                    fwd[key] = obj[key]
+            # Decode replicas hold no prefix cache — no affinity prompt.
+            return "decode", (fwd, kb, vb), None, t_first, None
         return (state.worker_role(), (obj, None, None), obj.get("prompt"),
-                None)
+                None, None)
 
     def _generate(self, state: RouterState, obj: dict, deadline: float,
                   t_arrival: float) -> dict:
@@ -1222,10 +1273,43 @@ class Handler(socketserver.BaseRequestHandler):
         attempt's dispatch offset (a failed-over request is charged the
         attempts that preceded it, not just the winner's clock)."""
         pd = state.pd_mode()
-        role, payload, aff, t_first = self._route(state, obj, deadline)
+        role, payload, aff, t_first, pinned = self._route(state, obj,
+                                                          deadline)
         kvb = len(payload[1] or b"") + len(payload[2] or b"")
-        addr, resp, _, _ = state.call(role, *payload, prompt=aff,
-                                      deadline=deadline, kv_bytes=kvb)
+        fall_back = False
+        try:
+            addr, resp, _, _ = state.call(role, *payload, prompt=aff,
+                                          deadline=deadline, pinned=pinned,
+                                          kv_bytes=kvb)
+            if pinned is not None and isinstance(resp, dict) \
+                    and "error" in resp:
+                # The pushed stream's decode leg failed (stream truncated,
+                # replica died holding the KV) — recoverable below.
+                raise RuntimeError(f"decode_stream failed: {resp}")
+        except _Rejected as e:
+            # A pinned leg that SHED (overloaded/draining — the replica is
+            # healthy, just unwilling) must not surface a 429/503 that a
+            # sibling would have absorbed: bundle mode retries the fleet.
+            # Deadline rejections stay terminal on any path.
+            if pinned is None \
+                    or e.frame.get("code") not in RETRYABLE_REJECT_CODES:
+                raise
+            fall_back = True
+        except Exception:
+            if pinned is None:
+                raise
+            fall_back = True
+        if fall_back:
+            # KVCache-centric leg is gone; the request is not: re-route
+            # in bundle mode (pinned seed ⇒ token-exact) and try the
+            # decode fleet normally. TTFT honestly re-anchors on the
+            # fallback prefill's return.
+            state.metrics["kv_stream_fallbacks"] += 1
+            role, payload, aff, t_first, _ = self._route(
+                state, obj, deadline, force_bundle=True)
+            kvb = len(payload[1] or b"") + len(payload[2] or b"")
+            addr, resp, _, _ = state.call(role, *payload, prompt=aff,
+                                          deadline=deadline, kv_bytes=kvb)
         t_dispatch = resp.pop("_router_t_dispatch", None) \
             if isinstance(resp, dict) else None
         t_done = time.monotonic()
@@ -1272,7 +1356,8 @@ class Handler(socketserver.BaseRequestHandler):
         (overloaded / draining — always before any token) is routed
         around without eviction; a spent deadline ends the request with a
         structured frame instead of another doomed attempt."""
-        role, payload, aff, t_first = self._route(state, obj, deadline)
+        role, payload, aff, t_first, pinned = self._route(state, obj,
+                                                          deadline)
         akey = PrefixAffinity.key(aff)
         rspan = trace.current()
         kv_bytes = len(payload[1] or b"") + len(payload[2] or b"")
@@ -1290,12 +1375,18 @@ class Handler(socketserver.BaseRequestHandler):
                 self._send_client({**_deadline_frame(
                     "deadline spent mid-stream"), "done": True})
                 return
-            # Affinity only steers the FIRST attempt: a failover must
-            # not re-pin to the remembered (possibly just-dead) backend.
-            # KV-carrying legs weigh measured transfer cost.
-            cands = (state.candidates_for(role, aff) if attempt == 0
-                     else state.candidates(
-                         role, cost=state.kv_cost_fn(kv_bytes)))
+            if pinned is not None:
+                # The payload is a pushed KV stream — it only exists on
+                # ONE decode replica. A failed attempt re-routes in
+                # bundle mode below instead of trying siblings.
+                cands = [pinned]
+            else:
+                # Affinity only steers the FIRST attempt: a failover must
+                # not re-pin to the remembered (possibly just-dead)
+                # backend. KV-carrying legs weigh measured transfer cost.
+                cands = (state.candidates_for(role, aff) if attempt == 0
+                         else state.candidates(
+                             role, cost=state.kv_cost_fn(kv_bytes)))
             if not cands:
                 break
             addr = cands[0]
@@ -1353,6 +1444,31 @@ class Handler(socketserver.BaseRequestHandler):
                     aspan.end(outcome=CODE_DEADLINE)
                     self._send_client({**frame, "done": True})
                     return
+                if pinned is not None:
+                    # The pushed stream is unusable — whether it never
+                    # became decodable (kv_stream_failed) or the only
+                    # replica holding it SHED the attempt. Retrying the
+                    # same pinned address cannot help: re-route in bundle
+                    # mode, token-exact (seed pinned, delivered prefix
+                    # skipped), and let the fleet absorb it. Sheds still
+                    # feed the shed bookkeeping (drain marks, best
+                    # retry_after_s should the fallback shed everywhere).
+                    code = frame.get("code")
+                    if code == CODE_KV_STREAM:
+                        state.pool.ok(addr)
+                    else:
+                        shed = state.note_shed(addr, frame, shed)
+                    aspan.end(outcome=code or "rejected")
+                    state.metrics["kv_stream_fallbacks"] += 1
+                    try:
+                        role, payload, aff, _, pinned = self._route(
+                            state, obj, deadline, force_bundle=True)
+                    except Exception as e:  # noqa: BLE001
+                        last = e
+                        break
+                    kv_bytes = len(payload[1] or b"") \
+                        + len(payload[2] or b"")
+                    continue
                 shed = state.note_shed(addr, frame, shed)
                 aspan.end(outcome=frame.get("code") or "rejected")
                 continue
@@ -1360,6 +1476,18 @@ class Handler(socketserver.BaseRequestHandler):
             state.pool.fail(addr)
             aspan.end(outcome="died_mid_stream", delivered=delivered)
             last = RuntimeError(f"{addr} closed mid-stream")
+            if pinned is not None:
+                # The replica holding the pushed KV died (possibly with
+                # tokens already delivered): bundle re-route + replay —
+                # the client stream never breaks.
+                state.metrics["kv_stream_fallbacks"] += 1
+                try:
+                    role, payload, aff, _, pinned = self._route(
+                        state, obj, deadline, force_bundle=True)
+                except Exception as e:  # noqa: BLE001
+                    last = e
+                    break
+                kv_bytes = len(payload[1] or b"") + len(payload[2] or b"")
         if shed is not None:
             state.metrics["sheds_returned"] += 1
             self._send_client({**shed, "done": True})
@@ -1371,7 +1499,7 @@ class Handler(socketserver.BaseRequestHandler):
 
     def _send_client(self, frame: dict) -> None:
         try:
-            _send(self.request, frame)
+            send_msg(self.request, frame)
         except OSError as e:
             raise _ClientGone(str(e)) from e
 
@@ -1414,7 +1542,7 @@ class Handler(socketserver.BaseRequestHandler):
                 # as 'died' and evict a healthy backend).
                 s.settimeout(min(STREAM_TIMEOUT_S, remaining)
                              if remaining is not None else STREAM_TIMEOUT_S)
-                _send(s, *payload)
+                send_msg(s, *payload)
                 while True:
                     if deadline is not None:
                         remaining = deadline - time.monotonic()
@@ -1424,7 +1552,7 @@ class Handler(socketserver.BaseRequestHandler):
                         s.settimeout(min(STREAM_TIMEOUT_S, remaining))
                     else:
                         s.settimeout(STREAM_TIMEOUT_S)
-                    frame, _, _ = _recv(s)
+                    frame, _, _ = recv_msg(s)
                     if frame is None:
                         return delivered, "died", None
                     if frame.get("keepalive"):
@@ -1439,7 +1567,8 @@ class Handler(socketserver.BaseRequestHandler):
                                 or frame.get("code") in (CODE_DEADLINE,
                                                          CODE_KV_STREAM):
                             # Shed at admission (always before any token):
-                            # the caller routes around / ends the request.
+                            # the caller routes around / ends the request
+                            # (kv_stream_failed → bundle re-route).
                             return delivered, "rejected", frame
                         # Application error — not a transport failure; the
                         # engine is healthy and answered. Pass through
@@ -1519,15 +1648,14 @@ def main(argv=None) -> int:
                     help="KVCache-centric PD routing: pick the decode "
                          "replica first (transfer-cost-aware) and have "
                          "prefill push KV chunks to it as they compute; "
-                         "'off' keeps the whole-bundle relay path. Not "
-                         "ported yet: 'off' is refused")
+                         "'off' keeps the whole-bundle relay path")
     ap.add_argument("--directory",
                     default=os.environ.get("RBG_KV_POOL_ADDR", ""),
                     help="host:port of the cluster prefix directory (the "
                          "kv-pool server hosts it) — prefix affinity can "
                          "then route to ANY replica holding a prefix "
                          "(default: $RBG_KV_POOL_ADDR; empty = local LRU "
-                         "only). Not ported yet: refused")
+                         "only)")
     ap.add_argument("--router-id",
                     default=os.environ.get("RBG_ROUTER_ID", ""),
                     help="stable identity on the router-tier hash ring "
@@ -1536,11 +1664,6 @@ def main(argv=None) -> int:
                     help="SIGTERM drain: max seconds to wait for in-flight "
                          "streams to finish before exiting")
     args = ap.parse_args(argv)
-    if args.directory:
-        raise NotImplementedError(
-            f"--directory (DirectoryClient) {_PD_TODO}")
-    if args.kv_stream == "off":
-        raise NotImplementedError(f"--kv-stream off {_PD_TODO}")
     port = int(os.environ.get("RBG_SERVE_PORT")
                or os.environ.get("RBG_PORT_SERVE") or args.port)
     static = json.loads(args.backends) if args.backends else None
@@ -1548,6 +1671,10 @@ def main(argv=None) -> int:
     budget = RetryBudget(rate=None if args.retry_rate < 0 else args.retry_rate,
                          burst=args.retry_burst)
     directory = None
+    if args.directory:
+        from rbg_tpu_torch.kvtransfer.directory import DirectoryClient
+        directory = DirectoryClient(args.directory,
+                                    token=args.auth_token or None)
     server.state = RouterState(Registry(args.registry), args.group, static,
                                token=args.auth_token or None,
                                retry_budget=budget,
@@ -1555,6 +1682,7 @@ def main(argv=None) -> int:
                                    ttft_s=args.slo_ttft_s,
                                    tpot_s=args.slo_tpot_s),
                                directory=directory,
+                               kv_stream=args.kv_stream != "off",
                                router_id=args.router_id or f"router-{port}")
     from rbg_tpu_torch.obs import timeseries
     timeseries.ensure_started()

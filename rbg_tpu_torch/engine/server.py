@@ -1,13 +1,18 @@
 """Engine server: the newline-JSON wire of ``rbg_tpu/engine/server.py``
-(unified mode) in front of an ``EngineService``.
+in front of an ``EngineService`` (``--mode unified``), a ``PrefillWorker``
+(``--mode prefill``) or a ``DecodeService`` (``--mode decode``).
 
 Ops: ``health``, ``warmup``, ``metrics``, ``generate`` (streaming or not),
 ``generate_text`` (through the tokenizer), ``embed``, ``slo`` and
 ``traces``. ``generate`` and ``generate_text`` take the grammar fields
 (``json_mode``, ``regex``, ``json_schema``): the server wires the engine's
-grammar from its tokenizer. The disaggregated ops (``prefill``, ``kv_stream``,
-``decode_stream``, ``decode_bundle``) are not ported and get the reply of
-an unknown op.
+grammar from its tokenizer. The disaggregated ops: a prefill server
+answers ``prefill`` with a KV bundle (header + binary lanes), or, given
+``push_to``, pushes the KV as a chunk stream straight to that decode
+server and replies once compute is done; a decode server answers
+``decode_bundle`` (a bundle in its lanes), ``kv_stream`` (one inbound
+chunk stream per connection, committed into the page table as it lands)
+and ``decode_stream`` (decode a pushed stream once its coverage is in).
 
     python -m rbg_tpu_torch.engine.server --model llama3-8b --port 9000
     python -m rbg_tpu_torch.engine.server --model llama3-8b --kv-dtype int8
@@ -15,6 +20,8 @@ an unknown op.
     python -m rbg_tpu_torch.engine.server --device cpu --model tiny --port 0
     python -m rbg_tpu_torch.engine.server --model llama3-8b --grammar-table off
     python -m rbg_tpu_torch.engine.server --model llama3-8b --host-tier-bytes $((8<<30))
+    python -m rbg_tpu_torch.engine.server --mode prefill --port 9001 --kv-pool 127.0.0.1:9200
+    python -m rbg_tpu_torch.engine.server --mode decode --port 9002
 
 The server binds first (readiness probes connect), then builds the engine
 in the background; ``health`` reports ``ok`` once it is ready. It runs on
@@ -25,8 +32,12 @@ are refused with code ``draining``, and the process exits 0 when nothing
 is in flight or the drain deadline passes. With ``--host-tier-bytes``
 the engine spills evicted prefix pages to host memory and promotes them
 back on a hit; ``metrics`` then carries ``host_tier`` (the tier's stats)
-and ``device_tier_pages``. ``start_server`` serves an existing
-EngineService from a thread of the calling process.
+and ``device_tier_pages``. A prefill server with ``--kv-pool`` consults
+the shared KV pool before computing, publishes page-aligned prefixes to
+it after, and registers them in the cluster prefix directory the pool
+hosts under ``--advertise-addr``; ``--kv-stream off`` keeps the
+whole-bundle wire. ``start_server`` serves an existing EngineService (or
+a PrefillWorker / DecodeService) from a thread of the calling process.
 """
 
 from __future__ import annotations
@@ -43,14 +54,19 @@ import traceback
 
 from rbg_tpu_torch.engine.config import EngineConfig, SamplingParams
 from rbg_tpu_torch.engine.protocol import (CODE_DEADLINE, CODE_DRAINING,
-                                           Rejected, recv_msg, send_msg,
+                                           CODE_KV_STREAM, DeadlineExceeded,
+                                           Rejected, bundle_from_wire,
+                                           bundle_to_wire, recv_msg, send_msg,
                                            token_ok)
 from rbg_tpu_torch.engine.service import DEFAULT_TIMEOUT_S, embed_prompts
 from rbg_tpu_torch.engine.tokenizer import ByteTokenizer
 from rbg_tpu_torch.obs import names, trace
 from rbg_tpu_torch.obs.metrics import REGISTRY
+from rbg_tpu_torch.utils.locktrace import named_lock
 
 DEFAULT_DRAIN_DEADLINE_S = 30.0
+# Blocking decode_stream wait bound when the client sent no deadline.
+DEFAULT_WAIT_S = 600.0
 
 
 def _deadline_of(obj: dict):
@@ -65,20 +81,22 @@ def _deadline_of(obj: dict):
 
 
 class Handler(socketserver.BaseRequestHandler):
-    # Ops that carry prompts: counted in flight, refused while draining,
-    # traced as an ``engine.op`` span.
-    _DATA_OPS = frozenset({"generate", "generate_text", "embed"})
+    # Ops that carry prompts or KV: counted in flight, refused while
+    # draining, traced as an ``engine.op`` span.
+    _DATA_OPS = frozenset({"generate", "generate_text", "embed",
+                           "prefill", "decode_bundle", "kv_stream",
+                           "decode_stream"})
 
     def handle(self):
         while True:
             try:
-                obj = recv_msg(self.request)
+                obj, k, v = recv_msg(self.request)
             except (ConnectionError, json.JSONDecodeError):
                 return
             if obj is None:
                 return
             try:
-                self._dispatch(self.server, obj)
+                self._dispatch(self.server, obj, k, v)
             except ConnectionError:
                 return      # client went away; its generation was cancelled
             except Exception as e:  # noqa: BLE001 — reply, keep the connection
@@ -87,13 +105,21 @@ class Handler(socketserver.BaseRequestHandler):
                 except OSError:
                     return
 
-    def _stream(self, service, pending, with_logprobs: bool, deadline):
+    def _stream(self, service, pending, with_logprobs: bool, deadline,
+                first_tokens=()):
         """Relay a pending generation as ``{"tokens": [...], "done": false}``
-        frames, then a final ``done`` frame with ttft."""
+        frames, then a final ``done`` frame with ttft. ``first_tokens``
+        (a PD decode leg: the prefill-sampled token) go out first, with a
+        null logprob each."""
         if deadline is None:
             deadline = time.monotonic() + DEFAULT_TIMEOUT_S
         sent = 0
         try:
+            if first_tokens:
+                frame = {"tokens": list(first_tokens), "done": False}
+                if with_logprobs:
+                    frame["logprobs"] = [None] * len(first_tokens)
+                send_msg(self.request, frame)
             while True:
                 done = pending.done.is_set()
                 if done and pending.error:
@@ -126,10 +152,10 @@ class Handler(socketserver.BaseRequestHandler):
             service.cancel(pending)   # free the slot and pages
             raise ConnectionError("client closed stream")
 
-    def _dispatch(self, srv, obj):
+    def _dispatch(self, srv, obj, k=None, v=None):
         op = obj.get("op")
         if op == "health":
-            resp = {"ok": srv.service is not None, "mode": "unified",
+            resp = {"ok": srv.ready, "mode": srv.mode,
                     "device": srv.device_name, "draining": srv.draining}
             if srv.draining:
                 resp["draining_for_s"] = round(
@@ -137,7 +163,7 @@ class Handler(socketserver.BaseRequestHandler):
             send_msg(self.request, resp)
             return
         if op not in self._DATA_OPS:
-            self._dispatch_data(srv, obj)
+            self._dispatch_data(srv, obj, k, v)
             return
         if srv.draining:
             # In-flight work finishes; new work is refused with a
@@ -152,11 +178,11 @@ class Handler(socketserver.BaseRequestHandler):
             return
         srv.note_inflight(+1)
         try:
-            self._dispatch_data(srv, obj)
+            self._dispatch_data(srv, obj, k, v)
         finally:
             srv.note_inflight(-1)
 
-    def _dispatch_data(self, srv, obj):
+    def _dispatch_data(self, srv, obj, k=None, v=None):
         """The auth gate, the operator ops, and the ``engine.op`` span that
         continues the request's wire trace context around a data op."""
         op = obj.get("op")
@@ -172,45 +198,68 @@ class Handler(socketserver.BaseRequestHandler):
             send_msg(self.request, trace.traces_response(obj.get("n", 10)))
             return
         if op not in self._DATA_OPS:
-            self._serve(srv, obj)
+            self._serve(srv, obj, k, v)
             return
         span = trace.from_wire(obj.get("trace"), names.SPAN_ENGINE_OP, op=op,
-                               mode="unified")
+                               mode=srv.mode)
         try:
             with trace.use_span(span):
-                self._serve(srv, obj)
+                self._serve(srv, obj, k, v)
         finally:
             span.end()
 
-    def _serve(self, srv, obj):
+    def _serve(self, srv, obj, k=None, v=None):
         op = obj.get("op")
         service = srv.service
-        if service is None:
+        if not srv.ready:
             send_msg(self.request, {"error": "engine not ready"})
             return
         if op == "warmup":
             t0 = time.perf_counter()
-            service.warmup(int(obj.get("input_len", 32)))
+            n = int(obj.get("input_len", 32))
+            if srv.prefill is not None:
+                with srv.pd_lock:
+                    srv.prefill.warmup(n)
+            else:
+                (service or srv.decode).warmup(n)
             send_msg(self.request, {
                 "ok": True, "elapsed_s": round(time.perf_counter() - t0, 2)})
             return
         if op == "metrics":
-            stats = service.stats()
-            eng = service.engine
+            if srv.prefill is not None:
+                eng = srv.prefill.engine
+                stats = {**eng.metrics, **srv.prefill.metrics}
+            else:
+                stats = (service or srv.decode).stats()
+                eng = (service or srv.decode).engine
             if eng.host_tier is not None:
                 stats["host_tier"] = eng.host_tier.stats()
                 stats["device_tier_pages"] = (
                     eng.radix.cached_pages if eng.radix is not None else 0)
             stats["draining"] = srv.draining
-            send_msg(self.request, {"metrics": stats, "mode": "unified"})
+            send_msg(self.request, {"metrics": stats, "mode": srv.mode})
             return
-        if op == "generate_text":
+        if op == "generate_text" and service is not None:
             self._generate_text(srv, service, obj)
             return
-        if op == "generate":
+        if op == "generate" and service is not None:
             self._generate(service, obj)
             return
+        if op == "prefill" and srv.prefill is not None:
+            self._prefill(srv, obj)
+            return
+        if op == "kv_stream" and srv.decode is not None:
+            self._serve_kv_stream(srv, obj)
+            return
+        if op == "decode_stream" and srv.decode is not None:
+            self._serve_decode_stream(srv, obj)
+            return
+        if op == "decode_bundle" and srv.decode is not None:
+            self._decode_bundle(srv, obj, k, v)
+            return
         if op == "embed":
+            # Every mode serves embeddings: prefill and decode roles hold
+            # the same weights, so a PD group's edge works too.
             tok = srv.tokenizer
             if "prompts" in obj:
                 prompts = [list(p) for p in obj["prompts"]]
@@ -219,7 +268,7 @@ class Handler(socketserver.BaseRequestHandler):
             else:
                 prompts = [list(obj.get("prompt") or [])]
             try:
-                vecs = embed_prompts(service.engine, prompts)
+                vecs = embed_prompts(srv.engine, prompts)
             except ValueError as e:
                 send_msg(self.request, {"error": str(e)})
                 return
@@ -228,7 +277,8 @@ class Handler(socketserver.BaseRequestHandler):
                 "prompt_tokens": sum(len(p) for p in prompts),
                 "embedding": vecs[0]})
             return
-        send_msg(self.request, {"error": f"unknown op {op!r}"})
+        send_msg(self.request, {"error": f"unsupported op {op!r} in mode "
+                                         f"{srv.mode}"})
 
     def _generate_text(self, srv, service, obj):
         tok = srv.tokenizer
@@ -291,16 +341,241 @@ class Handler(socketserver.BaseRequestHandler):
         send_msg(self.request, resp)
 
 
+    def _prefill(self, srv, obj):
+        """Run one prompt to its first token on the prefill engine, which
+        serializes behind ``pd_lock``: a deadline bounds the wait for the
+        lock, and a budget spent while queued is refused before any
+        compute. With ``push_to`` (and the stream transport on) the KV
+        streams to that decode server as prefill chunks complete, from a
+        sender thread outside the lock, and the reply goes out when
+        compute is done; otherwise the reply is the bundle."""
+        try:
+            sampling = SamplingParams.from_wire(obj)
+            deadline = _deadline_of(obj)
+        except (ValueError, TypeError) as e:
+            send_msg(self.request, {"error": f"bad sampling params: {e}"})
+            return
+        qspan = trace.child(names.SPAN_SERVICE_QUEUE_WAIT)
+        if deadline is not None:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0 or not srv.pd_lock.acquire(timeout=remaining):
+                REGISTRY.inc(names.SERVING_DEADLINE_EXCEEDED_TOTAL,
+                             stage="prefill_queue")
+                qspan.end(outcome="deadline")
+                send_msg(self.request, DeadlineExceeded(
+                    "deadline spent waiting for the prefill engine"
+                ).to_wire())
+                return
+        else:
+            srv.pd_lock.acquire()
+        qspan.end(outcome="admitted")
+        t_lock = time.perf_counter()
+        pspan = trace.child(names.SPAN_PD_PREFILL,
+                            prompt_tokens=len(obj.get("prompt") or ()))
+        push_to = obj.get("push_to")
+        push = None
+        try:
+            if push_to and srv.kv_push is not None:
+                push = srv.prefill.prefill_stream(
+                    obj["prompt"], sampling, transport=srv.kv_push,
+                    peer=push_to, stream_id=obj.get("stream_id"),
+                    deadline=deadline)
+            else:
+                bundle = srv.prefill.prefill(obj["prompt"], sampling,
+                                             deadline=deadline)
+        except DeadlineExceeded as e:
+            pspan.end(outcome="deadline_abort")
+            send_msg(self.request, e.to_wire())
+            return
+        except Exception:
+            pspan.end(outcome="error")
+            raise
+        finally:
+            srv.pd_lock.release()
+            REGISTRY.observe(names.PD_LOCK_HOLD_SECONDS,
+                             time.perf_counter() - t_lock, lock="server_pd")
+        if push is not None:
+            pspan.end(outcome="pushed", bytes=push.meta.nbytes())
+            # Reply the moment COMPUTE is done — the chunk tail drains to
+            # the decode peer while the router sets up the decode leg. An
+            # already-failed push (connect refused surfaces during
+            # compute) is reported so the router falls back to the bundle
+            # path instead of a doomed decode_stream.
+            send_msg(self.request, {
+                "pushed": push.error() is None,
+                "stream_id": push.stream_id,
+                "first_token": push.first_token,
+                "prompt": list(obj["prompt"]),
+                "kv_bytes": push.meta.nbytes(),
+                "push_error": push.error(),
+                # Measured prefill→decode link rates from COMPLETED
+                # pushes — the router's transfer-cost scoring input.
+                "link_rates": srv.kv_push.stats.snapshot()})
+            return
+        pspan.end(outcome="ok", bytes=bundle.nbytes)
+        header, kb, vb = bundle_to_wire(bundle)
+        send_msg(self.request, header, kb, vb)
+
+    def _decode_bundle(self, srv, obj, k, v):
+        bundle = bundle_from_wire(obj, k, v)
+        try:
+            sampling = SamplingParams.from_wire(obj)
+            deadline = _deadline_of(obj)
+        except (ValueError, TypeError) as e:
+            send_msg(self.request, {"error": f"bad sampling params: {e}"})
+            return
+        # Continuous batching: bundles from concurrent connections decode
+        # together on the device.
+        if obj.get("stream"):
+            # A bundle finished at inject (max_new_tokens == 1 / stop
+            # token) resolves with done set and no tokens — the stream
+            # then carries only the first_token frame.
+            try:
+                pending = srv.decode.submit_async(bundle, sampling,
+                                                  deadline=deadline)
+            except Rejected as e:
+                send_msg(self.request, {**e.to_wire(), "done": True})
+                return
+            self._stream(srv.decode, pending, sampling.logprobs, deadline,
+                         first_tokens=[bundle.first_token])
+            return
+        try:
+            p = srv.decode.submit_wait(bundle, sampling, deadline=deadline)
+        except Rejected as e:
+            send_msg(self.request, e.to_wire())
+            return
+        except (TimeoutError, ValueError) as e:
+            send_msg(self.request, {"error": str(e)})
+            return
+        resp = {"tokens": [bundle.first_token] + p.tokens}
+        if sampling.logprobs:
+            # First token sampled prefill-side — null placeholder.
+            resp["logprobs"] = [None] + p.logprobs
+        send_msg(self.request, resp)
+
+    def _serve_kv_stream(self, srv, obj):
+        """Ingest one inbound KV chunk stream on THIS connection (the
+        prefill peer opened it): frames land in the decode service's
+        stream registry (host staging on this thread); the loop thread
+        commits them into the page table as they arrive. Replies an ack
+        after FIN (the sender's drain barrier). A broken connection fails
+        the stream with a structured error — never a wedge."""
+        from rbg_tpu_torch.kvtransfer.chunks import StreamFin
+        from rbg_tpu_torch.kvtransfer.transport import frame_from_wire
+
+        sid = obj.get("stream_id") or ""
+        rx = srv.decode.kv_streams.get_or_create(sid)
+        srv.decode.watch_stream(rx)
+        nbytes = 0
+        while True:
+            try:
+                fobj, fk, fv = recv_msg(self.request)
+            except (ConnectionError, json.JSONDecodeError) as e:
+                rx.fail(f"kv stream connection broke: {e}")
+                return
+            if fobj is None:
+                rx.fail("kv stream EOF before FIN")
+                return
+            try:
+                frame = frame_from_wire(fobj, fk, fv)
+            except Exception as e:  # noqa: BLE001 — fail the stream, not the handler
+                rx.fail(f"bad kv frame: {e}")
+                send_msg(self.request, {"error": str(e)})
+                return
+            nbytes += len(fk or b"") + len(fv or b"")
+            rx.feed(frame)
+            if isinstance(frame, StreamFin):
+                REGISTRY.inc(names.KVT_BYTES_TOTAL, float(nbytes),
+                             direction="recv", transport="tcp")
+                send_msg(self.request, {"ok": True, "bytes": nbytes})
+                return
+
+    def _serve_decode_stream(self, srv, obj):
+        """Decode a previously (or concurrently) pushed KV stream: wait
+        for admission coverage, then decode exactly like decode_bundle.
+        The row is admitted the moment layer coverage for the prompt is
+        complete — the stream's FIN may still be in flight."""
+        from rbg_tpu_torch.kvtransfer.chunks import StreamError
+
+        try:
+            sampling = SamplingParams.from_wire(obj)
+            deadline = _deadline_of(obj)
+        except (ValueError, TypeError) as e:
+            send_msg(self.request, {"error": f"bad sampling params: {e}"})
+            return
+        sid = obj.get("stream_id") or ""
+        rx = srv.decode.kv_streams.get_or_create(sid)
+        srv.decode.watch_stream(rx)
+        wait_s = 30.0
+        if deadline is not None:
+            wait_s = max(0.0, min(wait_s, deadline - time.monotonic()))
+        try:
+            rx.wait_ready(wait_s)
+        except StreamError as e:
+            # Mark the receiver failed so the loop thread's pump releases
+            # any pages it pre-allocated — an abandoned stream must not
+            # hold KV capacity.
+            rx.fail(f"abandoned: {e}")
+            srv.decode.kv_streams.pop(sid)
+            send_msg(self.request, {"error": f"kv stream: {e}",
+                                    "code": CODE_KV_STREAM, "done": True})
+            return
+        first_token = rx.assembler.first_token
+        if obj.get("stream"):
+            try:
+                pending = srv.decode.submit_stream(rx, sampling,
+                                                   deadline=deadline)
+            except Rejected as e:
+                send_msg(self.request, {**e.to_wire(), "done": True})
+                return
+            self._stream(srv.decode, pending, sampling.logprobs, deadline,
+                         first_tokens=[first_token])
+            return
+        p = None
+        try:
+            p = srv.decode.submit_stream(rx, sampling, deadline=deadline)
+            srv.decode.wait(p, DEFAULT_WAIT_S if deadline is None
+                            else max(0.0, deadline - time.monotonic()) + 1.0)
+        except Rejected as e:
+            send_msg(self.request, e.to_wire())
+            return
+        except (TimeoutError, ValueError) as e:
+            frame = {"error": str(e)}
+            # Admit-time stream failures (dead kv_stream connection, no
+            # pages for the pushed KV) keep their wire code so the router
+            # re-routes in bundle mode instead of surfacing them.
+            if p is not None and p.code:
+                frame["code"] = p.code
+            send_msg(self.request, frame)
+            return
+        resp = {"tokens": [first_token] + p.tokens}
+        if sampling.logprobs:
+            resp["logprobs"] = [None] + p.logprobs
+        send_msg(self.request, resp)
+
+
 class EngineServer(socketserver.ThreadingTCPServer):
     allow_reuse_address = True
     daemon_threads = True
 
     def __init__(self, addr, service=None, tokenizer=None, auth_token=None,
-                 drain_deadline_s: float = DEFAULT_DRAIN_DEADLINE_S):
+                 drain_deadline_s: float = DEFAULT_DRAIN_DEADLINE_S,
+                 mode: str = "unified", prefill=None, decode=None,
+                 kv_push=None):
+        """``mode`` names the role; ``service`` (unified), ``prefill`` (a
+        PrefillWorker) or ``decode`` (a DecodeService) serves it once set.
+        ``kv_push``: the prefill role's stream transport (None keeps the
+        whole-bundle wire)."""
         super().__init__(addr, Handler)
+        self.mode = mode
         self.service = service
-        self.device_name = (None if service is None
-                            else str(service.engine.device))
+        self.prefill = prefill
+        self.decode = decode
+        self.kv_push = kv_push
+        # The prefill engine serves one request at a time behind it.
+        self.pd_lock = named_lock("engine.server_pd")
+        eng = self.engine
+        self.device_name = None if eng is None else str(eng.device)
         self.tokenizer = tokenizer if tokenizer is not None else ByteTokenizer()
         self.auth_token = auth_token or None
         self.drain_deadline_s = drain_deadline_s
@@ -308,6 +583,17 @@ class EngineServer(socketserver.ThreadingTCPServer):
         self.drain_started = 0.0
         self._inflight = 0
         self._inflight_lock = threading.Lock()
+
+    @property
+    def engine(self):
+        for s in (self.service, self.prefill, self.decode):
+            if s is not None:
+                return s.engine
+        return None
+
+    @property
+    def ready(self) -> bool:
+        return self.engine is not None
 
     @property
     def addr(self) -> str:
@@ -335,15 +621,24 @@ def start_drain(server: EngineServer, drain_deadline_s: float) -> None:
     server.drain_deadline_s = drain_deadline_s
     REGISTRY.inc(names.SERVING_DRAINS_TOTAL)
     REGISTRY.set_gauge(names.SERVING_DRAINING, 1.0)
+    # A draining prefill replica's prefix-directory entries go stale the
+    # moment it exits — invalidate them NOW so no router routes a prefix
+    # hit at a pod that is about to refuse it.
+    pf = server.prefill
+    if pf is not None and pf.directory is not None and pf.advertise_addr:
+        try:
+            pf.directory.invalidate_backend(pf.advertise_addr, reason="drain")
+        except Exception:  # noqa: BLE001 — drain must never fail on this
+            pass
     print(f"draining: finishing in-flight work (deadline "
           f"{drain_deadline_s:.1f}s)", flush=True)
 
     def drainer():
         deadline = server.drain_started + drain_deadline_s
         while time.monotonic() < deadline:
-            s = server.service
-            busy = server.inflight() > 0 or (
-                s is not None and (s.engine.has_work() or s._queue))
+            busy = server.inflight() > 0 or any(
+                s is not None and (s.engine.has_work() or s._queue)
+                for s in (server.service, server.decode))
             if not busy:
                 break
             time.sleep(0.05)
@@ -356,12 +651,22 @@ def start_drain(server: EngineServer, drain_deadline_s: float) -> None:
     threading.Thread(target=drainer, daemon=True, name="drainer").start()
 
 
-def start_server(service, host: str = "127.0.0.1", port: int = 0,
-                 tokenizer=None, auth_token=None) -> EngineServer:
-    """Serve ``service`` from a daemon thread; port 0 picks a free port
-    (read it from ``.addr``). Stop with ``shutdown()`` + ``server_close()``."""
+def start_server(service=None, host: str = "127.0.0.1", port: int = 0,
+                 tokenizer=None, auth_token=None, prefill=None, decode=None,
+                 kv_stream: str = "auto") -> EngineServer:
+    """Serve ``service`` (unified), ``prefill`` (a PrefillWorker) or
+    ``decode`` (a DecodeService) from a daemon thread; port 0 picks a free
+    port (read it from ``.addr``). Stop with ``shutdown()`` +
+    ``server_close()``."""
+    mode = ("prefill" if prefill is not None
+            else "decode" if decode is not None else "unified")
+    kv_push = None
+    if prefill is not None and kv_stream != "off":
+        from rbg_tpu_torch.kvtransfer.transport import TCPTransport
+        kv_push = TCPTransport(token=auth_token or None)
     server = EngineServer((host, port), service, tokenizer=tokenizer,
-                          auth_token=auth_token)
+                          auth_token=auth_token, mode=mode, prefill=prefill,
+                          decode=decode, kv_push=kv_push)
     threading.Thread(target=server.serve_forever, daemon=True,
                      name="engine-server").start()
     return server
@@ -369,7 +674,7 @@ def start_server(service, host: str = "127.0.0.1", port: int = 0,
 
 def build_config(args) -> EngineConfig:
     return EngineConfig(
-        model=args.model, page_size=args.page_size, num_pages=args.num_pages,
+        model=args.model, mode=args.mode, page_size=args.page_size, num_pages=args.num_pages,
         max_batch=args.max_batch, max_seq_len=args.max_seq_len,
         prefill_chunk=args.prefill_chunk, multi_step=args.multi_step,
         ragged=args.ragged, speculative=args.speculative, spec_k=args.spec_k,
@@ -406,6 +711,35 @@ def lora_specs(specs) -> list:
     return out
 
 
+def build_prefill(cfg: EngineConfig, args, addr: str, auth_token=None):
+    """The prefill role's worker: with ``--kv-pool`` it consults and
+    publishes to the shared KV pool, and registers computed prefixes (and
+    its host tier's spills) in the cluster prefix directory the pool
+    hosts, under ``--advertise-addr``."""
+    from rbg_tpu_torch.engine.pd import PrefillWorker
+
+    pool = directory = None
+    advertise = (args.advertise_addr or os.environ.get("RBG_ADVERTISE_ADDR")
+                 or addr)
+    pool_addr = args.kv_pool or os.environ.get("RBG_KV_POOL_ADDR", "")
+    if pool_addr:
+        from rbg_tpu_torch.engine.kvpool import KVPoolClient
+        from rbg_tpu_torch.kvtransfer.directory import DirectoryClient
+        pool = KVPoolClient(pool_addr, token=auth_token,
+                            ca_path=(args.kv_pool_ca
+                                     or os.environ.get("RBG_KV_POOL_CA")
+                                     or None))
+        directory = DirectoryClient(pool_addr, token=auth_token,
+                                    page_size=cfg.page_size)
+    prefill = PrefillWorker(cfg, pool=pool, directory=directory,
+                            advertise_addr=advertise)
+    if prefill.engine.host_tier is not None and directory:
+        # Host-tier spills register in the cluster directory under this
+        # replica's serving address (tier="host").
+        prefill.engine.host_tier.wire_directory(directory, advertise)
+    return prefill
+
+
 def serve(args) -> None:
     from rbg_tpu_torch.engine.service import EngineService
     from rbg_tpu_torch.engine.tokenizer import load_tokenizer
@@ -418,10 +752,10 @@ def serve(args) -> None:
     drain_deadline_s = float(
         args.drain_deadline_s if args.drain_deadline_s is not None
         else os.environ.get("RBG_DRAIN_DEADLINE_S", DEFAULT_DRAIN_DEADLINE_S))
+    auth_token = args.auth_token or os.environ.get("RBG_DATA_TOKEN") or None
     server = EngineServer(
-        ("127.0.0.1", args.port),
-        auth_token=args.auth_token or os.environ.get("RBG_DATA_TOKEN"),
-        drain_deadline_s=drain_deadline_s)
+        ("127.0.0.1", args.port), auth_token=auth_token,
+        drain_deadline_s=drain_deadline_s, mode=cfg.mode)
     # serve() runs on the main thread, where signal() is allowed.
     signal.signal(signal.SIGTERM,
                   lambda *_: start_drain(server, drain_deadline_s))
@@ -430,19 +764,32 @@ def serve(args) -> None:
         try:
             if args.tokenizer_path:
                 server.tokenizer = load_tokenizer(args.tokenizer_path)
-            # Adapters and the grammar are wired before the service is
+            # Adapters and the grammar are wired before the engine is
             # published: health reports ready once it is, and a json_mode
             # request racing the wiring would be refused.
-            service = EngineService(cfg, max_queue=args.max_queue or None,
-                                    lora=lora_specs(args.lora))
-            service.engine.enable_json_grammar(server.tokenizer)
+            if cfg.mode == "prefill":
+                role = build_prefill(cfg, args, server.addr, auth_token)
+                if args.kv_stream != "off":
+                    from rbg_tpu_torch.kvtransfer.transport import TCPTransport
+                    server.kv_push = TCPTransport(token=auth_token)
+                for name, adapter, alpha in lora_specs(args.lora):
+                    role.engine.load_lora(name, adapter, alpha=alpha)
+            elif cfg.mode == "decode":
+                from rbg_tpu_torch.engine.service import DecodeService
+                role = DecodeService(cfg, max_queue=args.max_queue or None,
+                                     lora=lora_specs(args.lora))
+            else:
+                role = EngineService(cfg, max_queue=args.max_queue or None,
+                                     lora=lora_specs(args.lora))
+            role.engine.enable_json_grammar(server.tokenizer)
         except Exception:  # noqa: BLE001 — a server without an engine must die
             traceback.print_exc()
             os._exit(1)
-        server.device_name = str(service.engine.device)
-        server.service = service
-        print(f"engine ready model={cfg.model} device={service.engine.device} "
-              f"addr={server.addr}", flush=True)
+        server.device_name = str(role.engine.device)
+        setattr(server, {"prefill": "prefill", "decode": "decode"}.get(
+            cfg.mode, "service"), role)
+        print(f"engine ready mode={cfg.mode} model={cfg.model} "
+              f"device={role.engine.device} addr={server.addr}", flush=True)
 
     threading.Thread(target=init_engine, daemon=True).start()
     print(f"engine listening on {server.addr}", flush=True)
@@ -455,6 +802,11 @@ def serve(args) -> None:
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(prog="rbg-tpu-torch-engine")
     ap.add_argument("--model", default="tiny")
+    ap.add_argument("--mode", default="unified",
+                    choices=["unified", "prefill", "decode"],
+                    help="PD role: unified serves generate; prefill answers "
+                         "prefill with KV (bundle or pushed stream); decode "
+                         "imports KV and decodes")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; fails without a card)")
     ap.add_argument("--port", type=int, default=9000, help="0 = any free port")
@@ -516,6 +868,22 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "page-pool evictions spill prefix pages here and "
                          "admission promotes them back on a hit (0 = off; "
                          "needs the radix cache; not with --kv-dtype int8)")
+    ap.add_argument("--kv-pool",
+                    default=os.environ.get("RBG_KV_POOL_ADDR", ""),
+                    help="host:port of the shared KV pool (prefill mode; "
+                         "python -m rbg_tpu_torch.engine.kvpool)")
+    ap.add_argument("--kv-pool-ca", default="",
+                    help="CA cert path for a TLS kv-pool (default: "
+                         "$RBG_KV_POOL_CA; empty = plaintext)")
+    ap.add_argument("--kv-stream", choices=("auto", "off"), default="auto",
+                    help="chunked layer-overlapped prefill→decode KV "
+                         "streaming (the router passes push_to and this "
+                         "prefill pushes chunks as they compute); 'off' "
+                         "keeps the whole-bundle wire path")
+    ap.add_argument("--advertise-addr", default="",
+                    help="address this replica registers in the cluster "
+                         "prefix directory (default: $RBG_ADVERTISE_ADDR "
+                         "or this server's address)")
     ap.add_argument("--early-reject", choices=("off", "auto"), default="off",
                     help="shed at admission when the predicted TTFT (queue "
                          "wait + prefill net of the prefix hit) exceeds "

@@ -5,8 +5,10 @@ Server threads only enqueue and wait; ONE loop thread owns the engine
 (single writer, no engine locking on the hot path), so requests arriving
 on different connections batch together on the device. ``_BatchService``
 holds the loop and the admission gates; ``EngineService`` serves unified
-generate and embeddings (the disaggregated ``DecodeService`` is not
-ported yet).
+generate and embeddings; ``DecodeService`` serves the disaggregated decode
+role: KV bundles and KV streams from many connections decode together
+(the loop commits inbound stream chunks into the page table between
+steps, ``_pump``).
 
 Admission: a full queue, a deadline the measured backlog cannot meet, or
 (with ``early_reject="auto"``) a predicted TTFT over the gate sheds the
@@ -57,7 +59,8 @@ class Pending:
     """One submitted request: tokens stream in from the loop thread."""
 
     __slots__ = ("tokens", "logprobs", "done", "t_submit", "t_first", "error",
-                 "code", "deadline", "span_parent", "span_queue", "span_scan")
+                 "code", "deadline", "span_parent", "span_queue", "span_scan",
+                 "stream_rx")
 
     def __init__(self, deadline: Optional[float] = None):
         self.tokens: List[int] = []
@@ -73,6 +76,9 @@ class Pending:
         self.span_parent = trace.NULL_SPAN
         self.span_queue = trace.NULL_SPAN
         self.span_scan = trace.NULL_SPAN
+        # KV stream receiver backing this request (decode_stream path):
+        # its t_first_step is stamped at the first decode token.
+        self.stream_rx = None
 
 
 def _chunk_bucket(n: int, chunk: int = 1) -> int:
@@ -175,6 +181,9 @@ class _BatchService:
         self._stopped = False
         self._queue: List[Tuple[object, SamplingParams, Pending]] = []
         self._cancels: List[Pending] = []
+        # Inbound KV stream receivers awaiting loop-thread adoption
+        # (DecodeService.watch_stream fills it; _pump drains it).
+        self._new_streams: List[object] = []
         self._done_times = collections.deque(maxlen=_RATE_WINDOW)
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name=type(self).__name__.lower())
@@ -184,6 +193,10 @@ class _BatchService:
 
     def _admit(self, item, sampling: SamplingParams) -> Optional[int]:
         raise NotImplementedError
+
+    def _pump(self) -> None:
+        """Loop-thread hook before each iteration's engine work —
+        DecodeService commits inbound KV stream chunks here."""
 
     def _ingress_prompt(self, item) -> Optional[List[int]]:
         """The prompt tokens of a submission, for the TTFT predictor (None:
@@ -262,7 +275,8 @@ class _BatchService:
     # -- public --
 
     def submit_async(self, item, sampling: SamplingParams,
-                     deadline: Optional[float] = None, span=None) -> Pending:
+                     deadline: Optional[float] = None, span=None,
+                     stream_rx=None) -> Pending:
         """Enqueue one request. ``deadline`` is absolute ``time.monotonic()``
         seconds; raises ``Overloaded`` / ``DeadlineExceeded`` instead of
         queueing work that cannot be served. ``span`` (or the current span)
@@ -279,6 +293,7 @@ class _BatchService:
         p = Pending(deadline=deadline)
         p.span_parent = parent
         p.span_queue = qspan
+        p.stream_rx = stream_rx
         try:
             with self._lock:
                 # estimated_wait_s with an explicit depth does not take the
@@ -497,10 +512,24 @@ class _BatchService:
                 except Exception as e:  # noqa: BLE001 — a bad request fails itself
                     scan.end(outcome="admit_error")
                     p.error = str(e)
+                    # Structured failure classes (a dead KV stream's
+                    # kv_stream_failed) keep their wire code, so the router
+                    # recovers instead of passing a raw error on.
+                    p.code = getattr(e, "wire_code", None)
                     p.done.set()
+                    continue
+                if rid is None:
+                    scan.end(outcome="done_at_admit")
+                    self._judge_finished(p, time.perf_counter())
+                    p.done.set()   # completed at admission
+                    self._done_times.append(time.monotonic())
                     continue
                 self._pending[rid] = p
             self._abort_expired_running(now)
+            try:
+                self._pump()
+            except Exception as e:  # noqa: BLE001 — the loop must keep serving
+                self._fail_step(e)
             for p in cancels:
                 rid = next((r for r, q in self._pending.items() if q is p), None)
                 if rid is not None:
@@ -541,6 +570,10 @@ class _BatchService:
                     continue
                 if p.t_first is None:
                     p.t_first = time.perf_counter()
+                    if p.stream_rx is not None \
+                            and p.stream_rx.t_first_step is None:
+                        # First DECODE step of a streamed row.
+                        p.stream_rx.t_first_step = time.monotonic()
                 p.tokens.append(ev.token)
                 if ev.logprob is not None:
                     p.logprobs.append(ev.logprob)
@@ -595,5 +628,105 @@ class EngineService(_BatchService):
         out["waiting"] = len(eng.waiting)
         out["free_pages"] = eng.allocator.free_pages
         out["radix_nodes"] = eng.radix.num_nodes if eng.radix is not None else 0
+        out.update(self.service_stats())
+        return out
+
+
+class DecodeService(_BatchService):
+    """Disaggregated decode role: KV bundles and KV streams from many
+    router connections decode TOGETHER on the device instead of
+    serializing per connection."""
+
+    slo_role = "decode"
+
+    def __init__(self, cfg: EngineConfig, params=None, device=None,
+                 max_queue: Optional[int] = None, lora=()):
+        from rbg_tpu_torch.engine.pd import DecodeWorker
+        from rbg_tpu_torch.kvtransfer.stream import StreamRegistry
+
+        self.worker = DecodeWorker(cfg, params=params, device=device)
+        self.engine = self.worker.engine
+        for name, adapter, alpha in lora:
+            self.engine.load_lora(name, adapter, alpha=alpha)
+        # Inbound KV chunk streams (the decode server's kv_stream op feeds
+        # these; decode_stream requests consume them).
+        self.kv_streams = StreamRegistry()
+        super().__init__(max_queue=max_queue)
+
+    def watch_stream(self, receiver) -> None:
+        """Ask the loop thread to start committing this stream's chunks
+        into the page table AS THEY ARRIVE (before admission) — callable
+        from any connection thread."""
+        with self._lock:
+            self._new_streams.append(receiver)
+        self._wake.set()
+
+    def _adopt_new_streams(self) -> None:
+        with self._lock:
+            new, self._new_streams = self._new_streams, []
+        for rx in new:
+            self.worker.begin_stream(rx)
+
+    def _pump(self) -> None:
+        self._adopt_new_streams()
+        self.worker.pump_streams()
+
+    def submit_stream(self, receiver, sampling: SamplingParams,
+                      deadline: Optional[float] = None,
+                      span=None) -> Pending:
+        """Admit a coverage-complete KV stream (caller waited on
+        ``receiver.wait_ready``) into the decode batch."""
+        return self.submit_async(receiver, sampling, deadline=deadline,
+                                 span=span, stream_rx=receiver)
+
+    def _admit(self, item, sampling: SamplingParams) -> Optional[int]:
+        from rbg_tpu_torch.kvtransfer.stream import KVStreamReceiver
+
+        if isinstance(item, KVStreamReceiver):
+            # Adopt the streams watched before this submission first (both
+            # of its watch_stream calls precede it): adopted after the
+            # finalize, a watch would re-open on the admitted stream and
+            # hold fresh pages until its TTL.
+            self._adopt_new_streams()
+            rid = self.worker.finalize_stream(item, sampling)
+            self.kv_streams.pop(item.stream_id)
+        else:
+            rid = self.worker.inject(item, sampling)
+        req = self.engine.requests.get(rid)
+        if req is None or req.state == "finished":
+            return None  # completed at inject (max_new_tokens == 1 / stop)
+        return rid
+
+    def _warm_item(self, input_len: int, wave: int, row: int):
+        """A zero-KV bundle with the serving page count: the inject path
+        and the decode buckets run as in serving; the zero pages are
+        released when the warm request finishes. k and v take their OWN
+        pool's shape (MLA: the latent and the RoPE key differ)."""
+        from rbg_tpu_torch.engine.kvcache import pages_for_tokens
+        from rbg_tpu_torch.engine.pd import KVBundle, wire_dtype
+        from rbg_tpu_torch.kvtransfer.chunks import host_dtype
+
+        eng = self.engine
+        n_pages = pages_for_tokens(input_len, eng.cfg.page_size)
+        kshape = tuple(eng.cache.k_pages.shape)
+        vshape = tuple(eng.cache.v_pages.shape)
+        wire = wire_dtype(eng.cache.k_pages.dtype)
+        return KVBundle(
+            prompt=warm_prompt(input_len, wave, row), first_token=1,
+            k_data=np.zeros((kshape[0], n_pages) + kshape[2:], host_dtype(wire)),
+            v_data=np.zeros((vshape[0], n_pages) + vshape[2:], host_dtype(wire)),
+            dtype=wire)
+
+    def submit_bundle(self, bundle, sampling: SamplingParams,
+                      timeout: float = DEFAULT_TIMEOUT_S) -> List[int]:
+        """Blocking decode of an injected bundle (first token included)."""
+        p = self.submit_wait(bundle, sampling, timeout)
+        return [bundle.first_token] + p.tokens
+
+    def stats(self) -> dict:
+        eng = self.engine
+        out = {**eng.metrics, **self.worker.metrics,
+               "running": len(eng.running), "waiting": len(eng.waiting),
+               "free_pages": eng.allocator.free_pages}
         out.update(self.service_stats())
         return out

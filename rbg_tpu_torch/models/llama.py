@@ -258,6 +258,47 @@ def _layer_lora(lora: Optional[dict], l: int) -> Optional[dict]:
     return None if lora is None else {k: (A[l], B_[l]) for k, (A, B_) in lora.items()}
 
 
+def _paged_layer(params: dict, cfg: ModelConfig, l: int, x: torch.Tensor,
+                 positions: torch.Tensor, apos: torch.Tensor,
+                 token_mask: torch.Tensor, kv_lens: torch.Tensor,
+                 page_table: torch.Tensor, k_pages: torch.Tensor,
+                 v_pages: torch.Tensor, use_kernels: str,
+                 k_scales: Optional[torch.Tensor], v_scales: Optional[torch.Tensor],
+                 lora: Optional[dict], lora_ids: Optional[torch.Tensor]) -> torch.Tensor:
+    """Layer ``l`` of the paged forward: write this step's K/V into layer
+    l's pages in place, attend over them (``apos``: the attention's
+    positions, -1 for a T > 1 block's pads), then the MLP. ``forward_paged``
+    and ``forward_paged_window`` are chains of this one body."""
+    blk = layer_params(params, l)
+    lr = _layer_lora(lora, l)
+    ks, vs = _layer_view(k_scales, l), _layer_view(v_scales, l)
+    if cfg.mla:
+        q_lat, q_pe, c, k_pe = _mla_qkv(cfg, blk, x, positions, lr, lora_ids)
+        write_kv_pages(k_pages[l], v_pages[l], c[:, :, None], k_pe[:, :, None],
+                       page_table, positions, token_mask, ks, vs)
+        attn = _mla_out(cfg, blk, paged_mla_attention(
+            q_lat, q_pe, k_pages[l], v_pages[l], page_table, apos,
+            kv_lens, _mla_scale(cfg), use_kernels=use_kernels, c_scales=ks,
+            pe_scales=vs))
+    else:
+        q, k, v = _qkv(cfg, blk, x, positions, lr, lora_ids)
+        write_kv_pages(k_pages[l], v_pages[l], k, v, page_table, positions,
+                       token_mask, ks, vs)
+        attn = paged_attention(q, k_pages[l], v_pages[l], page_table,
+                               apos, kv_lens, use_kernels=use_kernels,
+                               k_scales=ks, v_scales=vs)
+    return _post_attention(cfg, blk, x, attn, lr, lora_ids)
+
+
+def _attention_positions(tokens_or_x: torch.Tensor, positions: torch.Tensor,
+                         token_mask: torch.Tensor) -> torch.Tensor:
+    """Positions the attention sees: a T > 1 block's pads at -1, so they
+    attend nothing; RoPE and the writes keep the given positions."""
+    if tokens_or_x.shape[1] > 1:
+        return torch.where(token_mask, positions, torch.full_like(positions, -1))
+    return positions
+
+
 @torch.no_grad()
 def forward_paged(
     params: dict,
@@ -285,30 +326,48 @@ def forward_paged(
     keep the given positions. Writes this step's K/V into the pools in
     place; returns logits [B, T, V] f32."""
     x = params["embed"][tokens.long()].to(cfg.torch_dtype)
-    apos = positions
-    if tokens.shape[1] > 1:
-        apos = torch.where(token_mask, positions, torch.full_like(positions, -1))
+    apos = _attention_positions(tokens, positions, token_mask)
     for l in range(cfg.num_layers):
-        blk = layer_params(params, l)
-        lr = _layer_lora(lora, l)
-        ks, vs = _layer_view(k_scales, l), _layer_view(v_scales, l)
-        if cfg.mla:
-            q_lat, q_pe, c, k_pe = _mla_qkv(cfg, blk, x, positions, lr, lora_ids)
-            write_kv_pages(k_pages[l], v_pages[l], c[:, :, None], k_pe[:, :, None],
-                           page_table, positions, token_mask, ks, vs)
-            attn = _mla_out(cfg, blk, paged_mla_attention(
-                q_lat, q_pe, k_pages[l], v_pages[l], page_table, apos,
-                kv_lens, _mla_scale(cfg), use_kernels=use_kernels, c_scales=ks,
-                pe_scales=vs))
-        else:
-            q, k, v = _qkv(cfg, blk, x, positions, lr, lora_ids)
-            write_kv_pages(k_pages[l], v_pages[l], k, v, page_table, positions,
-                           token_mask, ks, vs)
-            attn = paged_attention(q, k_pages[l], v_pages[l], page_table,
-                                   apos, kv_lens, use_kernels=use_kernels,
-                                   k_scales=ks, v_scales=vs)
-        x = _post_attention(cfg, blk, x, attn, lr, lora_ids)
+        x = _paged_layer(params, cfg, l, x, positions, apos, token_mask,
+                         kv_lens, page_table, k_pages, v_pages, use_kernels,
+                         k_scales, v_scales, lora, lora_ids)
     return _head(params, cfg, x)
+
+
+@torch.no_grad()
+def forward_paged_window(
+    params: dict,
+    cfg: ModelConfig,
+    layer_lo: int,              # first layer of the window
+    layer_hi: int,              # one past the last layer
+    x: torch.Tensor,            # [B, T, D] hidden states ENTERING layer_lo
+    positions: torch.Tensor,    # [B, T] int32 absolute positions
+    token_mask: torch.Tensor,   # [B, T] bool, real (non-pad) tokens
+    kv_lens: torch.Tensor,      # [B] int32, cache length AFTER this step
+    page_table: torch.Tensor,   # [B, P] int32 physical page ids
+    k_pages: torch.Tensor,      # [L, NP, page, KV, hd], the FULL pool
+    v_pages: torch.Tensor,
+    use_kernels: str = "auto",
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One LAYER WINDOW of ``forward_paged``: layers ``[layer_lo,
+    layer_hi)`` over hidden states, writing and attending only those
+    layers' pages, in place. The layer-sliced decode admission
+    (``engine/pd.py``) chains these windows so a row's first decode step
+    starts as soon as its leading layers' KV has landed; the caller embeds
+    the tokens before window 0 and applies ``_head`` after the last.
+
+    Each layer is ``forward_paged``'s own body (``_paged_layer``), so a
+    chain over every layer is ``forward_paged``'s arithmetic. On CUDA the
+    attention at T == 1 is kernel A (C, E or G by pool and model). Returns
+    the hidden states leaving layer ``layer_hi - 1``."""
+    apos = _attention_positions(x, positions, token_mask)
+    for l in range(layer_lo, layer_hi):
+        x = _paged_layer(params, cfg, l, x, positions, apos, token_mask,
+                         kv_lens, page_table, k_pages, v_pages, use_kernels,
+                         k_scales, v_scales, None, None)
+    return x
 
 
 @torch.no_grad()

@@ -2,7 +2,8 @@
 process has JAX loaded by tests/conftest.py): importing every
 rbg_tpu_torch module and chip_smoke.py loads neither JAX nor any rbg_tpu
 module, and the entry points refuse to run without a card unless asked
-for the CPU (the router, which runs no model, starts without one)."""
+for the CPU (the router and the kv pool server, which run no model, start
+without one)."""
 
 import os
 import subprocess
@@ -24,7 +25,10 @@ assert len(names) >= 15, names
 assert {"rbg_tpu_torch.engine.grammar", "rbg_tpu_torch.engine.http_frontend",
         "rbg_tpu_torch.engine.router", "rbg_tpu_torch.engine.routertier",
         "rbg_tpu_torch.engine.kvtier", "rbg_tpu_torch.engine.kvpool",
-        "rbg_tpu_torch.utils.locktrace"} <= set(names)
+        "rbg_tpu_torch.utils.locktrace", "rbg_tpu_torch.engine.pd",
+        "rbg_tpu_torch.kvtransfer.chunks", "rbg_tpu_torch.kvtransfer.transport",
+        "rbg_tpu_torch.kvtransfer.stream", "rbg_tpu_torch.kvtransfer.directory",
+        "rbg_tpu_torch.utils.tlsutil"} <= set(names)
 assert not bad, bad
 print("ok", len(names))
 """
@@ -41,6 +45,15 @@ except RuntimeError as e:
 else:
     raise SystemExit("Engine() ran without a card")
 Engine(EngineConfig(), device="cpu")
+from rbg_tpu_torch.engine.pd import PDPair, PDStreamPair
+for cls in (PDPair, PDStreamPair):
+    try:
+        cls(EngineConfig())
+    except RuntimeError as e:
+        assert "no CUDA device" in str(e), e
+    else:
+        raise SystemExit(f"{cls.__name__}() ran without a card")
+PDPair(EngineConfig(), device="cpu")
 print("ok")
 """
 
@@ -67,3 +80,28 @@ def test_router_help_runs_without_a_card():
     r = _run(None, "-m", "rbg_tpu_torch.engine.router", "--help")
     assert r.returncode == 0, r.stderr[-3000:]
     assert "--backends" in r.stdout and "--directory" in r.stdout
+
+
+def test_pd_servers_need_a_card_and_the_pool_does_not():
+    """``--mode prefill`` / ``--mode decode`` without ``--device`` exit non-zero
+    on a machine without a card; the kv pool server, which runs no model,
+    serves without one and imports no torch."""
+    for mode in ("prefill", "decode"):
+        r = _run(None, "-m", "rbg_tpu_torch.engine.server", "--mode", mode,
+                 "--port", "0")
+        assert r.returncode != 0 and "no CUDA device" in r.stderr, r.stderr[-3000:]
+    code = r"""
+import sys, threading
+from rbg_tpu_torch.engine import kvpool
+from rbg_tpu_torch.engine.protocol import request_obj
+srv = kvpool.KVPoolServer(("127.0.0.1", 0), kvpool.KVPoolStore(16))
+threading.Thread(target=srv.serve_forever, daemon=True).start()
+addr = f"127.0.0.1:{srv.server_address[1]}"
+assert request_obj(addr, {"op": "health"}) == {"ok": True, "mode": "kvpool"}
+assert "torch" not in sys.modules, "the pool server imported torch"
+print("ok")
+"""
+    r = _run(code)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-3000:]
+    r = _run(None, "-m", "rbg_tpu_torch.engine.kvpool", "--help")
+    assert r.returncode == 0 and "--page-size" in r.stdout, r.stderr[-3000:]

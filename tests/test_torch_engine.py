@@ -158,11 +158,13 @@ def test_sampled_streams_match_jax(weights, monkeypatch, multi_step):
 
 
 @pytest.mark.parametrize("bad,exc", [
-    (dict(mode="prefill"), NotImplementedError),
+    # The PD modes are ported; with int8 KV they are refused as the
+    # reference refuses them (bundles carry unquantized pages).
+    (dict(mode="prefill", kv_dtype="int8"), ValueError),
     # The host tier is ported; with int8 KV it is refused as the
     # reference refuses it.
     (dict(host_tier_bytes=1 << 20, kv_dtype="int8"), ValueError),
-    (dict(mode="decode"), NotImplementedError)], ids=["bad0", "bad1", "bad2"])
+    (dict(mode="decode", kv_dtype="int8"), ValueError)], ids=["bad0", "bad1", "bad2"])
 def test_unsupported_configs_raise(bad, exc):
     with pytest.raises(exc):
         Engine(EngineConfig(**{**BASE, **bad}), device="cpu")

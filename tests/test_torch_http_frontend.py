@@ -19,7 +19,7 @@ import pytest
 
 from rbg_tpu.engine import http_frontend as j_hf
 from rbg_tpu_torch.engine import http_frontend as t_hf
-from rbg_tpu_torch.engine.protocol import recv_msg, send_msg
+from rbg_tpu_torch.engine.protocol import recv_obj, send_msg
 from rbg_tpu_torch.engine.tokenizer import ByteTokenizer
 
 TOK = ByteTokenizer()
@@ -42,7 +42,7 @@ class _Backend:
             def handle(self):
                 while True:
                     try:
-                        obj = recv_msg(self.request)
+                        obj = recv_obj(self.request)
                     except (ConnectionError, json.JSONDecodeError):
                         return
                     if obj is None:

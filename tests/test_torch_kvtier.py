@@ -309,7 +309,7 @@ def test_mla_pools_take_the_tier_int8_does_not(weights):
 
 
 def test_server_flag_and_metrics_carry_the_tier(weights):
-    from rbg_tpu_torch.engine.protocol import request_once
+    from rbg_tpu_torch.engine.protocol import request_obj
     from rbg_tpu_torch.engine.server import (build_config, parse_args,
                                              start_server)
     from rbg_tpu_torch.engine.service import EngineService
@@ -323,14 +323,14 @@ def test_server_flag_and_metrics_carry_the_tier(weights):
     srv = start_server(svc)
     try:
         for p in _prompts(6, 40, seed=37):
-            r = request_once(srv.addr, {"op": "generate", "prompt": p,
+            r = request_obj(srv.addr, {"op": "generate", "prompt": p,
                                         "max_new_tokens": 4}, timeout=60)
             assert len(r["tokens"]) == 4
-        m = request_once(srv.addr, {"op": "metrics"}, timeout=10)["metrics"]
+        m = request_obj(srv.addr, {"op": "metrics"}, timeout=10)["metrics"]
         assert m["host_tier"] == svc.engine.host_tier.stats()
         assert m["host_tier"]["spilled_pages"] > 0
         assert m["device_tier_pages"] == svc.engine.radix.cached_pages
-        assert request_once(srv.addr, {"op": "health"}, timeout=10)["ok"]
+        assert request_obj(srv.addr, {"op": "health"}, timeout=10)["ok"]
     finally:
         srv.shutdown()
         srv.server_close()

@@ -23,8 +23,11 @@ import numpy as np
 import pytest
 
 from rbg_tpu.engine import router as j_router
+from rbg_tpu_torch.engine import protocol as t_protocol
 from rbg_tpu_torch.engine import router as t_router
-from rbg_tpu_torch.engine.protocol import recv_msg, request_once, send_msg
+from rbg_tpu_torch.engine.protocol import recv_obj
+from rbg_tpu_torch.engine.protocol import request_obj
+from rbg_tpu_torch.engine.protocol import send_msg
 
 ROUTERS = {"ref": j_router, "port": t_router}
 TIMEOUT = 30
@@ -52,7 +55,7 @@ class _Backend(socketserver.ThreadingTCPServer):
             def handle(self):
                 while True:
                     try:
-                        obj = recv_msg(self.request)
+                        obj = recv_obj(self.request)
                     except (ConnectionError, json.JSONDecodeError):
                         return
                     if obj is None:
@@ -155,7 +158,7 @@ class _Run:
                                       timeout=TIMEOUT) as s:
             send_msg(s, req)
             while True:
-                f = recv_msg(s)
+                f = recv_obj(s)
                 if f is None:
                     frames.append(None)
                     return frames
@@ -295,7 +298,7 @@ def sc_client_gone(run):
     run.router(serve=True)
     s = socket.create_connection(("127.0.0.1", run.port), timeout=TIMEOUT)
     send_msg(s, {"op": "generate", "prompt": [1], "stream": True})
-    run.record("first", recv_msg(s))
+    run.record("first", recv_obj(s))
     s.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER, struct.pack("ii", 1, 0))
     s.close()
     a = run.addrs[0]
@@ -346,24 +349,24 @@ def sc_deadline(run):
 def sc_wire_ops(run):
     run.router(serve=True, token="sesame")
     a = f"127.0.0.1:{run.port}"
-    h = request_once(a, {"op": "health"}, timeout=TIMEOUT)
+    h = request_obj(a, {"op": "health"}, timeout=TIMEOUT)
     run.record("health_open", sorted(h))
-    h = request_once(a, {"op": "health", "token": "sesame"}, timeout=TIMEOUT)
+    h = request_obj(a, {"op": "health", "token": "sesame"}, timeout=TIMEOUT)
     run.record("health_auth", {k: run.names(v) if isinstance(v, dict) else v
                                for k, v in h.items()
                                if k not in ("slo", "retry_budget")})
-    run.record("unauthorized", request_once(
+    run.record("unauthorized", request_obj(
         a, {"op": "generate", "prompt": [1]}, timeout=TIMEOUT))
-    gen = request_once(a, {"op": "generate", "prompt": [1], "token": "sesame"},
+    gen = request_obj(a, {"op": "generate", "prompt": [1], "token": "sesame"},
                        timeout=TIMEOUT)
     run.record("generate", sorted(gen))
-    run.record("embed", request_once(
+    run.record("embed", request_obj(
         a, {"op": "embed", "prompts": [[1]], "token": "sesame"},
         timeout=TIMEOUT))
-    run.record("unsupported", request_once(
+    run.record("unsupported", request_obj(
         a, {"op": "prefill", "prompt": [1], "token": "sesame"},
         timeout=TIMEOUT))
-    run.record("bad_timeout", request_once(
+    run.record("bad_timeout", request_obj(
         a, {"op": "generate", "prompt": [1], "token": "sesame",
             "timeout_s": -1}, timeout=TIMEOUT))
     run.record("forwarded", [be.seen[-1].get("token") for be in run.backends])
@@ -526,20 +529,39 @@ def test_router_scenario_matches_reference(name, tmp_path):
 
 
 def test_pd_routes_and_directory_flag_refuse():
-    """The PD legs, the directory client and the bundle-relay switch wait
-    for PD serving: each raises NotImplementedError instead of routing
-    elsewhere."""
-    st = t_router.RouterState(t_router.Registry(None), None,
-                              {"prefill": ["p:1"], "decode": ["d:1"]})
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        t_router.Handler._route(t_router.Handler, st, {"prompt": [1]},
-                                time.monotonic())
-    with pytest.raises(NotImplementedError, match="DirectoryClient"):
-        t_router.main(["--directory", "127.0.0.1:1", "--port", "0"])
-    with pytest.raises(NotImplementedError, match="--kv-stream off"):
-        t_router.main(["--kv-stream", "off", "--port", "0"])
-    with pytest.raises(NotImplementedError, match="lanes"):
-        t_router._request_once("127.0.0.1:1", {}, b"k", b"v")
+    """The PD legs are ported and refuse nothing: on a PD group whose
+    backends are down, both routers' ``_route`` fail alike on the prefill
+    leg (no NotImplementedError), the stream switch reaches the state, and
+    KV lanes ride ``request_once`` to a backend and back."""
+    with socket.socket() as s0:
+        s0.bind(("127.0.0.1", 0))
+        dead = f"127.0.0.1:{s0.getsockname()[1]}"
+    errs = []
+    for R in (j_router, t_router):
+        st = R.RouterState(R.Registry(None), None,
+                           {"prefill": [dead], "decode": [dead]},
+                           kv_stream=False)
+        assert st.kv_stream is False
+        with pytest.raises(Exception) as ei:
+            R.Handler._route(R.Handler, st, {"prompt": [1]},
+                             time.monotonic() + 10)
+        errs.append((type(ei.value).__name__, str(ei.value)))
+    assert errs[1] == errs[0] and errs[1][0] != "NotImplementedError"
+
+    class Echo(socketserver.BaseRequestHandler):
+        def handle(self):
+            obj, k, v = t_protocol.recv_msg(self.request)
+            t_protocol.send_msg(self.request, {"got": obj["op"]}, v, k)
+
+    srv = socketserver.TCPServer(("127.0.0.1", 0), Echo)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        hdr, k, v = t_router.request_once(
+            f"127.0.0.1:{srv.server_address[1]}", {"op": "x"}, b"k" * 9, b"v")
+        assert (hdr["got"], k, v) == ("x", b"v", b"k" * 9)
+    finally:
+        srv.shutdown()
+        srv.server_close()
 
 
 def test_prefix_cost_scores_like_reference_test():
@@ -592,7 +614,7 @@ class _CutProxy(socketserver.ThreadingTCPServer):
 
         class H(socketserver.BaseRequestHandler):
             def handle(self):
-                obj = recv_msg(self.request)
+                obj = recv_obj(self.request)
                 if obj is None:
                     return
                 host, port = upstream.rsplit(":", 1)
@@ -601,7 +623,7 @@ class _CutProxy(socketserver.ThreadingTCPServer):
                     send_msg(up, obj)
                     frames = 0
                     while True:
-                        f = recv_msg(up)
+                        f = recv_obj(up)
                         if f is None:
                             return
                         if (obj.get("stream") and f.get("tokens")
@@ -673,7 +695,7 @@ def _stream_tokens(addr, req):
     with socket.create_connection((host, int(port)), timeout=TIMEOUT) as s:
         send_msg(s, {**req, "stream": True})
         while True:
-            f = recv_msg(s)
+            f = recv_obj(s)
             assert f is not None, "router closed mid-stream"
             assert "error" not in f, f
             tokens.extend(f.get("tokens") or [])
@@ -697,14 +719,14 @@ def test_router_before_port_servers_gives_reference_tokens(fleet):
         joins = [s.engine.metrics["joins"] for s in svcs]
         for p in prompts:
             for sp in SAMPLINGS:
-                r = request_once(addr, {"op": "generate", "prompt": p, **sp},
+                r = request_obj(addr, {"op": "generate", "prompt": p, **sp},
                                  timeout=TIMEOUT)
                 assert r["tokens"] == _ref_tokens(jref, p, **sp), (p, sp)
         assert all(s.engine.metrics["joins"] > j for s, j in zip(svcs, joins))
         shared = rng.randint(1, 500, size=48).tolist()
         hits = [s.engine.metrics["radix_hit_tokens"] for s in svcs]
         for tail in range(3):
-            request_once(addr, {"op": "generate", "prompt": shared + [tail + 1],
+            request_obj(addr, {"op": "generate", "prompt": shared + [tail + 1],
                                 "max_new_tokens": 2}, timeout=TIMEOUT)
         gained = [s.engine.metrics["radix_hit_tokens"] - h
                   for s, h in zip(svcs, hits)]

@@ -166,10 +166,10 @@ def text_server():
 
 
 def _ask(srv, obj, token="s3cret"):
-    from rbg_tpu_torch.engine.protocol import request_once as port_request
+    from rbg_tpu_torch.engine.protocol import request_obj
     if token:
         obj = {**obj, "token": token}
-    return port_request(srv.addr, obj, timeout=120)
+    return request_obj(srv.addr, obj, timeout=120)
 
 
 def test_generate_text_matches_reference(text_server):
@@ -240,8 +240,11 @@ def test_auth_refuses_wrong_token_and_leaves_probes_open(text_server):
     assert "window_s" in _ask(srv, {"op": "slo"}, token=None)
     assert len(_ask(srv, {"op": "generate", "prompt": [1, 2],
                           "max_new_tokens": 2})["tokens"]) == 2
-    # The disaggregated ops are not ported: the unknown-op reply.
-    assert "unknown op" in _ask(srv, {"op": "prefill", "prompt": [1]})["error"]
+    # A unified server answers the disaggregated ops as the reference's
+    # does: unsupported in its mode.
+    for op in ("prefill", "decode_bundle", "kv_stream", "decode_stream"):
+        assert _ask(srv, {"op": op, "prompt": [1]})["error"] == \
+            f"unsupported op {op!r} in mode unified"
 
 
 def test_start_drain_refuses_new_data_ops():
@@ -250,7 +253,7 @@ def test_start_drain_refuses_new_data_ops():
     shuts down."""
     from rbg_tpu_torch.engine.config import EngineConfig
     from rbg_tpu_torch.engine.protocol import CODE_DRAINING
-    from rbg_tpu_torch.engine.protocol import recv_msg as port_recv
+    from rbg_tpu_torch.engine.protocol import recv_obj
     from rbg_tpu_torch.engine.protocol import send_msg as port_send
     from rbg_tpu_torch.engine.server import start_drain, start_server
 
@@ -270,13 +273,13 @@ def test_start_drain_refuses_new_data_ops():
         with socket.create_connection((host, int(port)), timeout=60) as s:
             port_send(s, {"op": "generate", "prompt": [4, 5, 6], "stream": True,
                           "max_new_tokens": 40})
-            assert "error" not in port_recv(s)
+            assert "error" not in recv_obj(s)
             start_drain(srv, 30.0)
             r = _ask(srv, {"op": "generate", "prompt": [1, 2]}, token=None)
             assert r["code"] == CODE_DRAINING and r["done"]
             assert 0.5 <= r["retry_after_s"] <= 5.0
             assert _ask(srv, {"op": "health"}, token=None)["draining"] is True
-            while not port_recv(s)["done"]:
+            while not recv_obj(s)["done"]:
                 pass
     finally:
         srv.shutdown()

@@ -637,14 +637,27 @@ def test_bench_serving_serves_split_paths(flags, monkeypatch):
         bench_serving.parse_args(["--speculative", "eagle"])
 
 
-def test_bench_slo_pd_setup_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        bench_slo.main(["--setups", "pd"])
+def test_bench_slo_pd_setup_not_ported(tmp_path, capsys):
+    """The pd setup is ported: a spawned kv pool, prefill and decode
+    servers and the router on the CPU serve every request of each rate."""
+    out = tmp_path / "slo.json"
+    rc = bench_slo.main(["--setups", "pd", "--device", "cpu", "--model", "tiny",
+                         "--rates", "8", "--requests", "4", "--input-len", "8",
+                         "--output-len", "4", "--num-pages", "128",
+                         "--max-seq-len", "128", "--max-batch", "4",
+                         "--json-out", str(out)])
+    assert rc == 0
+    art = json.loads(out.read_text())
+    rows = art["results"]["pd"]
+    assert [r["completed"] for r in rows] == [4] and rows[0]["setup"] == "pd"
+    assert art["pd_decode_replicas"] == 1
+    assert "| pd | 8.0 | 4/4 |" in capsys.readouterr().out
 
 
 def test_bench_slo_unified_sweeps_a_spawned_server(tmp_path, capsys):
     out = tmp_path / "slo.json"
-    rc = bench_slo.main(["--device", "cpu", "--model", "tiny", "--rates", "8,16",
+    rc = bench_slo.main(["--setups", "unified", "--device", "cpu", "--model",
+                         "tiny", "--rates", "8,16",
                          "--requests", "4", "--input-len", "8", "--output-len",
                          "4", "--num-pages", "128", "--max-seq-len", "128",
                          "--max-batch", "4", "--json-out", str(out)])
