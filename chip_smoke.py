@@ -31,7 +31,28 @@ Phases, each printing one JSON line:
              port's on the same weights; then ``python -m
              rbg_tpu_torch.engine.server`` with its defaults (tiny on the
              card), two requests whose greedy tokens equal the CPU port's.
-5. llama3-8b at full width and depth, random weights from a seed:
+5. training and checkpoints (before any serving phase holds weights: the
+   checkpoint file may live in the machine's memory):
+   train   — tiny (float32) trained 3 steps on the card and on the CPU
+             from the same weights (params_from_numpy), plain and with
+             remat: losses and every parameter within TRAIN_REL; llama3-8b
+             at full width, 2 layers, float32: remat gradients equal plain
+             ones (REMAT_REL); the trainer's leaf layout at 8 layers
+             (stacked against per-layer: backward ms and peak, a reading);
+             llama3-8b at full width and depth, bf16, remat, 5 steps on
+             one [1, 512] batch at TRAIN_LR: finite and falling at every
+             step; step ms, tokens/s, model FLOPs as a share of the bf16
+             peak, peak memory, a sixth step's forward / backward /
+             optimizer ms; one step through parallel.make_mesh() at world
+             size 1 on nccl gives the first step's loss.
+   checkpoint — the trained llama3-8b saved (save_checkpoint, 16 GB) and
+             served by Engine(checkpoint_path=...) with the greedy tokens
+             of an engine on the same weights in memory (kernels A, B);
+             write and read GB/s. A qwen2-0.5b HF directory (bf16, q/k/v
+             biases, tied head) served by ``python -m
+             rbg_tpu_torch.engine.server --checkpoint-path`` as a process
+             with the greedy tokens of an in-process engine on it.
+6. llama3-8b at full width and depth, random weights from a seed:
    engine  — Engine (bf16 pools; kernels A, B): a request steps into
              decode, a second joins so one ragged step holds a decode row
              and a prefill chunk, both run to completion (multi_step 1
@@ -117,14 +138,14 @@ Phases, each printing one JSON line:
    int8    — the same engine script with kv_dtype="int8" (kernels C, D),
              multi_step 4, its three witnesses on int8 pools and the server
              over int8 pools.
-6. pd_servers (after the phases above free their llama3-8b weights): ``python
+7. pd_servers (after the phases above free their llama3-8b weights): ``python
    -m rbg_tpu_torch.engine.server --mode prefill`` and ``--mode decode`` at
    llama3-8b as processes on the card (random weights from seed 0), warmed,
    behind the port's router with --kv-stream auto (pushed chunk streams)
    and then off (whole bundles): 8 requests one at a time each, every one
    completes, greedy tokens equal between the two, and the first 3 equal
    to the in-process unified engine's on the same weights.
-7. serving (llama3-8b at full width and depth, random weights from a seed,
+8. serving (llama3-8b at full width and depth, random weights from a seed,
    after the phases above free theirs):
    bench_serving   — ``rbg_tpu_torch.engine.bench_serving.run`` with
              BENCH_ARGS (16 Poisson requests of 512-token prompts and 64 new
@@ -143,20 +164,20 @@ Phases, each printing one JSON line:
              on the card, then a spawned PD group (kv pool, prefill and
              decode servers on the card, the router): every request
              completes on both; TTFT, ITL and goodput of each.
-8. deepseek-v2-lite (MLA + MoE) at full width and depth, random weights
+9. deepseek-v2-lite (MLA + MoE) at full width and depth, random weights
    from a seed, after llama3-8b is freed: engine (kernels E, F; multi_step
    1 and 4), witnesses (ragged_compare, decode_compare and block_compare:
    F at T > 1) and server, as for llama3-8b; then on the same weights over
    int8 latent pools (kernels G, H): engine (multi_step 4), int8 witnesses
    (H at T > 1) and server.
-9. ragged_ab — rbg_tpu_torch.bench.block_ragged_probe: kernel I against
+10. ragged_ab — rbg_tpu_torch.bench.block_ragged_probe: kernel I against
    kernel B on a prefill-heavy pack, both checked against the plain
    version, then interleaved timed reps; then each kernel's device ms on
    the probe's pack (the probe's calls/s read host time at its size).
 
 Then a line {"kernels": [...]} (launches counted over the phases that drive
-each kernel's path: the llama3-8b server, tier, router and pd phases for A
-and B, the int8 engine for C and D, the deepseek-v2-lite server for E and F, its int8 engine for G
+each kernel's path: the llama3-8b server, tier, router, pd and checkpoint
+phases for A and B, the int8 engine for C and D, the deepseek-v2-lite server for E and F, its int8 engine for G
 and H, the probe for I) and, last, {"ok": true, "device": {...}}. Any
 failure exits non-zero before the last line; without a CUDA device nothing
 runs.
@@ -3037,6 +3058,489 @@ def surface_phase(torch, np, svc, srv):
          stream_tokens_through_drain=n)
 
 
+TRAIN_T = 512                    # one fixed [1, TRAIN_T] batch at llama3-8b
+TRAIN_STEPS = 5
+TRAIN_LR = 1e-6                  # llama3-8b on one batch (3e-4 diverges, PERF.md)
+TRAIN_REL = 1e-4                 # tiny on the card against the CPU port
+REMAT_REL = 1e-5                 # remat against plain gradients, float32
+LAYOUT_LAYERS = 8                # depth of the stacked-vs-per-layer reading
+
+
+class Clock:
+    """Marks on the device's clock: CUDA events on the card, the host clock
+    elsewhere (a CPU rehearsal)."""
+
+    def __init__(self, torch, dev):
+        self.torch, self.cuda = torch, torch.device(dev).type == "cuda"
+        self.marks = []
+
+    def mark(self):
+        if self.cuda:
+            e = self.torch.cuda.Event(enable_timing=True)
+            e.record()
+            self.marks.append(e)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def ms(self, i, j):
+        """Milliseconds from mark i to mark j (waits for mark j)."""
+        a, b = self.marks[i], self.marks[j]
+        if self.cuda:
+            b.synchronize()
+            return a.elapsed_time(b)
+        return (b - a) * 1e3
+
+
+def sync(torch, dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def free(torch, dev):
+    gc.collect()
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def peak_reset(torch, dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def peak_bytes(torch, dev):
+    return torch.cuda.max_memory_allocated() if torch.device(dev).type == "cuda" else None
+
+
+def rel_err(a, b):
+    """max |a - b| over max |b|."""
+    scale = float(b.abs().max())
+    return float((a - b).abs().max()) / scale if scale else float((a - b).abs().max())
+
+
+def train_flops(cfg, T):
+    """(model FLOPs of one step, FLOPs the remat step computes): 6·N·T for
+    the weights (2 forward + 4 backward per parameter and token) and the
+    attention's two [T, T] products per head and layer, 2·2·T²·hd forward,
+    three times that for a step; remat runs each block's forward once
+    more."""
+    n = cfg.num_params
+    attn = 4 * cfg.num_layers * cfg.num_heads * T * T * cfg.head_dim_
+    return 6 * n * T + 3 * attn, 8 * n * T + 4 * attn
+
+
+def batch(torch, np, cfg, seed, dev, B=1, T=TRAIN_T):
+    return torch.from_numpy(np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, (B, T))).to(dev)
+
+
+def train_tiny(torch, np, dev="cuda"):
+    """(a) tiny (float32): three make_train_step steps on ``dev`` from
+    weights carried across by params_from_numpy, plain and with remat,
+    against the CPU port on the same weights and tokens: losses and every
+    parameter within TRAIN_REL of the CPU's (relative to each leaf's
+    largest magnitude)."""
+    from rbg_tpu_torch.models.config import get_config
+    from rbg_tpu_torch.models.convert import params_from_numpy
+    from rbg_tpu_torch.models.llama import init_params
+    from rbg_tpu_torch.models.training import make_train_step, param_leaves
+
+    cfg = get_config("tiny")
+    tree = {k: ({n: w.numpy() for n, w in v.items()} if k == "blocks" else v.numpy())
+            for k, v in init_params(cfg, 11, "cpu").items()}
+    tokens = batch(torch, np, cfg, 11, "cpu", B=4, T=64)
+    for remat in (False, True):
+        out = {}
+        for d in ("cpu", dev):
+            init_fn, step = make_train_step(cfg, remat=remat, device=d)
+            params, opt = init_fn(params_from_numpy(tree, cfg, d))
+            losses = []
+            for _ in range(3):
+                params, opt, loss = step(params, opt, tokens)
+                losses.append(float(loss))
+            out[d] = (losses, param_leaves(params))
+        (lc, pc), (lg, pg) = out["cpu"], out[dev]
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+        param_err = max(rel_err(g.detach().cpu(), c.detach()) for g, c in zip(pg, pc))
+        emit("train", case="tiny_card_vs_cpu", device=dev, remat=remat, losses=lg,
+             cpu_losses=lc, loss_rel_err=loss_err, max_param_rel_err=param_err,
+             tolerance=TRAIN_REL)
+        if loss_err > TRAIN_REL or param_err > TRAIN_REL or not lg[2] < lg[0]:
+            raise AssertionError(f"tiny training on {dev} vs the CPU port: "
+                                 f"{loss_err}, {param_err}")
+
+
+def per_layer(params, clone=False):
+    """A stacked tree as the trainer holds it: one dict of leaves per layer."""
+    L = next(iter(params["blocks"].values())).shape[0]
+    return dict(params, blocks=[{k: (w[l].clone() if clone else w[l])
+                                 for k, w in params["blocks"].items()} for l in range(L)])
+
+
+def train_remat_check(torch, np, model="llama3-8b", dev="cuda"):
+    """(c) ``model`` at full width, 2 layers, float32: the gradient of
+    every leaf with remat equals the plain gradient within REMAT_REL."""
+    from rbg_tpu_torch.models.config import get_config
+    from rbg_tpu_torch.models.llama import init_params
+    from rbg_tpu_torch.models.training import next_token_loss, param_leaves
+
+    cfg = get_config(model, num_layers=2, dtype="float32")
+    tokens = batch(torch, np, cfg, 12, dev)
+    tree = per_layer(init_params(cfg, 0, dev))
+    leaves = param_leaves(tree)
+    for t in leaves:
+        t.requires_grad_()
+    grads = []
+    for remat in (False, True):
+        next_token_loss(tree, cfg, tokens, remat=remat).backward()
+        grads.append([t.grad for t in leaves])
+        for t in leaves:
+            t.grad = None
+    err = max(rel_err(b, a) for a, b in zip(*grads))
+    emit("train", case="remat_grads", model=model, layers=2, dtype="float32",
+         tokens=TRAIN_T, max_rel_err=err, tolerance=REMAT_REL)
+    if err > REMAT_REL:
+        raise AssertionError(f"remat gradients differ from plain ones: {err}")
+
+
+def backward_reading(torch, cfg, tree, leaves, tokens, dev):
+    """One forward and backward (remat): (forward ms, backward ms, peak
+    bytes)."""
+    from rbg_tpu_torch.models.training import next_token_loss
+
+    for t in leaves:
+        t.grad = None
+    sync(torch, dev)
+    peak_reset(torch, dev)
+    clock = Clock(torch, dev)
+    clock.mark()
+    loss = next_token_loss(tree, cfg, tokens, remat=True)
+    clock.mark()
+    loss.backward()
+    clock.mark()
+    return clock.ms(0, 1), clock.ms(1, 2), peak_bytes(torch, dev)
+
+
+def train_layout(torch, np, model="llama3-8b", dev="cuda", layers=LAYOUT_LAYERS):
+    """The trainer's leaves at ``model``'s width and ``layers`` layers
+    (its dtype, remat, one [1, TRAIN_T] batch, no optimizer): stacked
+    [L, ...] leaves read per layer against one leaf per layer and weight;
+    the backward's time and the peak of each (the second of two passes).
+    A reading, not a check."""
+    from rbg_tpu_torch.models.config import get_config
+    from rbg_tpu_torch.models.llama import init_params
+    from rbg_tpu_torch.models.training import param_leaves
+
+    cfg = get_config(model, num_layers=layers)
+    tokens = batch(torch, np, cfg, 13, dev)
+    rows = {}
+    for layout in ("stacked", "per_layer"):
+        # Each layout alone on the card: the per-layer tree is drawn anew
+        # and the stacked tensors it came from are dropped.
+        tree = (init_params(cfg, 0, dev) if layout == "stacked"
+                else per_layer(init_params(cfg, 0, dev), clone=True))
+        free(torch, dev)
+        leaves = ([v for k, v in tree.items() if k != "blocks"]
+                  + list(tree["blocks"].values()) if layout == "stacked"
+                  else param_leaves(tree))
+        for t in leaves:
+            t.requires_grad_()
+        backward_reading(torch, cfg, tree, leaves, tokens, dev)
+        fwd, bwd, peak = backward_reading(torch, cfg, tree, leaves, tokens, dev)
+        rows[layout] = {"forward_ms": fwd, "backward_ms": bwd, "peak_bytes": peak}
+        for t in leaves:
+            t.grad = None
+            t.requires_grad_(False)
+        del tree, leaves
+        free(torch, dev)
+    emit("train", case="leaf_layout", model=model, layers=layers, tokens=TRAIN_T, **rows)
+
+
+def train_llama(torch, np, card, model="llama3-8b", dev="cuda"):
+    """(b) ``model`` at full width and depth, its dtype, random weights
+    from seed 0: TRAIN_STEPS make_train_step steps (learning rate
+    TRAIN_LR) with remat on one fixed [1, TRAIN_T] batch. The loss must be
+    finite and fall at every step. Step wall ms
+    (median of steps 2-5), tokens/s, model FLOPs/s as a share of the bf16
+    peak, peak memory; then one more step by hand, timed in its forward,
+    backward and optimizer. Returns (the trained per-layer params, the
+    first loss, the batch)."""
+    from rbg_tpu_torch.models.config import get_config
+    from rbg_tpu_torch.models.llama import init_params
+    from rbg_tpu_torch.models.training import make_train_step, next_token_loss, param_leaves
+
+    cfg = get_config(model)
+    tokens = batch(torch, np, cfg, 14, dev)
+    init_fn, step = make_train_step(cfg, learning_rate=TRAIN_LR, remat=True, device=dev)
+    params, opt = init_fn(init_params(cfg, 0, dev))   # only the trainer's copy stays
+    free(torch, dev)
+    peak_reset(torch, dev)
+    losses, wall = [], []
+    for _ in range(TRAIN_STEPS):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, tokens)
+        losses.append(float(loss))              # waits for the step
+        wall.append((time.perf_counter() - t0) * 1e3)
+    peak = peak_bytes(torch, dev)
+    clock = Clock(torch, dev)
+    opt.zero_grad(set_to_none=True)
+    clock.mark()
+    extra = next_token_loss(params, cfg, tokens, remat=True)
+    clock.mark()
+    extra.backward()
+    clock.mark()
+    opt.step()
+    clock.mark()
+    step_ms = statistics.median(wall[1:])
+    model_flops, remat_flops = train_flops(cfg, TRAIN_T)
+    emit("train", case="full_depth", model=model, card=card, layers=cfg.num_layers,
+         dtype=cfg.dtype, tokens=TRAIN_T, remat=True, learning_rate=TRAIN_LR,
+         losses=losses, step_wall_ms=wall,
+         step_ms_median_2_5=step_ms, tokens_per_s=TRAIN_T / step_ms * 1e3,
+         model_flops_per_step=model_flops, remat_flops_per_step=remat_flops,
+         model_flops_share_of_989tf=model_flops / (step_ms * 1e-3) / BF16_FLOPS,
+         peak_bytes=peak, step6_ms={"forward": clock.ms(0, 1), "backward": clock.ms(1, 2),
+                                    "optimizer": clock.ms(2, 3)},
+         step6_loss=float(extra.detach()))
+    if not all(np.isfinite(losses)) or not all(b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"{model} training: losses {losses}")
+    del opt, extra
+    for t in param_leaves(params):
+        t.grad = None
+        t.requires_grad_(False)
+    free(torch, dev)
+    return params, losses[0], tokens
+
+
+def train_mesh(torch, np, first_loss, tokens, model="llama3-8b", dev="cuda"):
+    """(d) parallel.make_mesh() at world size 1 (nccl on the card) and one
+    step of make_train_step over it, from (b)'s seed-0 weights and batch:
+    its loss is (b)'s first."""
+    import torch.distributed as dist
+
+    from rbg_tpu_torch.models.config import get_config
+    from rbg_tpu_torch.models.llama import init_params
+    from rbg_tpu_torch.models.training import make_train_step
+    from rbg_tpu_torch.parallel import make_mesh
+
+    cfg = get_config(model)
+    mesh = make_mesh(device=dev)
+    try:
+        init_fn, step = make_train_step(cfg, mesh, learning_rate=TRAIN_LR, remat=True)
+        params, opt = init_fn(init_params(cfg, 0, dev))
+        free(torch, dev)
+        _, _, loss = step(params, opt, tokens)
+        loss = float(loss)
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    rel = abs(loss - first_loss) / abs(first_loss)
+    emit("train", case="mesh_world_1", backend=backend, mesh=str(mesh), loss=loss,
+         unsharded_first_loss=first_loss, rel_err=rel)
+    del params, opt
+    free(torch, dev)
+    if rel > 1e-6:
+        raise AssertionError(f"a step through the world-1 mesh: {loss} vs {first_loss}")
+
+
+def host_available():
+    """MemAvailable of /proc/meminfo in bytes (None where it is absent)."""
+    try:
+        with open("/proc/meminfo") as f:
+            for ln in f:
+                if ln.startswith("MemAvailable:"):
+                    return int(ln.split()[1]) * 1024
+    except OSError:
+        pass
+    return None
+
+
+def checkpoint_dir(nbytes):
+    """A scratch directory with room for ``nbytes`` and a margin: the temp
+    directory, else beside this script. Returns (path, which)."""
+    import shutil
+
+    for where, root in (("tmpdir", tempfile.gettempdir()),
+                        ("checkout", str(Path(__file__).resolve().parent))):
+        if shutil.disk_usage(root).free > 1.2 * nbytes:
+            return tempfile.mkdtemp(prefix="rbg-ckpt-", dir=root), where
+    raise AssertionError(f"no directory has room for a {nbytes}-byte checkpoint")
+
+
+def checkpoint_llama(torch, np, card, params, model="llama3-8b", dev="cuda"):
+    """save_checkpoint of (b)'s trained params, then Engine(EngineConfig(
+    model=..., checkpoint_path=...)): greedy tokens equal to an engine on
+    the trained params in memory, through kernels A and B on the card;
+    write and read GB/s (the read is the engine's construction, with the
+    file fresh in the host's page cache). Returns the launches of the
+    loaded engine's path."""
+    import shutil
+
+    from rbg_tpu_torch.engine.config import EngineConfig, SamplingParams
+    from rbg_tpu_torch.engine.engine import Engine
+    from rbg_tpu_torch.models.checkpoint import save_checkpoint
+    from rbg_tpu_torch.models.training import param_leaves, stack_params
+    from rbg_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    nbytes = sum(t.numel() * t.element_size() for t in param_leaves(params))
+    host = {"available_before": host_available()}
+    if host["available_before"] is not None and host["available_before"] < 1.5 * nbytes:
+        raise AssertionError(f"the host has {host['available_before']} bytes free for a "
+                             f"{nbytes}-byte checkpoint")
+    d, where = checkpoint_dir(nbytes)
+    try:
+        t0 = time.perf_counter()
+        written = save_checkpoint(d, params)
+        write_s = time.perf_counter() - t0
+        host["available_after_write"] = host_available()
+        stacked = stack_params(params)
+        params.clear()
+        free(torch, dev)
+        kw = dict(model=model, num_pages=512, max_seq_len=1024, device=dev)
+        rng = np.random.RandomState(15)
+        V = stacked["embed"].shape[0]
+        prompts = [rng.randint(0, V, n).tolist() for n in (300, 77)]
+        sp = SamplingParams(max_new_tokens=16)
+        want = Engine(EngineConfig(**kw), params=stacked).generate(prompts, sp)
+        del stacked
+        free(torch, dev)
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        eng = Engine(EngineConfig(**kw, checkpoint_path=d))
+        sync(torch, dev)
+        read_s = time.perf_counter() - t0
+        reset_launches()
+        got = eng.generate(prompts, sp)
+        sync(torch, dev)
+        launches = {k: LAUNCHES[k] for k in LLAMA_KERNELS}
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    emit("checkpoint", case="native", model=model, card=card, dir=where, host_bytes=host,
+         bytes=written,
+         write_s=write_s, write_gb_per_s=written / write_s / 1e9, read_s=read_s,
+         read_gb_per_s=written / read_s / 1e9, tokens=got, equal_to_in_memory=got == want,
+         launches=launches)
+    if torch.device(dev).type == "cuda":
+        check_launches(launches, LLAMA_KERNELS)
+    if got != want:
+        raise AssertionError(f"engine from the checkpoint: {got} vs in memory {want}")
+    del eng
+    free(torch, dev)
+    return launches
+
+
+def hf_dir(torch, d, model="qwen2-0.5b", seed=16, dev="cuda"):
+    """An HF-layout directory of ``model``: bf16 weights from a seed, the
+    q/k/v biases, a tied head (no lm_head), one model.safetensors written
+    by the port's safetensors_io. Returns its bytes."""
+    from rbg_tpu_torch.models import safetensors_io
+    from rbg_tpu_torch.models.config import get_config
+
+    cfg = get_config(model)
+    D, F, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    hq, hk = cfg.num_heads * cfg.head_dim_, cfg.num_kv_heads * cfg.head_dim_
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def w(*shape, scale=0.02, base=0.0):
+        x = base + scale * torch.randn(shape, generator=g, device=dev)
+        return x.to(torch.bfloat16)
+
+    sd = {"model.embed_tokens.weight": w(V, D), "model.norm.weight": w(D, base=1.0)}
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        sd.update({p + "input_layernorm.weight": w(D, base=1.0),
+                   p + "post_attention_layernorm.weight": w(D, base=1.0),
+                   p + "self_attn.q_proj.weight": w(hq, D),
+                   p + "self_attn.k_proj.weight": w(hk, D),
+                   p + "self_attn.v_proj.weight": w(hk, D),
+                   p + "self_attn.o_proj.weight": w(D, hq),
+                   p + "self_attn.q_proj.bias": w(hq, scale=0.5),
+                   p + "self_attn.k_proj.bias": w(hk, scale=0.5),
+                   p + "self_attn.v_proj.bias": w(hk, scale=0.5),
+                   p + "mlp.gate_proj.weight": w(F, D),
+                   p + "mlp.up_proj.weight": w(F, D),
+                   p + "mlp.down_proj.weight": w(D, F)})
+    return safetensors_io.save_file(sd, os.path.join(d, "model.safetensors"))
+
+
+def checkpoint_hf_server(torch, np, card, model="qwen2-0.5b", dev="cuda", extra=()):
+    """The HF directory served by ``python -m rbg_tpu_torch.engine.server
+    --model qwen2-0.5b --checkpoint-path DIR`` as a process (on the card):
+    two requests' greedy tokens equal an in-process engine's on the same
+    directory and flags."""
+    import shutil
+
+    from rbg_tpu_torch.engine.config import SamplingParams
+    from rbg_tpu_torch.engine.engine import Engine
+    from rbg_tpu_torch.engine.protocol import request_obj
+    from rbg_tpu_torch.engine.server import build_config, parse_args
+
+    d = tempfile.mkdtemp(prefix="rbg-hf-")
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    try:
+        nbytes = hf_dir(torch, d, model, dev=dev)
+        args = ["--model", model, "--checkpoint-path", d, *extra]
+        rng = np.random.RandomState(17)
+        V = build_config(parse_args(args)).model_config.vocab_size
+        prompts = [rng.randint(0, V, n).tolist() for n in (40, 129)]
+        with tempfile.TemporaryFile() as log:
+            proc, addr = _spawn_server(args, root, {**os.environ, "PYTHONPATH": str(root)},
+                                       log)
+            try:
+                ready_s = _wait_healthy([proc], [addr], log, timeout=300)
+                replies = [request_obj(addr, {"op": "generate", "prompt": p,
+                                              "max_new_tokens": 16}, timeout=300)
+                           for p in prompts]
+            finally:
+                proc.terminate()
+                try:
+                    proc.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+        eng = Engine(build_config(parse_args(args)))
+        if "bq" not in eng.params["blocks"]:
+            raise AssertionError("the directory's q/k/v biases were not loaded")
+        sp = SamplingParams(max_new_tokens=16)
+        want = [eng.generate([p], sp)[0] for p in prompts]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    got = [r.get("tokens") for r in replies]
+    emit("checkpoint", case="hf_server", model=model, card=card, bytes=nbytes,
+         ready_s=ready_s, seconds=time.perf_counter() - t0, tokens=got,
+         equal_to_in_process=got == want)
+    if got != want:
+        raise AssertionError(f"{model} server from the HF directory: {replies} vs {want}")
+    del eng
+    free(torch, dev)
+
+
+def train_checkpoint_phases(torch, np, card, model="llama3-8b", hf_model="qwen2-0.5b",
+                            dev="cuda"):
+    """The ``train`` and ``checkpoint`` phases, run before any serving
+    phase holds weights on the card or host memory: the 16 GB checkpoint
+    file may live in the machine's memory (a memory-backed root
+    filesystem), so it is written while the host holds least. Returns the
+    launches of kernels A and B on the checkpoint's serving path.
+    ``model="tiny", hf_model="tiny", dev="cpu"`` rehearses them on the
+    CPU."""
+    t0 = time.perf_counter()
+    train_tiny(torch, np, dev)
+    train_remat_check(torch, np, model, dev)
+    free(torch, dev)
+    train_layout(torch, np, model, dev)
+    params, first_loss, tokens = train_llama(torch, np, card, model, dev)
+    launches = checkpoint_llama(torch, np, card, params, model, dev)
+    del params
+    free(torch, dev)
+    train_mesh(torch, np, first_loss, tokens, model, dev)
+    checkpoint_hf_server(torch, np, card, hf_model, dev,
+                         extra=("--device", "cpu") if dev == "cpu" else ())
+    emit("train_checkpoint", seconds=time.perf_counter() - t0)
+    return launches
+
+
 def bench_slo_phase(card):
     """bench_slo --setups unified,pd at llama3-8b (BENCH_SLO_ARGS): a
     spawned server on the card, then a spawned PD group (kv pool, prefill
@@ -3125,7 +3629,12 @@ def main():
 
     kern = kernels_phase(torch, np)
     tiny_phase(torch, np)
+    checkpoint_launches = train_checkpoint_phases(torch, np, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     launches, pd_ref = llama_phases(torch, np, card)
+    for k, n in checkpoint_launches.items():
+        launches[k] += n
     gc.collect()
     torch.cuda.empty_cache()
     pd_process_phase(torch, np, card, ref=pd_ref)

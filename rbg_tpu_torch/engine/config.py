@@ -76,6 +76,7 @@ class EngineConfig:
     grammar_table: str = "auto"             # auto | off
     grammar_state_budget: int = 512
     vocab_size: int = 0                     # override preset vocab (0 = keep)
+    checkpoint_path: str = ""               # native or local HF dir (else random)
     seed: int = 0
     device: Optional[str] = None            # None = cuda (raises without a card)
 

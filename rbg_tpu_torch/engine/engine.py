@@ -123,7 +123,14 @@ class Engine:
         self.cfg = cfg
         self.mcfg = cfg.model_config
         self.device = resolve_device(device if device is not None else cfg.device)
-        if params is None:
+        if params is None and cfg.checkpoint_path:
+            from rbg_tpu_torch.models.checkpoint import load_params
+            params = load_params(cfg.checkpoint_path, self.mcfg, device=self.device)
+            if params["embed"].dtype != self.mcfg.torch_dtype:
+                raise TypeError(f"checkpoint {cfg.checkpoint_path} holds "
+                                f"{params['embed'].dtype} weights; {self.mcfg.name} "
+                                f"serves {self.mcfg.torch_dtype}")
+        elif params is None:
             params = init_params(self.mcfg, cfg.seed, self.device)
         elif params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, the "

@@ -684,7 +684,8 @@ def build_config(args) -> EngineConfig:
         grammar_table=args.grammar_table,
         grammar_state_budget=args.grammar_state_budget,
         host_tier_bytes=args.host_tier_bytes,
-        vocab_size=args.vocab_size, seed=args.seed, device=args.device)
+        vocab_size=args.vocab_size, checkpoint_path=args.checkpoint_path,
+        seed=args.seed, device=args.device)
 
 
 def load_adapter_npz(path: str):
@@ -847,6 +848,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--vocab-size", type=int, default=0,
                     help="override the preset's vocab size (0 = keep; 259 "
                          "or more serves the byte tokenizer's ids)")
+    ap.add_argument("--checkpoint-path",
+                    default=os.environ.get("RBG_CHECKPOINT_PATH", ""),
+                    help="native checkpoint dir or local HF dir (else random "
+                         "weights from --seed)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights")
     ap.add_argument("--tokenizer-path",

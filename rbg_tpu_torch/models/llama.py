@@ -11,7 +11,8 @@ reference's ``lax.scan`` over layers is a Python loop here, and the
 PLACE, one layer view ``k_pages[l]`` at a time. An MLA model's pools are
 latent: the latent ``c`` goes to the "k" pool as one head, the RoPE key to
 the "v" pool. ``encode_hidden`` is the cache-free causal forward of the
-embeddings path.
+embeddings path, and ``forward_train`` the same body with autograd (no
+``torch.no_grad``), remat and the parallel plane of ``parallel/``.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from rbg_tpu_torch.models.config import ModelConfig
 from rbg_tpu_torch.ops.attention import gqa_attention
@@ -128,7 +130,13 @@ def init_params(cfg: ModelConfig, seed: int, device) -> dict:
 
 
 def layer_params(params: dict, l: int) -> dict:
-    return {k: w[l] for k, w in params["blocks"].items()}
+    """Layer ``l``'s weights: a view of each stacked ``[L, ...]`` tensor, or
+    the trainer's own dict when ``params["blocks"]`` is a list of per-layer
+    dicts (``models/training.py`` keeps one leaf per layer and weight)."""
+    blocks = params["blocks"]
+    if isinstance(blocks, (list, tuple)):
+        return blocks[l]
+    return {k: w[l] for k, w in blocks.items()}
 
 
 def lora_delta(x: torch.Tensor, A: torch.Tensor, B_: torch.Tensor,
@@ -151,70 +159,99 @@ def _lora_proj(xa: torch.Tensor, w: torch.Tensor, name: str,
 
 
 def _qkv(cfg: ModelConfig, blk: dict, x: torch.Tensor, positions: torch.Tensor,
-         lora: Optional[dict] = None, lora_ids: Optional[torch.Tensor] = None):
-    """norm → projections (+ LoRA) → RoPE. x [B, T, D] → q [B,T,H,hd],
-    k/v [B,T,KV,hd]."""
+         lora: Optional[dict] = None, lora_ids: Optional[torch.Tensor] = None,
+         par=None):
+    """norm → projections (+ LoRA, + the Qwen2 attention biases when the
+    tree has them) → RoPE. x [B, T, D] → q [B,T,H,hd], k/v [B,T,KV,hd];
+    under tensor parallelism (``par``, ``parallel/sharding.py``) the
+    rank's own heads, read off the weights' widths."""
     B, T, _ = x.shape
-    hd, h, kv = cfg.head_dim_, cfg.num_heads, cfg.num_kv_heads
+    hd = cfg.head_dim_
     xa = rms_norm(x, blk["attn_norm"], cfg.rms_norm_eps)
-    q = _lora_proj(xa, blk["wq"], "wq", lora, lora_ids).reshape(B, T, h, hd)
-    k = _lora_proj(xa, blk["wk"], "wk", lora, lora_ids).reshape(B, T, kv, hd)
-    v = _lora_proj(xa, blk["wv"], "wv", lora, lora_ids).reshape(B, T, kv, hd)
+    if par is not None:
+        xa = par.copy_tp(xa)
+    q = _lora_proj(xa, blk["wq"], "wq", lora, lora_ids)
+    k = _lora_proj(xa, blk["wk"], "wk", lora, lora_ids)
+    v = _lora_proj(xa, blk["wv"], "wv", lora, lora_ids)
+    if "bq" in blk:
+        q = q + blk["bq"]
+        k = k + blk["bk"]
+        v = v + blk["bv"]
+    q, k, v = (t.reshape(B, T, -1, hd) for t in (q, k, v))
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta), v)
 
 
 def _mla_qkv(cfg: ModelConfig, blk: dict, x: torch.Tensor,
              positions: torch.Tensor, lora: Optional[dict] = None,
-             lora_ids: Optional[torch.Tensor] = None):
+             lora_ids: Optional[torch.Tensor] = None, par=None):
     """MLA pre-attention math in the absorbed form: norm → q projection
     (split nope/rope, W_uk absorbed into q) → latent down-projection
     (+ kv norm) and the shared RoPE key. LoRA applies to wq and w_dkv; the
     absorbed w_uk / w_uv are no targets. Returns (q_lat [B,T,H,dc],
-    q_pe [B,T,H,dr], c [B,T,dc], k_pe [B,T,dr])."""
+    q_pe [B,T,H,dr], c [B,T,dc], k_pe [B,T,dr]); under tensor parallelism
+    the rank's own heads, beside the replicated latent."""
     B, T, _ = x.shape
-    h = cfg.num_heads
     dc, dn, dr = cfg.kv_lora_rank, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     xa = rms_norm(x, blk["attn_norm"], cfg.rms_norm_eps)
-    q = _lora_proj(xa, blk["wq"], "wq", lora, lora_ids).reshape(B, T, h, dn + dr)
+    xq = xa if par is None else par.copy_tp(xa)
+    q = _lora_proj(xq, blk["wq"], "wq", lora, lora_ids).reshape(B, T, -1, dn + dr)
     q_pe = apply_rope(q[..., dn:], positions, cfg.rope_theta)
     # Absorb: q_lat·c == q_nope·(c @ W_uk); per-head K never materialises.
     q_lat = torch.einsum("bthn,chn->bthc", q[..., :dn],
-                         blk["w_uk"].reshape(dc, h, dn)).contiguous()
+                         blk["w_uk"].reshape(dc, -1, dn)).contiguous()
     kv = _lora_proj(xa, blk["w_dkv"], "w_dkv", lora, lora_ids)  # [B, T, dc + dr]
     c = rms_norm(kv[..., :dc], blk["kv_norm"], cfg.rms_norm_eps)
     # RoPE on a singleton head axis, as the reference does.
     k_pe = apply_rope(kv[..., None, dc:], positions, cfg.rope_theta)[:, :, 0]
+    if par is not None:
+        # The latent is replicated; each rank's heads read it.
+        c, k_pe = par.copy_tp(c), par.copy_tp(k_pe)
     return q_lat, q_pe, c, k_pe
 
 
 def _mla_out(cfg: ModelConfig, blk: dict, attn_lat: torch.Tensor) -> torch.Tensor:
     """Latent attention output [B,T,H,dc] → per-head values [B,T,H,dv]
     through W_uv."""
-    dc, h, dv = cfg.kv_lora_rank, cfg.num_heads, cfg.v_head_dim
-    return torch.einsum("bthc,chv->bthv", attn_lat, blk["w_uv"].reshape(dc, h, dv))
+    dc, dv = cfg.kv_lora_rank, cfg.v_head_dim
+    return torch.einsum("bthc,chv->bthv", attn_lat, blk["w_uv"].reshape(dc, -1, dv))
 
 
 def _mla_scale(cfg: ModelConfig) -> float:
     return (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
 
 
-def _mlp(cfg: ModelConfig, blk: dict, xm: torch.Tensor,
-         lora: Optional[dict] = None,
-         lora_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-    if cfg.num_experts:
-        return _moe_mlp(cfg, blk, xm)       # LoRA targets dense layers only
+def _swiglu(blk: dict, xm: torch.Tensor, lora: Optional[dict],
+            lora_ids: Optional[torch.Tensor], par) -> torch.Tensor:
+    """The dense SwiGLU MLP (a MoE model's shared expert too); under tensor
+    parallelism the rank's columns of w_gate / w_up and rows of w_down,
+    summed over tp."""
+    if par is not None:
+        xm = par.copy_tp(xm)
     gate = F.silu(_lora_proj(xm, blk["w_gate"], "w_gate", lora, lora_ids))
     up = _lora_proj(xm, blk["w_up"], "w_up", lora, lora_ids)
-    return _lora_proj(gate * up, blk["w_down"], "w_down", lora, lora_ids)
+    out = _lora_proj(gate * up, blk["w_down"], "w_down", lora, lora_ids)
+    return out if par is None else par.reduce_tp(out)
 
 
-def _moe_mlp(cfg: ModelConfig, blk: dict, xm: torch.Tensor) -> torch.Tensor:
+def _mlp(cfg: ModelConfig, blk: dict, xm: torch.Tensor,
+         lora: Optional[dict] = None,
+         lora_ids: Optional[torch.Tensor] = None, par=None) -> torch.Tensor:
+    if cfg.num_experts:
+        return _moe_mlp(cfg, blk, xm, par)  # LoRA targets dense layers only
+    return _swiglu(blk, xm, lora, lora_ids, par)
+
+
+def _moe_mlp(cfg: ModelConfig, blk: dict, xm: torch.Tensor,
+             par=None) -> torch.Tensor:
     """Top-k MoE in the reference's dense-dispatch form: every expert runs
     and is combined with its (mostly zero) routing weight. An expert is
     kept when its probability is >= the k-th largest, so ties may keep
     more than k, as in the reference. The combine is one
-    [B·T, E·F] @ [E·F, D] product, never a [B, T, E, F, D] tensor."""
+    [B·T, E·F] @ [E·F, D] product, never a [B, T, E, F, D] tensor. Under
+    expert (and tensor) parallelism the router stays replicated, each rank
+    runs its own experts (and columns) over every token, and the combine
+    is summed over ep and tp."""
     B, T, D = xm.shape
     E, K = cfg.num_experts, cfg.experts_per_token
     probs = torch.softmax((xm @ blk["router"]).float(), dim=-1)      # [B, T, E]
@@ -223,31 +260,53 @@ def _moe_mlp(cfg: ModelConfig, blk: dict, xm: torch.Tensor) -> torch.Tensor:
     weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
     weights = weights.to(xm.dtype).reshape(B * T, E)
     x2 = xm.reshape(B * T, D)
+    if par is not None:
+        e0, n = par.experts(blk["moe_gate"].shape[0])
+        weights = par.copy_moe(weights)[:, e0:e0 + n]
+        x2 = par.copy_moe(x2)
     h = F.silu(torch.matmul(x2, blk["moe_gate"])) * torch.matmul(x2, blk["moe_up"])
     hw = (weights.T[:, :, None] * h).transpose(0, 1).reshape(B * T, -1)  # [BT, E·F]
-    out = (hw @ blk["moe_down"].reshape(-1, D)).reshape(B, T, D)
+    out = hw @ blk["moe_down"].reshape(-1, D)
+    if par is not None:
+        out = par.reduce_moe(out)
+    out = out.reshape(B, T, D)
     if cfg.moe_shared_expert:
-        out = out + (F.silu(xm @ blk["w_gate"]) * (xm @ blk["w_up"])) @ blk["w_down"]
+        out = out + _swiglu(blk, xm, None, None, par)
     return out
 
 
 def _post_attention(cfg: ModelConfig, blk: dict, x: torch.Tensor,
                     attn: torch.Tensor, lora: Optional[dict] = None,
-                    lora_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    lora_ids: Optional[torch.Tensor] = None,
+                    par=None) -> torch.Tensor:
     """residual → norm → MLP (or MoE) → residual."""
     B, T, _ = x.shape
-    x = x + _lora_proj(attn.reshape(B, T, -1), blk["wo"], "wo", lora, lora_ids)
+    o = _lora_proj(attn.reshape(B, T, -1), blk["wo"], "wo", lora, lora_ids)
+    x = x + (o if par is None else par.reduce_tp(o))
     return x + _mlp(cfg, blk, rms_norm(x, blk["mlp_norm"], cfg.rms_norm_eps),
-                    lora, lora_ids)
+                    lora, lora_ids, par)
 
 
-def _head(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """final norm + (tied) LM head, float32 logits."""
+def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+           par=None) -> torch.Tensor:
+    """Token embeddings in cfg's dtype; under tensor parallelism the
+    vocab-parallel lookup."""
+    if par is not None:
+        return par.embed(params["embed"], tokens).to(cfg.torch_dtype)
+    return params["embed"][tokens.long()].to(cfg.torch_dtype)
+
+
+def _head(params: dict, cfg: ModelConfig, x: torch.Tensor,
+          par=None) -> torch.Tensor:
+    """final norm + (tied) LM head, float32 logits; under tensor
+    parallelism the rank's vocab columns, gathered over tp."""
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T
-    return (x @ head.to(cfg.torch_dtype)).float()
+    if par is None:
+        return (x @ head.to(cfg.torch_dtype)).float()
+    return par.gather_vocab((par.copy_tp(x) @ head.to(cfg.torch_dtype)).float())
 
 
 def _layer_view(pool: Optional[torch.Tensor], l: int) -> Optional[torch.Tensor]:
@@ -325,7 +384,7 @@ def forward_paged(
     attention at position -1, so they attend nothing; RoPE and the writes
     keep the given positions. Writes this step's K/V into the pools in
     place; returns logits [B, T, V] f32."""
-    x = params["embed"][tokens.long()].to(cfg.torch_dtype)
+    x = _embed(params, cfg, tokens)
     apos = _attention_positions(tokens, positions, token_mask)
     for l in range(cfg.num_layers):
         x = _paged_layer(params, cfg, l, x, positions, apos, token_mask,
@@ -392,7 +451,7 @@ def forward_ragged(
     steps in one dispatch (on CUDA: kernel B, D for int8 pools, F for
     MLA). Writes K/V into the pools in place; returns logits [1, T, V]
     f32."""
-    x = params["embed"][tokens.long()].to(cfg.torch_dtype)
+    x = _embed(params, cfg, tokens)
     for l in range(cfg.num_layers):
         blk = layer_params(params, l)
         ks, vs = _layer_view(k_scales, l), _layer_view(v_scales, l)
@@ -418,29 +477,102 @@ def forward_ragged(
     return _head(params, cfg, x)
 
 
+def seq_range(mesh, T: int) -> Tuple[int, int]:
+    """The positions ``[lo, hi)`` of a ``[B, T]`` sequence whose hidden
+    states this rank computes: its own ``T / sp`` shard when the mesh's
+    ``sp`` axis is > 1 and divides T (ring attention), else all of them."""
+    if mesh is None:
+        return 0, T
+    from rbg_tpu_torch.parallel.mesh import axis_rank, axis_size
+    sp = axis_size(mesh, "sp")
+    if sp == 1 or T % sp:
+        return 0, T
+    s = axis_rank(mesh, "sp")
+    return s * (T // sp), (s + 1) * (T // sp)
+
+
+def _train_block(cfg: ModelConfig, blk: dict, h: torch.Tensor,
+                 positions: torch.Tensor, token_mask: torch.Tensor,
+                 par=None) -> torch.Tensor:
+    """One cache-free causal block: attention over the current tokens only
+    (``gqa_attention``, or ``mla_attention`` on the latents), then the
+    MLP. Writes nothing in place, so autograd runs through it."""
+    if cfg.mla:
+        q_lat, q_pe, c, k_pe = _mla_qkv(cfg, blk, h, positions, par=par)
+        attn = _mla_out(cfg, blk, mla_attention(
+            q_lat, q_pe, c, k_pe, positions, token_mask, _mla_scale(cfg)))
+    else:
+        q, k, v = _qkv(cfg, blk, h, positions, par=par)
+        attn = gqa_attention(q, k, v, positions, token_mask)
+    return _post_attention(cfg, blk, h, attn, par=par)
+
+
 def _encode_core(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                 token_mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """The reference's cache-free causal body with its final norm: embed,
-    every block attending over the current tokens only (``gqa_attention``,
-    or ``mla_attention`` on the latents for an MLA model), final norm.
-    Returns hidden states [B, T, D]."""
+                 token_mask: Optional[torch.Tensor], mesh=None,
+                 remat: bool = False, final_norm: bool = True) -> torch.Tensor:
+    """The reference's cache-free causal body, shared by training and the
+    embeddings path: embed, every block attending over the current tokens
+    only (``_train_block``), and the final norm unless ``final_norm`` is
+    False (``forward_train`` feeds ``_head``, which norms). ``remat``
+    recomputes each block's activations in the backward
+    (``torch.utils.checkpoint``). With a ``DeviceMesh`` (``parallel/``)
+    the params are this rank's shards: tp and ep run the Megatron
+    collectives, and an ``sp`` axis > 1 that divides T runs ring attention
+    over this rank's positions ``seq_range(mesh, T)``, pad K/V slots at
+    position 1 << 30 so no query sees them. Returns hidden states
+    [B, hi - lo, D]."""
     B, T = tokens.shape
     dev = tokens.device
     if token_mask is None:
         token_mask = torch.ones((B, T), dtype=torch.bool, device=dev)
     positions = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(B, T)
-    x = params["embed"][tokens.long()].to(cfg.torch_dtype)
+    par = None
+    if mesh is not None:
+        from rbg_tpu_torch.parallel.sharding import ModelParallel
+        par = ModelParallel.of(mesh)
+    lo, hi = seq_range(mesh, T)
+    if hi - lo < T:
+        if cfg.mla:
+            raise NotImplementedError("ring attention covers GQA models; an "
+                                      "MLA model trains with sp = 1")
+        from rbg_tpu_torch.parallel.ring import ring_attention
+        kv_positions = torch.where(token_mask, positions,
+                                   torch.full_like(positions, 1 << 30))[:, lo:hi]
+
+        def body(h, blk):
+            q, k, v = _qkv(cfg, blk, h, positions[:, lo:hi], par=par)
+            attn = ring_attention(q, k, v, positions[:, lo:hi], kv_positions, mesh)
+            return _post_attention(cfg, blk, h, attn, par=par)
+    else:
+        def body(h, blk):
+            return _train_block(cfg, blk, h, positions, token_mask, par)
+
+    x = _embed(params, cfg, tokens[:, lo:hi], par)
     for l in range(cfg.num_layers):
         blk = layer_params(params, l)
-        if cfg.mla:
-            q_lat, q_pe, c, k_pe = _mla_qkv(cfg, blk, x, positions)
-            attn = _mla_out(cfg, blk, mla_attention(
-                q_lat, q_pe, c, k_pe, positions, token_mask, _mla_scale(cfg)))
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(body, x, blk, use_reentrant=False)
         else:
-            q, k, v = _qkv(cfg, blk, x, positions)
-            attn = gqa_attention(q, k, v, positions, token_mask)
-        x = _post_attention(cfg, blk, x, attn)
-    return rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+            x = body(x, blk)
+    if final_norm:
+        x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    return x
+
+
+def forward_train(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                  token_mask: Optional[torch.Tensor] = None, mesh=None,
+                  remat: bool = False) -> torch.Tensor:
+    """Cache-free causal forward for training, with autograd: ``tokens``
+    [B, T] int, ``token_mask`` [B, T] bool (real tokens). Returns logits
+    [B, T, V] float32 (with an sp mesh: this rank's positions
+    ``seq_range(mesh, T)``). ``remat=True`` recomputes each block in the
+    backward, trading FLOPs for memory; ``mesh`` as in ``_encode_core``."""
+    par = None
+    if mesh is not None:
+        from rbg_tpu_torch.parallel.sharding import ModelParallel
+        par = ModelParallel.of(mesh)
+    return _head(params, cfg, _encode_core(params, cfg, tokens, token_mask, mesh,
+                                           remat, final_norm=False), par)
 
 
 @torch.no_grad()
@@ -501,7 +633,7 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: KVCache
     length = torch.maximum(cache.length, filled)
     kv_valid = torch.arange(S, dtype=torch.int32, device=dev)[None] < length[:, None]
     write_pos = torch.where(token_mask, positions, S)
-    x = params["embed"][tokens.long()].to(cfg.torch_dtype)
+    x = _embed(params, cfg, tokens)
     for l in range(cfg.num_layers):
         x = _block(cfg, layer_params(params, l), x, cache.k[l], cache.v[l],
                    positions, write_pos, kv_valid)

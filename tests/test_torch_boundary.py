@@ -1,9 +1,9 @@
 """The port's package boundary, checked in fresh interpreters (this test
 process has JAX loaded by tests/conftest.py): importing every
 rbg_tpu_torch module and chip_smoke.py loads neither JAX nor any rbg_tpu
-module, and the entry points refuse to run without a card unless asked
-for the CPU (the router and the kv pool server, which run no model, start
-without one)."""
+module, and the entry points (the engine, the PD pairs, the train step
+and the mesh) refuse to run without a card unless asked for the CPU (the
+router and the kv pool server, which run no model, start without one)."""
 
 import os
 import subprocess
@@ -28,7 +28,11 @@ assert {"rbg_tpu_torch.engine.grammar", "rbg_tpu_torch.engine.http_frontend",
         "rbg_tpu_torch.utils.locktrace", "rbg_tpu_torch.engine.pd",
         "rbg_tpu_torch.kvtransfer.chunks", "rbg_tpu_torch.kvtransfer.transport",
         "rbg_tpu_torch.kvtransfer.stream", "rbg_tpu_torch.kvtransfer.directory",
-        "rbg_tpu_torch.utils.tlsutil"} <= set(names)
+        "rbg_tpu_torch.utils.tlsutil", "rbg_tpu_torch.models.checkpoint",
+        "rbg_tpu_torch.models.training", "rbg_tpu_torch.models.safetensors_io",
+        "rbg_tpu_torch.parallel.mesh", "rbg_tpu_torch.parallel.sharding",
+        "rbg_tpu_torch.parallel.ring", "rbg_tpu_torch.parallel.pipeline",
+        "rbg_tpu_torch.engine.rendezvous_check"} <= set(names)
 assert not bad, bad
 print("ok", len(names))
 """
@@ -54,6 +58,18 @@ for cls in (PDPair, PDStreamPair):
     else:
         raise SystemExit(f"{cls.__name__}() ran without a card")
 PDPair(EngineConfig(), device="cpu")
+from rbg_tpu_torch.models.config import get_config
+from rbg_tpu_torch.models.training import make_train_step
+from rbg_tpu_torch.parallel import make_mesh
+for name, fn in (("make_train_step", lambda **kw: make_train_step(get_config("tiny"), **kw)),
+                 ("make_mesh", make_mesh)):
+    try:
+        fn()
+    except RuntimeError as e:
+        assert "no CUDA device" in str(e), e
+    else:
+        raise SystemExit(f"{name}() ran without a card")
+    fn(device="cpu")
 print("ok")
 """
 
