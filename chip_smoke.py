@@ -12,6 +12,8 @@ Phases, each printing one JSON line:
              bfloat16: A-D and I at llama3-8b and qwen2-0.5b shapes (C and D
              on int8 pools made by the port's quantize_kv; I on B's pack),
              E-H at deepseek-v2-lite (H=16) and deepseek-v3 (H=128) shapes
+             and at a tp 2 rank's (deepseek-v2-lite: H=8; llama3-8b: KV=4 for
+             A-D)
              (G and H on the same latent pools quantized): error, kernel
              time (ms: CUDA events, so whatever wrapper host time the L2
              flush does not hide counts), the kernel's own device time
@@ -170,7 +172,20 @@ Phases, each printing one JSON line:
    F at T > 1) and server, as for llama3-8b; then on the same weights over
    int8 latent pools (kernels G, H): engine (multi_step 4), int8 witnesses
    (H at T > 1) and server.
-10. ragged_ab — rbg_tpu_torch.bench.block_ragged_probe: kernel I against
+10. tp — tensor-parallel serving (Engine(mesh=...)) at tp 2: a gloo world
+   of two processes of this script (``--tp-rank``) on the one card, its
+   collectives staged through the host. tiny, tiny-moe (tp 2 and ep 2) and
+   tiny-mla (f32; A, B; E, F) with greedy tokens equal to the unsharded
+   engine's on the card; llama3-8b (A, B; int8 pools: C, D) and
+   deepseek-v2-lite (E, F; G, H) from the rank-local init, two requests
+   through a unified step and decode windows, each token judged against a
+   float32 forward (SPEC_LOGIT_BAND), the first step's logits against the
+   unsharded engine's (TP_FIRST_BAND; MoE: TP_MOE_SHARE, TP_MOE_STD_FRAC;
+   BF16_VS_CONTROL), each rank's split
+   weights and GQA pools half the unsharded engine's, every kernel
+   launched on the ranks; a decode step's wall and device ms per rank
+   against tp 1. A rank that fails or a phase past TP_TIMEOUT_S fails it.
+11. ragged_ab — rbg_tpu_torch.bench.block_ragged_probe: kernel I against
    kernel B on a prefill-heavy pack, both checked against the plain
    version, then interleaved timed reps; then each kernel's device ms on
    the probe's pack (the probe's calls/s read host time at its size).
@@ -178,7 +193,7 @@ Phases, each printing one JSON line:
 Then a line {"kernels": [...]} (launches counted over the phases that drive
 each kernel's path: the llama3-8b server, tier, router, pd and checkpoint
 phases for A and B, the int8 engine for C and D, the deepseek-v2-lite server for E and F, its int8 engine for G
-and H, the probe for I) and, last, {"ok": true, "device": {...}}. Any
+and H, the tp phase's ranks for A-H, the probe for I) and, last, {"ok": true, "device": {...}}. Any
 failure exits non-zero before the last line; without a CUDA device nothing
 runs.
 """
@@ -565,6 +580,12 @@ def gqa_kernel_cases(torch, np, flush, out):
                 recs[name]["page128"] = {k: rec[k] for k in PAGE128_KEYS}
         for name, rec in recs.items():
             out[name].append(rec)
+    # A tp 2 rank of llama3-8b: its 4 KV heads, G unchanged.
+    model, (KV, G, hd) = "llama3-8b tp 2 rank", (4, 4, 128)
+    for name, rec in {**decode_kernel_cases(torch, np, flush, model, KV, G, hd, DECODE_LENS),
+                      **ragged_kernel_cases(torch, np, flush, model, KV, G, hd,
+                                            ("ragged_paged", "ragged_paged_q"))}.items():
+        out[name].append(rec)
 
 
 def latent_pools(torch, NP, dc, dr, seed, page=16):
@@ -596,7 +617,8 @@ def mla_kernel_cases(torch, np, flush, out):
 
     dc, dr, dn = 512, 64, 128
     scale = (dn + dr) ** -0.5
-    for model, H in (("deepseek-v2-lite", 16), ("deepseek-v3", 128)):
+    for model, H in (("deepseek-v2-lite", 16), ("deepseek-v3", 128),
+                     ("deepseek-v2-lite tp 2 rank", 8)):
         # -- E: decode, B=8 --
         lens = DECODE_LENS
         B, P = len(lens), max(-(-n // 16) for n in lens)
@@ -1050,6 +1072,41 @@ def split_phase(torch, np, params, model, kernels, kv_dtype="model"):
 # is not the path's choice at its position (an unverified draft, a sample
 # taken at another position's key) lies ~4 logit std below the best.
 SPEC_LOGIT_BAND = 1.0
+# The tp phase's first step (a 64-token prefill chunk): tp 2 and the
+# unsharded engine are two bfloat16 paths (the ranks' partial sums meet in a
+# bfloat16 all-reduce), each within ~0.45 logit of float32 at llama3-8b (the
+# block witness), so within this band of each other at every logit of every
+# token of a dense model; and on the mean no farther from the float32
+# forward than BF16_VS_CONTROL x the unsharded engine is (every model). On a
+# MoE model a bfloat16 ulp can swap one expert of a token (see
+# MOE_F32_SHARE), which moves that token's logits by more than the band;
+# there at least TP_MOE_SHARE of the tokens stay within the band and every
+# token within TP_MOE_STD_FRAC x the float32 logits' std. deepseek-v2-lite
+# read 0.875-0.906 of 64 tokens within 1.0 and at most 1.77 logit, 1.95 x
+# the 0.905 std of its float32 logits in the compare phases (H100 80GB
+# HBM3, 700 W); a wrong head, page or reduce moves every token by the
+# order of the std.
+TP_FIRST_BAND = SPEC_LOGIT_BAND
+TP_MOE_SHARE, TP_MOE_STD_FRAC = 0.8, 2.5
+
+
+def f32_logits(torch, params, model, seq, kv_dtype="model", dev="cuda"):
+    """Logits [len(seq), V] of one float32 forward over ``seq`` (the weights
+    cast to float32 one layer at a time) on a pool of ``kv_dtype``."""
+    from rbg_tpu_torch.engine.kvcache import PagedKVCache
+    from rbg_tpu_torch.models.config import get_config
+    from rbg_tpu_torch.models.llama import forward_ragged
+
+    cfg = get_config(model, dtype="float32")
+    n = len(seq)
+    pages = -(-n // 16)
+    c = PagedKVCache.create(cfg, pages + 1, 16, device=dev, quantize=kv_dtype == "int8")
+    ints = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
+    pos = ints([list(range(n))])
+    return forward_ragged(float32_params(params), cfg, torch.tensor([seq], device=dev),
+                          pos, pos >= 0, ints([0] * n), ints([n]),
+                          ints([list(range(1, pages + 1))]), c.k_pages, c.v_pages,
+                          k_scales=c.k_scales, v_scales=c.v_scales)[0]
 
 
 def stream_judge(torch, params, model, prompt, tokens, sp, dev="cuda"):
@@ -1057,22 +1114,15 @@ def stream_judge(torch, params, model, prompt, tokens, sp, dev="cuda"):
     stream of ``prompt``) is within SPEC_LOGIT_BAND of the float32 choice
     at its position (the weights cast to float32 one layer at a time), and
     the smallest margin."""
-    from rbg_tpu_torch.engine.kvcache import PagedKVCache
-    from rbg_tpu_torch.engine.sampler import gumbel_noise, row_keys
-    from rbg_tpu_torch.models.config import get_config
-    from rbg_tpu_torch.models.llama import forward_ragged
+    lg = f32_logits(torch, params, model, prompt + tokens[:-1], dev=dev)
+    return judge(torch, lg[len(prompt) - 1:], len(prompt), tokens, sp, dev)
 
-    cfg = get_config(model, dtype="float32")
-    seq = prompt + tokens[:-1]
-    n, P0 = len(seq), len(prompt)
-    pages = -(-n // 16)
-    c = PagedKVCache.create(cfg, pages + 1, 16, device=dev)
-    ints = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
-    pos = ints([list(range(n))])
-    logits = forward_ragged(float32_params(params), cfg, torch.tensor([seq], device=dev),
-                            pos, pos >= 0, ints([0] * n), ints([n]),
-                            ints([list(range(1, pages + 1))]), c.k_pages, c.v_pages)
-    lg = logits[0, P0 - 1:]                                   # rows predicting tokens
+
+def judge(torch, lg, P0, tokens, sp, dev="cuda"):
+    """``stream_judge`` on float32 logits ``lg`` [len(tokens), V], row t the
+    logits that choose output token t (at position P0 + t)."""
+    from rbg_tpu_torch.engine.sampler import gumbel_noise, row_keys
+
     tok = torch.tensor(tokens, device=dev)[:, None]
     band = SPEC_LOGIT_BAND
     if sp.temperature > 0:
@@ -3600,6 +3650,365 @@ def probe_phase(torch):
     return {k: launches[k] for k in PROBE_KERNELS}
 
 
+# ---- the tp phase: tensor-parallel serving over a gloo world on one card ----
+
+TP_WORLD = 2
+TP_TIMEOUT_S = 900
+TP_TINY_CASES = (("tiny", {"tp": 2}, LLAMA_KERNELS), ("tiny-moe", {"tp": 2}, LLAMA_KERNELS),
+                 ("tiny-moe", {"ep": 2}, LLAMA_KERNELS), ("tiny-mla", {"tp": 2}, MLA_KERNELS))
+TP_MODELS = ("llama3-8b", "deepseek-v2-lite")
+TP_NUM_PAGES = 512
+TP_DECODE_STEPS = 4              # decode steps a reading averages (twice: wall, device)
+
+
+def tp_prompts(np, V):
+    """The two requests of a big model's streams: A steps into decode, then
+    B joins, so one ragged step holds A's decode row and B's first chunk."""
+    rng = np.random.RandomState(1)
+    return rng.randint(0, V, 100).tolist(), rng.randint(0, V, 150).tolist()
+
+
+def tp_pools(cfg):
+    """(kv_dtype, kernels of its path) of a tp model's two pool kinds."""
+    if cfg.mla:
+        return (("model", MLA_KERNELS), ("int8", MLA_INT8_KERNELS))
+    return (("model", LLAMA_KERNELS), ("int8", INT8_KERNELS))
+
+
+def tp_streams(torch, np, eng):
+    """A (24 new tokens) into its first decode window alone, then B (16)
+    joins; both run to completion (multi_step 4: unified steps, then decode
+    windows). Returns {"a": tokens, "b": tokens}."""
+    from rbg_tpu_torch.engine.config import SamplingParams
+
+    pa, pb = tp_prompts(np, eng.mcfg.vocab_size)
+    a = eng.add_request(pa, SamplingParams(max_new_tokens=24))
+    out = {a: []}
+    while not out[a]:
+        for e in eng.step():
+            out[e.request_id].append(e.token)
+    for e in eng.step():
+        out[e.request_id].append(e.token)
+    b = eng.add_request(pb, SamplingParams(max_new_tokens=16))
+    out[b] = []
+    while eng.has_work():
+        for e in eng.step():
+            out[e.request_id].append(e.token)
+    sync(torch, eng.device)
+    return {"a": out[a], "b": out[b]}
+
+
+def first_step_logits(torch, eng, prompt):
+    """The logits [n, V] of the engine's first step on ``prompt`` alone: its
+    first prefill chunk (n tokens) through the engine's own forward_ragged,
+    params, pool kind and ``par``, on a pool of its own."""
+    from rbg_tpu_torch.engine.kvcache import PagedKVCache
+    from rbg_tpu_torch.models.llama import forward_ragged
+
+    n, ps = min(len(prompt), eng.cfg.prefill_chunk), eng.cfg.page_size
+    pages = -(-n // ps)
+    c = PagedKVCache.create(eng.mcfg, pages + 1, ps, device=eng.device,
+                            quantize=eng.cache.quantized, tp=eng.tp)
+    ints = lambda x: torch.tensor(x, dtype=torch.int32, device=eng.device)  # noqa: E731
+    pos = ints([list(range(n))])
+    logits = forward_ragged(eng.params, eng.mcfg, torch.tensor([prompt[:n]], device=eng.device),
+                            pos, pos >= 0, ints([0] * n), ints([n]),
+                            ints([list(range(1, pages + 1))]), c.k_pages, c.v_pages,
+                            max_q_len=eng.cfg.prefill_chunk, k_scales=c.k_scales,
+                            v_scales=c.v_scales, par=eng.par)
+    return logits[0]
+
+
+def decode_reading(torch, np, eng):
+    """Wall and device ms of one decode step (multi_step 1) with A and B
+    both decoding (``step_times``)."""
+    from rbg_tpu_torch.engine.config import SamplingParams
+
+    for p in tp_prompts(np, eng.mcfg.vocab_size):
+        eng.add_request(p, SamplingParams(max_new_tokens=8 + 2 * TP_DECODE_STEPS))
+    while eng.waiting or any(r.state != "running" for r in eng.running):
+        eng.step()
+    eng.step()
+    if eng.device.type == "cuda":
+        wall, dev = step_times(torch, eng, TP_DECODE_STEPS)
+    else:                                    # a CPU rehearsal: no device time
+        t0 = time.perf_counter()
+        for _ in range(TP_DECODE_STEPS):
+            eng.step()
+        wall, dev = (time.perf_counter() - t0) / TP_DECODE_STEPS * 1e3, None
+    while eng.has_work():
+        eng.step()
+    return {"wall_ms": wall, "device_ms": dev}
+
+
+def tree_bytes(params, model):
+    """{weights, split, rest}: all bytes, those of the leaves tp splits,
+    the rest (whole on every rank)."""
+    from rbg_tpu_torch.models.config import get_config
+    from rbg_tpu_torch.parallel import param_specs
+
+    specs = param_specs(get_config(model), params)
+    pairs = [(params[k], specs[k]) for k in params if k != "blocks"]
+    pairs += [(w, specs["blocks"][k]) for k, w in params["blocks"].items()]
+    size = lambda w: w.numel() * w.element_size()  # noqa: E731
+    split = sum(size(w) for w, sp in pairs if "tp" in sp)
+    total = sum(size(w) for w, _ in pairs)
+    return {"weights": total, "split": split, "rest": total - split}
+
+
+def pool_bytes(eng):
+    c = eng.cache
+    return sum(t.numel() * t.element_size() for t in
+               (c.k_pages, c.v_pages, c.k_scales, c.v_scales) if t is not None)
+
+
+def tp_rank(torch, np, world, rank, port, out_path, dev="cuda", models=TP_MODELS):
+    """One rank of the tp phase (``spawn_tp_ranks``): every rank makes the
+    same calls. The tiny models from weights drawn on the CPU
+    (kernels A, B; E, F for tiny-mla), then llama3-8b and deepseek-v2-lite
+    at tp 2 from the rank-local init (seed 0), each over model-dtype and
+    int8 pools: the first step's logits, the two streams (launches counted
+    from 0 around them), a decode step's wall and device ms, the bytes held.
+    Writes its results to ``out_path``."""
+    import torch.distributed as dist
+
+    from rbg_tpu_torch.engine.config import EngineConfig, SamplingParams
+    from rbg_tpu_torch.engine.engine import Engine
+    from rbg_tpu_torch.models.config import get_config
+    from rbg_tpu_torch.models.llama import init_params
+    from rbg_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from rbg_tpu_torch.parallel import make_mesh
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank)
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+    res, arrays = {"rank": rank, "tiny": {}, "big": {}}, {}
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(0, 256, n).tolist() for n in (5, 40, 23, 70)]
+    for model, axes, kernels in TP_TINY_CASES:
+        mesh = make_mesh(**axes, device=dev)
+        params = init_params(get_config(model), 0, "cpu")
+        eng = Engine(EngineConfig(model=model, num_pages=256, max_seq_len=256, multi_step=4),
+                     params=params, device=dev, mesh=mesh)
+        reset_launches()
+        toks = eng.generate(prompts, SamplingParams(max_new_tokens=16))
+        sync(torch, dev)
+        res["tiny"][f"{model} {axes}"] = {"tokens": toks,
+                                          "launches": {k: LAUNCHES[k] for k in kernels}}
+    for model in models:
+        mesh = make_mesh(tp=TP_WORLD, device=dev)
+        peak_reset(torch, dev)
+        t0 = time.perf_counter()
+        params = init_params(get_config(model), 0, dev, mesh=mesh)
+        sync(torch, dev)
+        init = {"seconds": time.perf_counter() - t0, "peak_bytes": peak_bytes(torch, dev),
+                **tree_bytes(params, model)}
+        for kv_dtype, kernels in tp_pools(get_config(model)):
+            kw = dict(model=model, num_pages=TP_NUM_PAGES, max_seq_len=1024, kv_dtype=kv_dtype,
+                      device=dev)
+            eng = Engine(EngineConfig(multi_step=4, **kw), params=params, mesh=mesh,
+                         sliced=True)
+            first = first_step_logits(torch, eng, tp_prompts(np, eng.mcfg.vocab_size)[0])
+            reset_launches()
+            streams = tp_streams(torch, np, eng)
+            launches = {k: LAUNCHES[k] for k in kernels}
+            pools_b = pool_bytes(eng)
+            del eng
+            reading = decode_reading(torch, np, Engine(EngineConfig(multi_step=1, **kw),
+                                                       params=params, mesh=mesh,
+                                                       sliced=True))
+            key = f"{model}/{kv_dtype}"
+            arrays[key] = first.float().cpu().numpy()
+            res["big"][key] = {"tokens": streams, "launches": launches, "pool_bytes": pools_b,
+                               "init": init, **reading}
+            free(torch, dev)
+        del params
+        free(torch, dev)
+    np.savez(out_path, results=np.array(json.dumps(res)), **arrays)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def spawn_tp_ranks(out_dir, dev="cuda", models=TP_MODELS):
+    """The tp phase's ranks (``tp_rank``), each a process on the one card.
+    Raises when a rank fails (the others are killed) or the phase outlasts
+    TP_TIMEOUT_S; returns each rank's (results, first-step logits) and the
+    seconds they took."""
+    import numpy as np
+
+    root = Path(__file__).resolve().parent
+    port, procs, logs = free_port(), [], []
+    for r in range(TP_WORLD):
+        log = tempfile.TemporaryFile()
+        logs.append(log)
+        code = ("import numpy, torch, chip_smoke as cs; "
+                f"cs.tp_rank(torch, numpy, {TP_WORLD}, {r}, {port}, "
+                f"{str(Path(out_dir) / f'rank{r}.npz')!r}, {dev!r}, {tuple(models)!r})")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", code], cwd=root,
+            env={**os.environ, "PYTHONPATH": str(root)},
+            stdout=log, stderr=subprocess.STDOUT))
+    t0 = time.perf_counter()
+    try:
+        while any(p.poll() is None for p in procs):
+            bad = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+            if bad or time.perf_counter() - t0 > TP_TIMEOUT_S:
+                logs[bad[0] if bad else 0].seek(0)
+                raise AssertionError(
+                    f"tp rank {bad[0] if bad else 'all'} "
+                    f"{'failed' if bad else 'timed out'}: "
+                    + logs[bad[0] if bad else 0].read().decode()[-4000:])
+            time.sleep(0.5)
+        if any(p.returncode for p in procs):
+            r = next(r for r, p in enumerate(procs) if p.returncode)
+            logs[r].seek(0)
+            raise AssertionError(f"tp rank {r} failed: " + logs[r].read().decode()[-4000:])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    out = []
+    for r in range(TP_WORLD):
+        got = np.load(Path(out_dir) / f"rank{r}.npz")
+        out.append((json.loads(str(got["results"])),
+                    {k: got[k] for k in got.files if k != "results"}))
+    return out, time.perf_counter() - t0
+
+
+def tp_phase(torch, np, card, dev="cuda", models=TP_MODELS):
+    """Tensor-parallel serving at tp 2 as a gloo world of two processes on
+    the one card (gloo stages every collective through the host: the
+    timings are gloo over one card, never NVLink). Each rank reports its
+    tokens, bytes and launches; here, the unsharded engine on the same
+    weights (the same seed) judges them: tiny, tiny-moe (tp 2 and ep 2) and
+    tiny-mla tokens equal; llama3-8b and deepseek-v2-lite streams judged
+    token by token against a float32 forward (SPEC_LOGIT_BAND, on a pool of
+    the stream's kind), their first step's logits against the unsharded
+    engine's (TP_FIRST_BAND; MoE: TP_MOE_SHARE, TP_MOE_STD_FRAC), their
+    split leaves and GQA pools halved, and
+    every kernel of each case launched on the ranks. Returns the ranks'
+    launches, summed."""
+    from rbg_tpu_torch.engine.config import EngineConfig, SamplingParams
+    from rbg_tpu_torch.engine.engine import Engine
+    from rbg_tpu_torch.models.config import get_config
+    from rbg_tpu_torch.models.llama import init_params
+
+    with tempfile.TemporaryDirectory() as d:
+        ranks, seconds = spawn_tp_ranks(d, dev, models)
+    launches = {k: 0 for k in LLAMA_KERNELS + INT8_KERNELS + MLA_KERNELS + MLA_INT8_KERNELS}
+    for res, _ in ranks:
+        for case in list(res["tiny"].values()) + list(res["big"].values()):
+            for k, n in case["launches"].items():
+                launches[k] += n
+    res0 = ranks[0][0]
+    if any(r["tiny"] != res0["tiny"] or any(r["big"][k]["tokens"] != res0["big"][k]["tokens"]
+                                            for k in res0["big"]) for r, _ in ranks):
+        raise AssertionError("tp ranks disagree on their tokens")
+
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(0, 256, n).tolist() for n in (5, 40, 23, 70)]
+    for model, axes, kernels in TP_TINY_CASES:
+        case = res0["tiny"][f"{model} {axes}"]
+        want = Engine(EngineConfig(model=model, num_pages=256, max_seq_len=256, multi_step=4,
+                                   device=dev),
+                      params=params_to(init_params(get_config(model), 0, "cpu"), dev)
+                      ).generate(prompts, SamplingParams(max_new_tokens=16))
+        emit("tp", model=model, mesh=axes, tokens_equal=case["tokens"] == want,
+             launches=[r["tiny"][f"{model} {axes}"]["launches"] for r, _ in ranks])
+        if case["tokens"] != want:
+            raise AssertionError(f"tp {model} {axes}: {case['tokens']} vs unsharded {want}")
+        if dev == "cuda":
+            check_launches(case["launches"], kernels)
+
+    greedy = SamplingParams()
+    for model in models:
+        params = init_params(get_config(model), 0, dev)
+        whole = tree_bytes(params, model)
+        for kv_dtype, kernels in tp_pools(get_config(model)):
+            key = f"{model}/{kv_dtype}"
+            rec = res0["big"][key]
+            kw = dict(model=model, num_pages=TP_NUM_PAGES, max_seq_len=1024, kv_dtype=kv_dtype,
+                      device=dev)
+            eng = Engine(EngineConfig(multi_step=1, **kw), params=params)
+            pa, pb = tp_prompts(np, eng.mcfg.vocab_size)
+            first1 = first_step_logits(torch, eng, pa).float()
+            pools1 = pool_bytes(eng)
+            reading1 = decode_reading(torch, np, eng)
+            del eng
+            # One float32 forward (on a pool of the stream's kind) over each
+            # stream: its rows judge the stream token by token, and stream
+            # A's first rows are the first step's float32 reference.
+            seqs = {k: p + rec["tokens"][k][:-1] for k, p in (("a", pa), ("b", pb))}
+            f32 = {k: f32_logits(torch, params, model, q, kv_dtype, dev) for k, q in seqs.items()}
+            r32 = f32["a"][:len(first1)]
+            first2 = torch.from_numpy(ranks[0][1][key]).to(dev)
+            tok_max = (first2 - first1).abs().amax(-1)
+            d_max = float(tok_max.max())
+            share = float((tok_max <= TP_FIRST_BAND).float().mean())
+            ratio = float((first2 - r32).abs().mean() / (first1 - r32).abs().mean())
+            std = float(r32.std())
+            if get_config(model).num_experts:
+                limits = {"share_within_band": TP_MOE_SHARE,
+                          "max_abs": TP_MOE_STD_FRAC * std}
+            else:
+                limits = {"share_within_band": 1.0, "max_abs": TP_FIRST_BAND}
+            banded = share >= limits["share_within_band"] and d_max <= limits["max_abs"]
+            judged = [judge(torch, f32[k][len(p) - 1:], len(p), rec["tokens"][k], greedy, dev)
+                      for k, p in (("a", pa), ("b", pb))]
+            # The judge's own check: stream A with its middle token replaced
+            # by one half the vocab away must leave the band (the rows up to
+            # that token see the real prefix).
+            t, j, V = list(rec["tokens"]["a"]), len(rec["tokens"]["a"]) // 2, r32.shape[-1]
+            t[j] = (t[j] + V // 2) % V
+            planted = judge(torch, f32["a"][len(pa) - 1:], len(pa), t, greedy, dev)
+            halves = [(r["big"][key]["init"]["split"] * TP_WORLD == whole["split"]
+                       and r["big"][key]["init"]["rest"] == whole["rest"]
+                       and r["big"][key]["pool_bytes"] * (1 if get_config(model).mla
+                                                          else TP_WORLD) == pools1)
+                      for r, _ in ranks]
+            emit("tp", model=model, kv_dtype=kv_dtype, world=TP_WORLD,
+                 collectives="gloo over one card (staged through the host)",
+                 tokens=rec["tokens"],
+                 judged=[{"ok": ok, "min_margin": m} for ok, m in judged],
+                 planted={"ok": planted[0], "min_margin": planted[1]},
+                 band=SPEC_LOGIT_BAND,
+                 first_step={"tokens": len(first1), "max_abs_vs_unsharded": d_max,
+                             "band": TP_FIRST_BAND, "share_within_band": share,
+                             "logit_std_f32": std, "limits": limits,
+                             "mean_vs_f32_ratio_to_unsharded": ratio,
+                             "ratio_limit": BF16_VS_CONTROL},
+                 launches=[r["big"][key]["launches"] for r, _ in ranks],
+                 bytes={"rank_weights": [r["big"][key]["init"]["weights"] for r, _ in ranks],
+                        "rank_split": [r["big"][key]["init"]["split"] for r, _ in ranks],
+                        "unsharded_weights": whole["weights"],
+                        "unsharded_split": whole["split"],
+                        "rank_pools": [r["big"][key]["pool_bytes"] for r, _ in ranks],
+                        "unsharded_pools": pools1, "halved": halves},
+                 rank_init={"seconds": [r["big"][key]["init"]["seconds"] for r, _ in ranks],
+                            "peak_bytes": [r["big"][key]["init"]["peak_bytes"]
+                                           for r, _ in ranks]},
+                 decode_step={"tp2 (gloo over one card)": [
+                     {"wall_ms": r["big"][key]["wall_ms"], "device_ms": r["big"][key]["device_ms"]}
+                     for r, _ in ranks], "tp1": reading1},
+                 card=card)
+            if not (all(ok for ok, _ in judged) and not planted[0] and all(halves)
+                    and banded and ratio <= BF16_VS_CONTROL):
+                raise AssertionError(f"tp {key}: judged {judged}, planted {planted}, "
+                                     f"bytes {halves}, first step {d_max} / {share} "
+                                     f"(limits {limits}) / {ratio}")
+            if dev == "cuda":
+                for r, _ in ranks:
+                    check_launches(r["big"][key]["launches"], kernels)
+        del params
+        free(torch, dev)
+    emit("tp_phase", seconds_ranks=seconds, launches=launches)
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3642,6 +4051,10 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     launches.update(deepseek_phases(torch, np, card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k, n in tp_phase(torch, np, card).items():
+        launches[k] += n
     launches.update(probe_phase(torch))
 
     src = {

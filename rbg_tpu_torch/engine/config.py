@@ -57,6 +57,9 @@ class EngineConfig:
     # holding an adapter row take the split paths either way.
     ragged: str = "auto"                    # auto | off
     mode: str = "unified"                   # unified | prefill | decode
+    # {"dp": 1, "tp": 4}, from discovery; the engine reads its mesh from
+    # Engine(mesh=...) (parallel.mesh_from_spec builds one from this).
+    mesh_spec: Optional[dict] = None
     kv_dtype: str = "model"                 # model | int8 (quantized KV pool)
     # Per-request SLO targets every finished request is judged against
     # (obs/slo.py): seconds to first token, seconds per output token after

@@ -84,6 +84,8 @@ class Request:
     _ids = itertools.count()
 
     def __init__(self, prompt: List[int], sampling: SamplingParams):
+        # Ids follow submission order. The scheduler orders rows by id, not
+        # by t_submit, so the ranks of a mesh, making the same calls, agree.
         self.id = next(Request._ids)
         self.prompt = list(prompt)
         # _preempt folds generated output into prompt for re-prefill;
@@ -118,30 +120,51 @@ class Request:
 
 class Engine:
     def __init__(self, cfg: EngineConfig, params: Optional[dict] = None,
-                 device=None):
+                 device=None, mesh=None, sliced: bool = False):
+        """``mesh`` (``parallel.make_mesh`` in every rank) serves the model
+        tensor-parallel, SPMD: every rank builds this engine and makes the
+        same calls with the same inputs. Each rank keeps its slices of the
+        weights and its share of the pools (``_shard_state``), and every
+        forward runs its own heads with ``ModelParallel``; the logits are
+        gathered whole, so every rank samples the same tokens and its host
+        state stays in step. ``sliced``: ``params`` already hold this rank's
+        slices (a PD pair's decode worker takes its prefill worker's)."""
         cfg.validate()
         self.cfg = cfg
         self.mcfg = cfg.model_config
         self.device = resolve_device(device if device is not None else cfg.device)
+        self.mesh = mesh
+        self.par = None
+        self.tp = 1
+        if mesh is not None:
+            self._check_mesh(mesh)
+            from rbg_tpu_torch.parallel.sharding import ModelParallel
+            self.par = ModelParallel.of(mesh)
+            self.tp = self.par.tp if self.par is not None else 1
         if params is None and cfg.checkpoint_path:
             from rbg_tpu_torch.models.checkpoint import load_params
-            params = load_params(cfg.checkpoint_path, self.mcfg, device=self.device)
+            # Under a mesh that splits weights the whole tree is read to
+            # the host and only this rank's slices reach the card.
+            params = load_params(cfg.checkpoint_path, self.mcfg,
+                                 device="cpu" if self.par else self.device)
             if params["embed"].dtype != self.mcfg.torch_dtype:
                 raise TypeError(f"checkpoint {cfg.checkpoint_path} holds "
                                 f"{params['embed'].dtype} weights; {self.mcfg.name} "
                                 f"serves {self.mcfg.torch_dtype}")
+            params = self._shard_state(params)
         elif params is None:
-            params = init_params(self.mcfg, cfg.seed, self.device)
-        elif params["embed"].device != self.device:
-            raise ValueError(f"params live on {params['embed'].device}, the "
-                             f"engine on {self.device}")
+            params = init_params(self.mcfg, cfg.seed, self.device,
+                                 mesh=mesh if self.par else None)
+        else:
+            params = self._shard_state(params, sliced)
         self.params = params
         # A request without a seed samples with fold_in(key(this), its id),
         # as the reference does.
         self._sample_base = cfg.seed + 1
         self.cache = PagedKVCache.create(self.mcfg, cfg.num_pages,
                                          cfg.page_size, device=self.device,
-                                         quantize=(cfg.kv_dtype == "int8"))
+                                         quantize=(cfg.kv_dtype == "int8"),
+                                         tp=self.tp)
         self.allocator = PageAllocator(cfg.num_pages)
         self.radix = (RadixCache(self.allocator, cfg.page_size)
                       if cfg.enable_radix_cache else None)
@@ -188,6 +211,65 @@ class Engine:
                         "unified_steps": 0, "decode_windows": 0, "joins": 0,
                         "join_wait_steps_max": 0, "join_excess_steps_max": 0,
                         "spec_drafted": 0, "spec_accepted": 0, "spec_steps": 0}
+
+    # ---- tensor parallelism ----
+
+    def _check_mesh(self, mesh) -> None:
+        """Refuse, before any launch, a mesh this engine cannot serve on."""
+        from rbg_tpu_torch.parallel.mesh import axis_size
+
+        if mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh cannot serve an engine "
+                             f"on {self.device}")
+        tp, ep, m = axis_size(mesh, "tp"), axis_size(mesh, "ep"), self.mcfg
+        uneven = "ROADMAP.md queue 1 item 8: uneven tensor-parallel splits"
+        for name, n in (("vocab_size", m.vocab_size), ("num_heads", m.num_heads),
+                        ("num_kv_heads", 0 if m.mla else m.num_kv_heads)):
+            if n % tp:
+                raise ValueError(f"tp={tp} does not divide {name}={n} ({uneven})")
+        if m.num_experts % ep:
+            raise ValueError(f"ep={ep} does not divide num_experts={m.num_experts} "
+                             f"({uneven})")
+        if ep > 1 and not m.num_experts:
+            raise ValueError(f"ep={ep} on {m.name}, a dense model: an ep axis "
+                             "splits experts, and this model has none")
+        if tp > 1 and self.cfg.host_tier_bytes:
+            raise ValueError("host_tier_bytes with tp > 1: the host tier holds "
+                             "whole pages (ROADMAP.md queue 1 item 8: the host "
+                             "KV tier under tp)")
+
+    def _shard_state(self, params: dict, sliced: bool = False) -> dict:
+        """This rank's weights (the reference's ``_shard_state``): a whole
+        tree's slices by ``param_specs``, as copies on the engine's device
+        that own their memory (the caller's whole tensors may be freed);
+        with ``sliced``, a tree that already holds this rank's slices, as
+        it is. The pools are made at this rank's KV heads
+        (``PagedKVCache.create`` with tp)."""
+        if self.par is not None and not sliced:
+            from rbg_tpu_torch.parallel.sharding import param_specs, shard_pytree
+
+            def own(t):
+                return torch.empty(t.shape, dtype=t.dtype, device=self.device).copy_(t)
+            local = shard_pytree(params, param_specs(self.mcfg, params), self.mesh)
+            return {k: ({n: own(w) for n, w in v.items()} if k == "blocks" else own(v))
+                    for k, v in local.items()}
+        if params["embed"].device != self.device:
+            raise ValueError(f"params live on {params['embed'].device}, the "
+                             f"engine on {self.device}")
+        return params
+
+    def local_heads(self, host: np.ndarray) -> np.ndarray:
+        """This rank's KV heads of host pages [..., KV, hd] that carry every
+        head (a view)."""
+        if self.cache.heads_tp == 1:
+            return host
+        return host[..., self.par.tp_slice(host.shape[-2]), :]
+
+    def whole_heads(self, pages: torch.Tensor) -> torch.Tensor:
+        """Device pages [L, n, page, KV / tp, hd] of this rank with every
+        rank's heads joined (an all-gather over tp, so every rank calls it
+        at the same point); an MLA latent pool's pages as they are."""
+        return pages if self.cache.heads_tp == 1 else self.par.gather_tp(pages, 3)
 
     # ---- public API ----
 
@@ -247,7 +329,7 @@ class Engine:
         n_prefix = prefix_len // ps
         c = self.cache
         for name, data, pool in (("k", k_data, c.k_pages), ("v", v_data, c.v_pages)):
-            want = (pool.shape[0], n_prefix) + tuple(pool.shape[2:])
+            want = (pool.shape[0], n_prefix) + c.whole_page_shape(pool)
             if (tuple(data.shape) != want
                     or data.dtype.itemsize != pool.element_size()):
                 # Foreign pool data (a replica of another model geometry
@@ -260,8 +342,9 @@ class Engine:
         if pages is None:
             return None
         ids = torch.tensor(pages[:n_prefix], dtype=torch.long, device=self.device)
-        c.k_pages.index_copy_(1, ids, _to_device(np.ascontiguousarray(k_data), c.k_pages))
-        c.v_pages.index_copy_(1, ids, _to_device(np.ascontiguousarray(v_data), c.v_pages))
+        for data, pool in ((k_data, c.k_pages), (v_data, c.v_pages)):
+            pool.index_copy_(1, ids, _to_device(
+                np.ascontiguousarray(self.local_heads(data)), pool))
         req = Request(prompt, sampling)
         req.lora_idx = lora_idx
         g = self._grammar_for(sampling)
@@ -334,7 +417,6 @@ class Engine:
         if self.mcfg.num_experts == 0:
             allowed |= set(self._LORA_MLP_TARGETS)
         L = self.mcfg.num_layers
-        base = self.params["blocks"]
         for tgt, (A, B) in adapter.items():
             if tgt not in allowed:
                 raise ValueError(
@@ -344,12 +426,12 @@ class Engine:
                 raise ValueError(
                     f"adapter {name!r} target {tgt!r}: bad shapes "
                     f"{tuple(A.shape)} / {tuple(B.shape)}")
-            bw = base[tgt]
-            if A.shape[1] != bw.shape[1] or B.shape[2] != bw.shape[2]:
+            d_in, d_out = self._whole_dims(tgt)
+            if A.shape[1] != d_in or B.shape[2] != d_out:
                 raise ValueError(
                     f"adapter {name!r} target {tgt!r}: dims {A.shape[1]}→"
                     f"{B.shape[2]} do not match base weight "
-                    f"{bw.shape[1]}→{bw.shape[2]} (wrong base model?)")
+                    f"{d_in}→{d_out} (wrong base model?)")
         # Registered only after the stack is built: a name resolving past
         # the stack would serve another adapter's rows.
         self._lora_raw.append((adapter, float(alpha)))
@@ -360,10 +442,22 @@ class Engine:
             raise
         self._lora_slots[name] = len(self._lora_raw)
 
+    def _whole_dims(self, tgt: str) -> Tuple[int, int]:
+        """(d_in, d_out) of base weight ``tgt`` in the whole model (a rank
+        holds a slice of it under tensor parallelism)."""
+        w = self.params["blocks"][tgt]
+        f = (1, 1, 1)
+        if self.mesh is not None:
+            from rbg_tpu_torch.parallel.sharding import param_specs, split_factor
+            f = split_factor(param_specs(self.mcfg)["blocks"][tgt], self.mesh)
+        return w.shape[1] * f[1], w.shape[2] * f[2]
+
     def _rebuild_lora_stack(self) -> None:
         """{target: (A [L, n, d_in, rmax], B [L, n, rmax, d_out])} in the
         model dtype: rank-padded, alpha/r of THAT target folded into B in
-        float32 before the cast, slot 0 zeros (no adapter).
+        float32 before the cast, slot 0 zeros (no adapter). Under a mesh
+        each rank keeps its share (``lora_specs``): B's columns of a column
+        target, A's rows of a row target.
 
         Nothing in flight is dropped: a pending decode window keeps its
         rows' slots (new adapters take new slots) and each forward reads
@@ -373,6 +467,10 @@ class Engine:
         n = len(self._lora_raw) + 1
         targets = sorted({t for ad, _ in self._lora_raw for t in ad})
         rmax = max(A.shape[2] for ad, _ in self._lora_raw for A, _B in ad.values())
+        specs = None
+        if self.mesh is not None:
+            from rbg_tpu_torch.parallel.sharding import local_shard, lora_specs
+            specs = lora_specs(targets)
         stack = {}
         for tgt in targets:
             d_in, d_out = next((ad[tgt][0].shape[1], ad[tgt][1].shape[2])
@@ -387,8 +485,12 @@ class Engine:
                     As[:, i + 1, :, :r] = A
                     Bs[:, i + 1, :r, :] = B * (alpha / r)
             dt = self.mcfg.torch_dtype
-            stack[tgt] = (torch.from_numpy(As).to(self.device, dt),
-                          torch.from_numpy(Bs).to(self.device, dt))
+            A_t, B_t = torch.from_numpy(As), torch.from_numpy(Bs)
+            if specs is not None:
+                A_t = local_shard(A_t, specs[tgt][0], self.mesh)
+                B_t = local_shard(B_t, specs[tgt][1], self.mesh)
+            stack[tgt] = (A_t.to(self.device, dt).contiguous(),
+                          B_t.to(self.device, dt).contiguous())
         self.lora_stack = stack
 
     def _resolve_lora(self, sampling: SamplingParams) -> int:
@@ -762,7 +864,7 @@ class Engine:
     def _grow_decode_pages(self, rows: List[Request]) -> None:
         """Every decode row gets a page for its next token; preempt the
         youngest on exhaustion."""
-        for req in sorted(rows, key=lambda r: r.t_submit):
+        for req in sorted(rows, key=lambda r: r.id):
             if req.state != "running":
                 continue  # preempted earlier in this very loop
             need = (pages_for_tokens(req.seq_len + 1, self.cfg.page_size)
@@ -836,7 +938,8 @@ class Engine:
             torch.from_numpy(row_ids).to(dev), torch.from_numpy(kvl).to(dev),
             torch.from_numpy(table).to(dev), self.cache.k_pages,
             self.cache.v_pages, max_q_len=self.cfg.prefill_chunk,
-            k_scales=self.cache.k_scales, v_scales=self.cache.v_scales)
+            k_scales=self.cache.k_scales, v_scales=self.cache.v_scales,
+            par=self.par)
 
         for req, start, end in entries:
             if end > start:
@@ -953,7 +1056,7 @@ class Engine:
             torch.from_numpy(pos).to(dev), torch.from_numpy(mask).to(dev),
             torch.from_numpy(kvl).to(dev), torch.from_numpy(table).to(dev),
             self.cache.k_pages, self.cache.v_pages, k_scales=self.cache.k_scales,
-            v_scales=self.cache.v_scales, **self._lora_kw(lids))
+            v_scales=self.cache.v_scales, par=self.par, **self._lora_kw(lids))
 
     # ---- sampling rows ----
 
@@ -1148,7 +1251,7 @@ class Engine:
                 self.params, self.mcfg, tok[:, None], pos[:, None], write_ok,
                 kvl, st["table"], self.cache.k_pages, self.cache.v_pages,
                 k_scales=self.cache.k_scales, v_scales=self.cache.v_scales,
-                **self._lora_kw(st["lids"]))
+                par=self.par, **self._lora_kw(st["lids"]))
             lg = logits[:, 0]
             if gs is not None:
                 lg = torch.where(st["glegal"][gs] | ~st["gactive"][:, None],
@@ -1201,7 +1304,7 @@ class Engine:
         # oldest first so old requests finish and release memory.
         K = self._decode_window()
         pages_changed = False
-        for req in sorted(batch, key=lambda r: r.t_submit):
+        for req in sorted(batch, key=lambda r: r.id):
             if req.state != "running":
                 continue  # preempted earlier in this very loop
             horizon = min(req.seq_len + K, req.max_len())
@@ -1308,7 +1411,7 @@ class Engine:
         gmask_rows: Dict[int, List[np.ndarray]] = {}
         # Oldest first: a row sheds its drafts before it preempts the
         # youngest for pages.
-        for req in sorted(batch, key=lambda r: r.t_submit):
+        for req in sorted(batch, key=lambda r: r.id):
             if req.state != "running":
                 continue
             cap = min(K, req.sampling.max_new_tokens - len(req.output) - 1,
@@ -1483,7 +1586,7 @@ class Engine:
                       if r.state == "running" and r is not exclude]
         if not candidates:
             return None
-        victim = max(candidates, key=lambda r: r.t_submit)
+        victim = max(candidates, key=lambda r: r.id)
         self._preempt(victim)
         return victim
 

@@ -6,7 +6,9 @@
   keeps per-(slot, head) absmax scales beside it (``[L, NP, page, KV, 1]``
   float32). An MLA model's pool is latent: the "k" pool holds the latent
   ``c`` (``[L, NP, page, 1, kv_lora_rank]``), the "v" pool the shared RoPE
-  key (``[L, NP, page, 1, qk_rope_head_dim]``).
+  key (``[L, NP, page, 1, qk_rope_head_dim]``). Under tensor parallelism
+  a rank's GQA pools hold its ``KV / tp`` heads (and their scales); the
+  latent pools are whole on every rank.
 * Host: ``PageAllocator`` free list with reference counts (radix-shared
   prefix pages hold more than one), and per-sequence page tables as plain
   ints.
@@ -29,25 +31,42 @@ class PagedKVCache:
     v_pages: torch.Tensor
     k_scales: Optional[torch.Tensor] = None
     v_scales: Optional[torch.Tensor] = None
+    # Ways the head axis is split over tp: tp for a GQA pool, 1 for the
+    # latent pool (``create``).
+    heads_tp: int = 1
 
     @property
     def quantized(self) -> bool:
         return self.k_scales is not None
 
+    def whole_page_shape(self, pool: torch.Tensor) -> tuple:
+        """A page of ``pool`` (this cache's k_pages or v_pages) with every
+        KV head, as the whole model holds it: what host payloads (bundles,
+        streams, the shared pool) carry on every rank."""
+        page, heads, dim = pool.shape[2:]
+        return (page, heads * self.heads_tp, dim)
+
     @staticmethod
     def create(cfg: ModelConfig, num_pages: int, page_size: int = 16,
-               device=None, quantize: bool = False) -> "PagedKVCache":
+               device=None, quantize: bool = False, tp: int = 1) -> "PagedKVCache":
         """Zeroed pools of the four kinds: GQA or MLA, each in the model's
-        dtype or int8 with float32 scales."""
+        dtype or int8 with float32 scales. On a rank of a tp-way mesh a GQA
+        pool holds its ``num_kv_heads / tp`` heads; the latent pool has no
+        head axis and is whole on every rank, as the reference's
+        ``_shard_state`` places them."""
         if cfg.mla:
+            tp = 1
             kshape = (cfg.num_layers, num_pages, page_size, 1, cfg.kv_lora_rank)
             vshape = kshape[:-1] + (cfg.qk_rope_head_dim,)
         else:
+            if cfg.num_kv_heads % tp:
+                raise ValueError(f"{cfg.num_kv_heads} KV heads do not split over tp={tp}")
             kshape = vshape = (cfg.num_layers, num_pages, page_size,
-                               cfg.num_kv_heads, cfg.head_dim_)
+                               cfg.num_kv_heads // tp, cfg.head_dim_)
         dt = torch.int8 if quantize else cfg.torch_dtype
         cache = PagedKVCache(k_pages=torch.zeros(kshape, dtype=dt, device=device),
-                             v_pages=torch.zeros(vshape, dtype=dt, device=device))
+                             v_pages=torch.zeros(vshape, dtype=dt, device=device),
+                             heads_tp=tp)
         if quantize:
             sshape = kshape[:-1] + (1,)
             cache.k_scales = torch.zeros(sshape, dtype=torch.float32, device=device)

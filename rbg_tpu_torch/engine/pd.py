@@ -128,7 +128,8 @@ class PushResult:
 class PrefillWorker:
     def __init__(self, cfg: EngineConfig, params: Optional[dict] = None,
                  device=None, pool=None, directory=None,
-                 advertise_addr: str = "", slice_id: Optional[str] = None):
+                 advertise_addr: str = "", slice_id: Optional[str] = None,
+                 mesh=None):
         """``pool``: optional ``engine.kvpool.KVPoolClient`` — the SHARED
         cross-request/cross-replica prefix store (Mooncake-store analog).
         Consulted before computing, published to after. Pool failures
@@ -139,9 +140,13 @@ class PrefillWorker:
         page-aligned prefixes are registered under ``advertise_addr`` (this
         replica's serving address) so the router can send prefix-sharing
         requests to ANY holder. ``slice_id`` tags entries for slice-level
-        invalidation on preemption (default: $RBG_SLICE_ID)."""
+        invalidation on preemption (default: $RBG_SLICE_ID).
+
+        ``mesh``: the engine's (``Engine(mesh=...)``). Every rank exports
+        pages with all of their KV heads (an all-gather over tp), so a
+        bundle and a stream carry the unsharded engine's bytes."""
         cfg = dataclasses.replace(cfg, mode="prefill")
-        self.engine = Engine(cfg, params=params, device=device)
+        self.engine = Engine(cfg, params=params, device=device, mesh=mesh)
         self.pool = pool
         self.directory = directory
         self.advertise_addr = advertise_addr
@@ -238,13 +243,15 @@ class PrefillWorker:
         transfer payload: one gather per pool on the page axis, then one
         synchronous copy into pinned host memory (finished when this
         returns, so the pages may be released right after). Callers keep
-        it off any critical section."""
-        cache = self.engine.cache
+        it off any critical section. Under tp the gathered pages join every
+        rank's KV heads first (``Engine.whole_heads``)."""
+        eng = self.engine
+        cache = eng.cache
         ids = torch.tensor(req.pages[lo:hi], dtype=torch.long,
                            device=cache.k_pages.device)
         t0 = time.perf_counter()
-        k = _to_host(cache.k_pages.index_select(1, ids))
-        v = _to_host(cache.v_pages.index_select(1, ids))
+        k = _to_host(eng.whole_heads(cache.k_pages.index_select(1, ids)))
+        v = _to_host(eng.whole_heads(cache.v_pages.index_select(1, ids)))
         self.metrics["transfer_s"] += time.perf_counter() - t0
         return k, v
 
@@ -306,8 +313,8 @@ class PrefillWorker:
             stream_id=stream_id, prompt=list(prompt),
             n_pages=pages_for_tokens(len(prompt),
                                      self.engine.cfg.page_size),
-            k_page_shape=tuple(cache.k_pages.shape[2:]),
-            v_page_shape=tuple(cache.v_pages.shape[2:]),
+            k_page_shape=cache.whole_page_shape(cache.k_pages),
+            v_page_shape=cache.whole_page_shape(cache.v_pages),
             dtype=self.wire_dtype,
             layers=int(cache.k_pages.shape[0]),
             page_size=self.engine.cfg.page_size)
@@ -477,9 +484,13 @@ class _StreamCommit:
 
 class DecodeWorker:
     def __init__(self, cfg: EngineConfig, params: Optional[dict] = None,
-                 device=None):
+                 device=None, mesh=None, sliced: bool = False):
+        """``mesh``: the engine's (``Engine(mesh=...)``); every rank imports
+        the same payloads, each writing its own KV heads. ``sliced``:
+        ``params`` already hold this rank's slices (``Engine``)."""
         cfg = dataclasses.replace(cfg, mode="decode", enable_radix_cache=False)
-        self.engine = Engine(cfg, params=params, device=device)
+        self.engine = Engine(cfg, params=params, device=device, mesh=mesh,
+                             sliced=sliced)
         self.metrics = {"bundles": 0, "bytes_in": 0, "streams_in": 0,
                         "stream_commits": 0, "stream_errors": 0,
                         "commit_s": 0.0}
@@ -502,14 +513,15 @@ class DecodeWorker:
                       layer_lo: Optional[int] = None,
                       layer_hi: Optional[int] = None) -> None:
         """Write host K/V pages into the device pool in place: staging
-        (one host-to-device copy per pool) outside the commit lock, the
-        ``index_copy_`` on the page axis inside it, all on the engine's
-        stream."""
-        cache = self.engine.cache
+        (one host-to-device copy per pool, of this rank's KV heads under
+        tp) outside the commit lock, the ``index_copy_`` on the page axis
+        inside it, all on the engine's stream."""
+        eng = self.engine
+        cache = eng.cache
         t0 = time.perf_counter()
         ids = torch.tensor(pages, dtype=torch.long, device=cache.k_pages.device)
-        k_dev = _stage(k_host, wire, cache.k_pages)
-        v_dev = _stage(v_host, wire, cache.v_pages)
+        k_dev = _stage(eng.local_heads(k_host), wire, cache.k_pages)
+        v_dev = _stage(eng.local_heads(v_host), wire, cache.v_pages)
         t1 = time.perf_counter()
         with self._commit_lock:
             kp, vp = cache.k_pages, cache.v_pages
@@ -765,11 +777,15 @@ class DecodeWorker:
             return forward_paged_window(
                 eng.params, eng.mcfg, lo, hi, x, pos, mask, kvl, table,
                 cache.k_pages, cache.v_pages, k_scales=cache.k_scales,
-                v_scales=cache.v_scales)
+                v_scales=cache.v_scales, par=eng.par)
+
+    def _embed(self, tok):
+        from rbg_tpu_torch.models.llama import _embed
+        return _embed(self.engine.params, self.engine.mcfg, tok, self.engine.par)
 
     def _head(self, x):
         from rbg_tpu_torch.models.llama import _head
-        return _head(self.engine.params, self.engine.mcfg, x)
+        return _head(self.engine.params, self.engine.mcfg, x, self.engine.par)
 
     def _wait_layer_watermark(self, sc: _StreamCommit, hi: int,
                               deadline: Optional[float]) -> None:
@@ -929,7 +945,7 @@ class DecodeWorker:
         win = max(1, int(min_layers))
         B, pos, tok_d, pos_d, write_ok, kvl_d, table_d = \
             self._first_step_inputs(req)
-        x = eng.params["embed"][tok_d[:, None]].to(eng.mcfg.torch_dtype)
+        x = self._embed(tok_d[:, None])
         for lo in range(0, L, win):
             hi = min(lo + win, L)
             self._wait_layer_watermark(sc, hi, deadline)
@@ -967,7 +983,7 @@ class DecodeWorker:
         win = max(1, int(min_layers))
         B, pos, tok_d, pos_d, write_ok, kvl_d, table_d = \
             self._first_step_inputs(None)
-        x = eng.params["embed"][tok_d[:, None]].to(eng.mcfg.torch_dtype)
+        x = self._embed(tok_d[:, None])
         for lo in range(0, L, win):
             x = self._window(lo, min(lo + win, L), x, pos_d[:, None],
                              write_ok, kvl_d, table_d)
@@ -991,11 +1007,13 @@ class PDPair:
     prefill worker's weights dict (one copy on the card)."""
 
     def __init__(self, cfg: EngineConfig, params: Optional[dict] = None,
-                 device=None):
-        self.prefill = PrefillWorker(cfg, params=params, device=device)
-        # Decode shares weights with prefill (same card in process).
+                 device=None, mesh=None):
+        self.prefill = PrefillWorker(cfg, params=params, device=device, mesh=mesh)
+        # Decode shares weights with prefill (same card in process; under a
+        # mesh, this rank's slices).
         self.decode = DecodeWorker(cfg, params=self.prefill.engine.params,
-                                   device=self.prefill.engine.device)
+                                   device=self.prefill.engine.device, mesh=mesh,
+                                   sliced=True)
 
     def generate(self, prompts: List[List[int]],
                  sampling: Optional[SamplingParams] = None,
@@ -1027,12 +1045,20 @@ class PDStreamPair:
 
     def __init__(self, cfg: EngineConfig, params: Optional[dict] = None,
                  device=None, transport=None, layer_split: int = 0,
-                 admit_layers: int = 0):
+                 admit_layers: int = 0, mesh=None):
         from rbg_tpu_torch.kvtransfer.transport import InProcTransport
 
-        self.prefill = PrefillWorker(cfg, params=params, device=device)
+        self.prefill = PrefillWorker(cfg, params=params, device=device, mesh=mesh)
         self.decode = DecodeWorker(cfg, params=self.prefill.engine.params,
-                                   device=self.prefill.engine.device)
+                                   device=self.prefill.engine.device, mesh=mesh,
+                                   sliced=True)
+        if admit_layers and self.prefill.engine.tp > 1:
+            # Whether a row is admitted at layer coverage or at full coverage
+            # depends on when each rank's chunks land, so the ranks would run
+            # different forwards and their collectives would not pair up.
+            raise ValueError("admit_layers with tp > 1: layer-sliced admission "
+                             "is timed per rank (ROADMAP.md queue 1 item 8: a "
+                             "multi-rank EngineService, whose rank 0 decides)")
         self.transport = transport or InProcTransport()
         self.layer_split = layer_split
         # > 0: admit at layer-k coverage and run the first decode step as

@@ -140,8 +140,9 @@ def _embed_batch(engine: Engine, prompts: List[List[int]]) -> List[List[float]]:
         mask[i, :len(p)] = True
     dev = engine.device
     tmask = torch.from_numpy(mask).to(dev)
+    on_mesh = {} if engine.mesh is None else {"mesh": engine.mesh}
     h = encode_hidden(engine.params, engine.mcfg, torch.from_numpy(toks).to(dev),
-                      tmask).float()
+                      tmask, **on_mesh).float()
     # Pool in float32: a bf16 sum and token count would be exact only to 256.
     m = tmask[:, :, None].float()
     vecs = ((h * m).sum(1) / torch.clamp(m.sum(1), min=1.0)).cpu().numpy()
@@ -591,12 +592,24 @@ class _BatchService:
                     self._done_times.append(time.monotonic())
 
 
+def _one_rank(mesh) -> None:
+    """A service's loop admits on its own clock: over several ranks each
+    loop would admit different rows and their collectives would not pair
+    up, so a mesh must hold this process alone."""
+    if mesh is not None and mesh.size() > 1:
+        raise ValueError(f"a serving loop over a mesh of {mesh.size()} ranks "
+                         "(ROADMAP.md queue 1 item 8: a multi-rank EngineService, "
+                         "rank 0's loop feeding the others)")
+
+
 class EngineService(_BatchService):
     def __init__(self, cfg: EngineConfig, params=None, device=None,
-                 max_queue: Optional[int] = None, lora=()):
+                 max_queue: Optional[int] = None, lora=(), mesh=None):
         """``lora``: (name, adapter, alpha) triples loaded into the engine
-        (``Engine.load_lora``) before its loop starts."""
-        self.engine = Engine(cfg, params=params, device=device)
+        (``Engine.load_lora``) before its loop starts. ``mesh``: the
+        engine's, of world size 1 for now (``_one_rank``)."""
+        _one_rank(mesh)
+        self.engine = Engine(cfg, params=params, device=device, mesh=mesh)
         for name, adapter, alpha in lora:
             self.engine.load_lora(name, adapter, alpha=alpha)
         super().__init__(max_queue=max_queue)
@@ -640,11 +653,12 @@ class DecodeService(_BatchService):
     slo_role = "decode"
 
     def __init__(self, cfg: EngineConfig, params=None, device=None,
-                 max_queue: Optional[int] = None, lora=()):
+                 max_queue: Optional[int] = None, lora=(), mesh=None):
         from rbg_tpu_torch.engine.pd import DecodeWorker
         from rbg_tpu_torch.kvtransfer.stream import StreamRegistry
 
-        self.worker = DecodeWorker(cfg, params=params, device=device)
+        _one_rank(mesh)
+        self.worker = DecodeWorker(cfg, params=params, device=device, mesh=mesh)
         self.engine = self.worker.engine
         for name, adapter, alpha in lora:
             self.engine.load_lora(name, adapter, alpha=alpha)

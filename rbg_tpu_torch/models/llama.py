@@ -62,13 +62,16 @@ class KVCache:
 
 
 @torch.no_grad()
-def init_params(cfg: ModelConfig, seed: int, device) -> dict:
+def init_params(cfg: ModelConfig, seed: int, device, mesh=None) -> dict:
     """Random init from a seed, with the reference's distributions (normal,
     0.02 scale on input projections, 0.02/sqrt(2L) on output projections,
     ones for norms) in cfg.dtype, drawn on ``device`` by a torch.Generator.
     The numbers differ from JAX's; parity tests convert JAX's own weights
     (``convert.params_from_numpy``). Layers are drawn one at a time so the
-    float32 draw never holds a whole stacked weight."""
+    float32 draw never holds a whole stacked weight. With a ``mesh``
+    (``parallel/``) each layer is still drawn whole, so the numbers equal
+    the full tree's, and only this rank's slice (``param_specs``) is kept:
+    no rank ever holds the whole model."""
     d, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     hd, h, kv, L = cfg.head_dim_, cfg.num_heads, cfg.num_kv_heads, cfg.num_layers
     dt = cfg.torch_dtype
@@ -76,12 +79,25 @@ def init_params(cfg: ModelConfig, seed: int, device) -> dict:
     gen.manual_seed(seed)
     s_in = 0.02
     s_out = 0.02 / math.sqrt(2.0 * L)
+    specs = None
+    if mesh is not None:
+        from rbg_tpu_torch.parallel.sharding import local_shard, param_specs, split_factor
+        specs = param_specs(cfg)
+        specs.update(specs.pop("blocks"))
 
-    def nrm(shape, scale, stacked=True):
-        out = torch.empty(shape, dtype=dt, device=device)
+    def nrm(key, shape, scale, stacked=True):
+        """Weight ``key`` (its name in the tree) of ``shape``, a layer at a
+        time when ``stacked``; under a mesh, this rank's slice of it."""
+        spec = None if specs is None else specs[key]
+        local = shape if spec is None else tuple(
+            n // k for n, k in zip(shape, split_factor(spec, mesh)))
+        out = torch.empty(local, dtype=dt, device=device)
         for part in (out if stacked else [out]):
-            part.copy_(torch.randn(part.shape, generator=gen, device=device,
-                                   dtype=torch.float32) * scale)
+            w = torch.randn(shape[1:] if stacked else shape, generator=gen,
+                            device=device, dtype=torch.float32) * scale
+            if spec is not None:
+                w = local_shard(w, spec[1:] if stacked else spec, mesh)
+            part.copy_(w)
         return out
 
     blocks = {
@@ -92,40 +108,40 @@ def init_params(cfg: ModelConfig, seed: int, device) -> dict:
         dc, dn = cfg.kv_lora_rank, cfg.qk_nope_head_dim
         dr, dv = cfg.qk_rope_head_dim, cfg.v_head_dim
         blocks.update({
-            "wq": nrm((L, d, h * (dn + dr)), s_in),
-            "w_dkv": nrm((L, d, dc + dr), s_in),
+            "wq": nrm("wq", (L, d, h * (dn + dr)), s_in),
+            "w_dkv": nrm("w_dkv", (L, d, dc + dr), s_in),
             "kv_norm": torch.ones((L, dc), dtype=dt, device=device),
-            "w_uk": nrm((L, dc, h * dn), s_in),
-            "w_uv": nrm((L, dc, h * dv), s_in),
-            "wo": nrm((L, h * dv, d), s_out),
+            "w_uk": nrm("w_uk", (L, dc, h * dn), s_in),
+            "w_uv": nrm("w_uv", (L, dc, h * dv), s_in),
+            "wo": nrm("wo", (L, h * dv, d), s_out),
         })
     else:
         blocks.update({
-            "wq": nrm((L, d, h * hd), s_in),
-            "wk": nrm((L, d, kv * hd), s_in),
-            "wv": nrm((L, d, kv * hd), s_in),
-            "wo": nrm((L, h * hd, d), s_out),
+            "wq": nrm("wq", (L, d, h * hd), s_in),
+            "wk": nrm("wk", (L, d, kv * hd), s_in),
+            "wv": nrm("wv", (L, d, kv * hd), s_in),
+            "wo": nrm("wo", (L, h * hd, d), s_out),
         })
     if cfg.num_experts == 0 or cfg.moe_shared_expert:
         # The shared expert (DeepSeek-style) may be narrower than the dense
         # FFN (moe_shared_expert_size); plain dense models use f.
         fs = cfg.moe_shared_f if cfg.num_experts else f
-        blocks["w_gate"] = nrm((L, d, fs), s_in)
-        blocks["w_up"] = nrm((L, d, fs), s_in)
-        blocks["w_down"] = nrm((L, fs, d), s_out)
+        blocks["w_gate"] = nrm("w_gate", (L, d, fs), s_in)
+        blocks["w_up"] = nrm("w_up", (L, d, fs), s_in)
+        blocks["w_down"] = nrm("w_down", (L, fs, d), s_out)
     if cfg.num_experts:
         E, mf = cfg.num_experts, cfg.moe_f
-        blocks["router"] = nrm((L, d, E), s_in)
-        blocks["moe_gate"] = nrm((L, E, d, mf), s_in)
-        blocks["moe_up"] = nrm((L, E, d, mf), s_in)
-        blocks["moe_down"] = nrm((L, E, mf, d), s_out)
+        blocks["router"] = nrm("router", (L, d, E), s_in)
+        blocks["moe_gate"] = nrm("moe_gate", (L, E, d, mf), s_in)
+        blocks["moe_up"] = nrm("moe_up", (L, E, d, mf), s_in)
+        blocks["moe_down"] = nrm("moe_down", (L, E, mf, d), s_out)
     params = {
-        "embed": nrm((v, d), s_in, stacked=False),
+        "embed": nrm("embed", (v, d), s_in, stacked=False),
         "blocks": blocks,
         "final_norm": torch.ones((d,), dtype=dt, device=device),
     }
     if not cfg.tie_word_embeddings:
-        params["lm_head"] = nrm((d, v), s_in, stacked=False)
+        params["lm_head"] = nrm("lm_head", (d, v), s_in, stacked=False)
     return params
 
 
@@ -323,16 +339,19 @@ def _paged_layer(params: dict, cfg: ModelConfig, l: int, x: torch.Tensor,
                  page_table: torch.Tensor, k_pages: torch.Tensor,
                  v_pages: torch.Tensor, use_kernels: str,
                  k_scales: Optional[torch.Tensor], v_scales: Optional[torch.Tensor],
-                 lora: Optional[dict], lora_ids: Optional[torch.Tensor]) -> torch.Tensor:
+                 lora: Optional[dict], lora_ids: Optional[torch.Tensor],
+                 par=None) -> torch.Tensor:
     """Layer ``l`` of the paged forward: write this step's K/V into layer
     l's pages in place, attend over them (``apos``: the attention's
     positions, -1 for a T > 1 block's pads), then the MLP. ``forward_paged``
-    and ``forward_paged_window`` are chains of this one body."""
+    and ``forward_paged_window`` are chains of this one body. Under tensor
+    parallelism (``par``) the pools hold this rank's KV heads (an MLA
+    model's latent pool is whole) and the attention runs its own heads."""
     blk = layer_params(params, l)
     lr = _layer_lora(lora, l)
     ks, vs = _layer_view(k_scales, l), _layer_view(v_scales, l)
     if cfg.mla:
-        q_lat, q_pe, c, k_pe = _mla_qkv(cfg, blk, x, positions, lr, lora_ids)
+        q_lat, q_pe, c, k_pe = _mla_qkv(cfg, blk, x, positions, lr, lora_ids, par)
         write_kv_pages(k_pages[l], v_pages[l], c[:, :, None], k_pe[:, :, None],
                        page_table, positions, token_mask, ks, vs)
         attn = _mla_out(cfg, blk, paged_mla_attention(
@@ -340,13 +359,13 @@ def _paged_layer(params: dict, cfg: ModelConfig, l: int, x: torch.Tensor,
             kv_lens, _mla_scale(cfg), use_kernels=use_kernels, c_scales=ks,
             pe_scales=vs))
     else:
-        q, k, v = _qkv(cfg, blk, x, positions, lr, lora_ids)
+        q, k, v = _qkv(cfg, blk, x, positions, lr, lora_ids, par)
         write_kv_pages(k_pages[l], v_pages[l], k, v, page_table, positions,
                        token_mask, ks, vs)
         attn = paged_attention(q, k_pages[l], v_pages[l], page_table,
                                apos, kv_lens, use_kernels=use_kernels,
                                k_scales=ks, v_scales=vs)
-    return _post_attention(cfg, blk, x, attn, lr, lora_ids)
+    return _post_attention(cfg, blk, x, attn, lr, lora_ids, par)
 
 
 def _attention_positions(tokens_or_x: torch.Tensor, positions: torch.Tensor,
@@ -375,6 +394,7 @@ def forward_paged(
     lora: Optional[dict] = None,    # {target: (A [L, n, d, r], B [L, n, r, o])},
                                     # alpha/r folded into B; slot 0 is zeros
     lora_ids: Optional[torch.Tensor] = None,  # [B] adapter slot per row
+    par=None,                   # ModelParallel: this rank's heads (tp / ep)
 ) -> torch.Tensor:
     """Serving forward over the paged pool: decode steps (T == 1) and
     [B, T] blocks of prefill chunks or speculative verifies (T > 1). On
@@ -383,14 +403,15 @@ def forward_paged(
     seen as a pack of B rows. Pads (token_mask False) reach a T > 1
     attention at position -1, so they attend nothing; RoPE and the writes
     keep the given positions. Writes this step's K/V into the pools in
-    place; returns logits [B, T, V] f32."""
-    x = _embed(params, cfg, tokens)
+    place; returns logits [B, T, V] f32 (under ``par``, the whole vocab on
+    every rank)."""
+    x = _embed(params, cfg, tokens, par)
     apos = _attention_positions(tokens, positions, token_mask)
     for l in range(cfg.num_layers):
         x = _paged_layer(params, cfg, l, x, positions, apos, token_mask,
                          kv_lens, page_table, k_pages, v_pages, use_kernels,
-                         k_scales, v_scales, lora, lora_ids)
-    return _head(params, cfg, x)
+                         k_scales, v_scales, lora, lora_ids, par)
+    return _head(params, cfg, x, par)
 
 
 @torch.no_grad()
@@ -409,6 +430,7 @@ def forward_paged_window(
     use_kernels: str = "auto",
     k_scales: Optional[torch.Tensor] = None,
     v_scales: Optional[torch.Tensor] = None,
+    par=None,
 ) -> torch.Tensor:
     """One LAYER WINDOW of ``forward_paged``: layers ``[layer_lo,
     layer_hi)`` over hidden states, writing and attending only those
@@ -425,7 +447,7 @@ def forward_paged_window(
     for l in range(layer_lo, layer_hi):
         x = _paged_layer(params, cfg, l, x, positions, apos, token_mask,
                          kv_lens, page_table, k_pages, v_pages, use_kernels,
-                         k_scales, v_scales, None, None)
+                         k_scales, v_scales, None, None, par)
     return x
 
 
@@ -446,17 +468,18 @@ def forward_ragged(
                                       # (the engine's prefill_chunk)
     k_scales: Optional[torch.Tensor] = None,  # [L, NP, page, KV, 1] (int8 pools)
     v_scales: Optional[torch.Tensor] = None,
+    par=None,                   # ModelParallel: this rank's heads (tp / ep)
 ) -> torch.Tensor:
     """Serving forward over a ragged pack of prefill chunks and decode
     steps in one dispatch (on CUDA: kernel B, D for int8 pools, F for
     MLA). Writes K/V into the pools in place; returns logits [1, T, V]
     f32."""
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, par)
     for l in range(cfg.num_layers):
         blk = layer_params(params, l)
         ks, vs = _layer_view(k_scales, l), _layer_view(v_scales, l)
         if cfg.mla:
-            q_lat, q_pe, c, k_pe = _mla_qkv(cfg, blk, x, positions)
+            q_lat, q_pe, c, k_pe = _mla_qkv(cfg, blk, x, positions, par=par)
             write_kv_pages_ragged(k_pages[l], v_pages[l], c[:, :, None],
                                   k_pe[:, :, None], page_table, row_ids,
                                   positions, token_mask, ks, vs)
@@ -465,7 +488,7 @@ def forward_ragged(
                 kv_lens, row_ids, _mla_scale(cfg), use_kernels=use_kernels,
                 c_scales=ks, pe_scales=vs, max_q_len=max_q_len))
         else:
-            q, k, v = _qkv(cfg, blk, x, positions)
+            q, k, v = _qkv(cfg, blk, x, positions, par=par)
             write_kv_pages_ragged(k_pages[l], v_pages[l], k, v, page_table,
                                   row_ids, positions, token_mask, ks, vs)
             attn = ragged_paged_attention(q, k_pages[l], v_pages[l], page_table,
@@ -473,8 +496,8 @@ def forward_ragged(
                                           use_kernels=use_kernels,
                                           max_q_len=max_q_len, k_scales=ks,
                                           v_scales=vs)
-        x = _post_attention(cfg, blk, x, attn)
-    return _head(params, cfg, x)
+        x = _post_attention(cfg, blk, x, attn, par=par)
+    return _head(params, cfg, x, par)
 
 
 def seq_range(mesh, T: int) -> Tuple[int, int]:
@@ -577,11 +600,21 @@ def forward_train(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 @torch.no_grad()
 def encode_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                  token_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  token_mask: Optional[torch.Tensor] = None,
+                  mesh=None) -> torch.Tensor:
     """Final-norm hidden states [B, T, D] of a cache-free causal forward (no
     LM head): what the embeddings path pools. ``tokens`` [B, T] int,
-    ``token_mask`` [B, T] bool (real tokens; pads after them)."""
-    return _encode_core(params, cfg, tokens, token_mask)
+    ``token_mask`` [B, T] bool (real tokens; pads after them). With a
+    ``mesh`` the params are this rank's shards (``_encode_core``); a ring
+    over sp gives each rank its positions, gathered here, so every rank
+    returns the whole sequence."""
+    h = _encode_core(params, cfg, tokens, token_mask, mesh)
+    if h.shape[1] == tokens.shape[1]:
+        return h
+    from rbg_tpu_torch.parallel.mesh import axis_group, axis_size
+    parts = [torch.empty_like(h) for _ in range(axis_size(mesh, "sp"))]
+    torch.distributed.all_gather(parts, h.contiguous(), group=axis_group(mesh, "sp"))
+    return torch.cat(parts, dim=1)
 
 
 def _block(cfg: ModelConfig, blk: dict, x: torch.Tensor, k_cache: torch.Tensor,

@@ -13,8 +13,11 @@ longer list, a torch mesh spans the whole world, so a size that is not the
 world's is refused. In one process, ``make_mesh()`` forms a world of one
 itself (a TCP store on a free local port); a world of several ranks is the
 caller's ``torch.distributed.init_process_group``. The backend follows the
-device: ``nccl`` on the card, ``gloo`` when the caller asks for the CPU,
-and a group already formed on the other one is refused.
+device: ``nccl`` on the card, ``gloo`` when the caller asks for the CPU.
+A CUDA mesh also runs over a gloo world the caller formed: gloo carries
+CUDA tensors, staged through the host, so several ranks may share one
+card (NCCL refuses two ranks on one device); such collectives say
+nothing about NVLink. An nccl world is refused for a CPU mesh.
 
 The pipeline (``parallel/pipeline.py``) takes a one-dim mesh named ``pp``,
 as the reference's tests build ``Mesh(devices, ("pp",))``: ``pp`` is not
@@ -55,7 +58,8 @@ def _free_port() -> int:
 
 def _ensure_world(kind: str, want: int) -> None:
     """Form a one-rank world on ``kind``'s backend when none exists (and
-    ``want`` is 1); refuse a world of another backend."""
+    ``want`` is 1); refuse a world whose backend cannot carry ``kind``'s
+    tensors (nccl for the CPU)."""
     backend = _BACKENDS[kind]
     if not dist.is_initialized():
         if want != 1:
@@ -64,7 +68,7 @@ def _ensure_world(kind: str, want: int) -> None:
         dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{_free_port()}",
                                 world_size=1, rank=0)
     have = dist.get_backend()
-    if have != backend:
+    if have != backend and not (kind == "cuda" and have == "gloo"):
         raise ValueError(f"the process group runs {have!r}; a {kind} mesh needs "
                          f"{backend!r}")
     if kind == "cuda":

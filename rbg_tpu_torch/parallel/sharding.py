@@ -25,6 +25,12 @@ they are explicit ``torch.autograd.Function``s over the mesh's groups
 
 Data-parallel and sequence-parallel gradients are all-reduced by the
 train step (``models/training.py``).
+
+Serving (``Engine(mesh=...)``) uses the same rules: each rank keeps its
+slices of the weights (``shard_pytree``, or ``init_params(mesh=...)``
+drawing them itself), its KV heads of a GQA pool (``PagedKVCache.create``)
+and its share of a LoRA stack (``lora_specs``), and every forward runs with
+``ModelParallel.of(mesh)``.
 """
 
 from __future__ import annotations
@@ -84,6 +90,34 @@ def param_specs(cfg: ModelConfig, params: Optional[dict] = None) -> dict:
 def _block_keys(params: dict):
     blocks = params.get("blocks", {})
     return blocks[0] if isinstance(blocks, (list, tuple)) else blocks
+
+
+# LoRA targets by Megatron role: a column target's delta keeps the
+# projection's output split (B's columns on tp); a row target's input
+# arrives split, so A's rows are on tp and its delta joins the partial sum
+# that reduce_tp adds up. MLA's w_dkv (the latent) is replicated.
+LORA_COLUMN_TARGETS = ("wq", "wk", "wv", "w_gate", "w_up")
+LORA_ROW_TARGETS = ("wo", "w_down")
+
+
+def lora_specs(targets) -> dict:
+    """{target: (spec of A [L, n, d_in, r], spec of B [L, n, r, d_out])}
+    of a LoRA stack (``Engine._rebuild_lora_stack``)."""
+    whole = (None,) * 4
+    out = {}
+    for t in targets:
+        if t in LORA_COLUMN_TARGETS:
+            out[t] = (whole, (None, None, None, "tp"))
+        elif t in LORA_ROW_TARGETS:
+            out[t] = ((None, None, "tp", None), whole)
+        else:
+            out[t] = (whole, whole)
+    return out
+
+
+def split_factor(spec: tuple, mesh) -> tuple:
+    """How many ways each dim of a tensor under ``spec`` is split."""
+    return tuple(axis_size(mesh, a) if a else 1 for a in spec)
 
 
 def cache_specs() -> dict:
@@ -243,3 +277,17 @@ class ModelParallel:
 
     def gather_vocab(self, logits: torch.Tensor) -> torch.Tensor:
         return logits if self.tp == 1 else gather_last(logits, self.tp_group)
+
+    def tp_slice(self, n: int) -> slice:
+        """This rank's part of ``n`` items split over tp (its KV heads)."""
+        size = n // self.tp
+        return slice(self.tp_rank * size, (self.tp_rank + 1) * size)
+
+    def gather_tp(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every tp rank's ``x`` joined along ``dim`` (no gradient): a
+        pool's pages with all of their KV heads."""
+        if self.tp == 1:
+            return x
+        parts = [torch.empty_like(x) for _ in range(self.tp)]
+        dist.all_gather(parts, x.contiguous(), group=self.tp_group)
+        return torch.cat(parts, dim=dim)

@@ -1,7 +1,7 @@
 """The port's package boundary, checked in fresh interpreters (this test
 process has JAX loaded by tests/conftest.py): importing every
-rbg_tpu_torch module and chip_smoke.py loads neither JAX nor any rbg_tpu
-module, and the entry points (the engine, the PD pairs, the train step
+rbg_tpu_torch module, chip_smoke.py and the scripts the gloo tests spawn
+as ranks loads neither JAX nor any rbg_tpu module, and the entry points (the engine, the PD pairs, the train step
 and the mesh) refuse to run without a card unless asked for the CPU (the
 router and the kv pool server, which run no model, start without one)."""
 
@@ -18,6 +18,8 @@ names = [m.name for m in pkgutil.walk_packages(rbg_tpu_torch.__path__, "rbg_tpu_
 for n in names:
     importlib.import_module(n)
 import chip_smoke
+sys.path.insert(0, "tests")
+import torch_parallel_worker, torch_tp_serving_worker  # the spawned ranks' scripts
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "rbg_tpu"
              or m.startswith("rbg_tpu."))
