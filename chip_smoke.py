@@ -180,11 +180,30 @@ Phases, each printing one JSON line:
    deepseek-v2-lite (E, F; G, H) from the rank-local init, two requests
    through a unified step and decode windows, each token judged against a
    float32 forward (SPEC_LOGIT_BAND), the first step's logits against the
-   unsharded engine's (TP_FIRST_BAND; MoE: TP_MOE_SHARE, TP_MOE_STD_FRAC;
-   BF16_VS_CONTROL), each rank's split
-   weights and GQA pools half the unsharded engine's, every kernel
-   launched on the ranks; a decode step's wall and device ms per rank
-   against tp 1. A rank that fails or a phase past TP_TIMEOUT_S fails it.
+   unsharded engine's (TP_FIRST_BAND for every token whose kept experts
+   agree in every layer, by the moe_masks recording, and for every token
+   of deepseek-v2-lite with tp's experts forced on the unsharded engine;
+   at most TP_MOE_MOST_PAST of the tokens past it unforced;
+   BF16_VS_CONTROL), each rank's split weights and GQA pools half the
+   unsharded engine's, every kernel launched on the ranks; a decode
+   step's wall and device ms per rank against tp 1; which first-step
+   tokens of deepseek-v2-lite swapped an expert, their router margins,
+   and the same for two bfloat16 paths without tp (TP_MOE_CONTROLS).
+   Then the serving loops over the mesh (rank 0
+   leads, engine/lockstep.py): tiny's two-rank EngineService (8
+   submissions from threads: 5 greedy, 1 seeded, 1 cancelled, 1 deadline
+   abort; the 6 uncut streams equal a one-rank service's), DecodeService
+   (2 bundles and a stream) and PDStreamPair(layer_split=1,
+   admit_layers=1) on a paced link, equal to one-rank counterparts; and at
+   llama3-8b the host tier at tp 2 (promoted pages' checksums per rank,
+   pass 2 equal to a device-hit tp 2 engine, page counts equal to one
+   rank's), PDStreamPair(PD_LAYER_SPLIT, PD_ADMIT_LAYERS) on the paced
+   link engaging on both ranks with admit_layers 0's tokens, a 512-token
+   bundle through a two-rank DecodeService (its plan's bytes and
+   seconds), and a two-rank EngineService of 8 requests (every token
+   judged against a float32 forward; TTFT, ITL and TPOT p50 beside a
+   one-rank service). Both ranks' engine metrics equal and no row left.
+   A rank that fails or a phase past TP_TIMEOUT_S fails it.
 11. ragged_ab — rbg_tpu_torch.bench.block_ragged_probe: kernel I against
    kernel B on a prefill-heavy pack, both checked against the plain
    version, then interleaved timed reps; then each kernel's device ms on
@@ -198,6 +217,7 @@ failure exits non-zero before the last line; without a CUDA device nothing
 runs.
 """
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -209,6 +229,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
@@ -1076,18 +1097,22 @@ SPEC_LOGIT_BAND = 1.0
 # unsharded engine are two bfloat16 paths (the ranks' partial sums meet in a
 # bfloat16 all-reduce), each within ~0.45 logit of float32 at llama3-8b (the
 # block witness), so within this band of each other at every logit of every
-# token of a dense model; and on the mean no farther from the float32
-# forward than BF16_VS_CONTROL x the unsharded engine is (every model). On a
-# MoE model a bfloat16 ulp can swap one expert of a token (see
-# MOE_F32_SHARE), which moves that token's logits by more than the band;
-# there at least TP_MOE_SHARE of the tokens stay within the band and every
-# token within TP_MOE_STD_FRAC x the float32 logits' std. deepseek-v2-lite
-# read 0.875-0.906 of 64 tokens within 1.0 and at most 1.77 logit, 1.95 x
-# the 0.905 std of its float32 logits in the compare phases (H100 80GB
-# HBM3, 700 W); a wrong head, page or reduce moves every token by the
-# order of the std.
+# token whose computation is the same on both: every token of a dense
+# model, every token of a MoE model whose kept experts (the router's mask,
+# recorded by ``moe_masks``) agree in every layer, and every token of a MoE
+# model when the unsharded engine is made to keep tp's experts
+# (``moe_masks(force=...)``): a wrong head, page or reduce in tp fails it
+# there. On the mean both stay within BF16_VS_CONTROL x the unsharded
+# engine's distance from the float32 forward (every model). Unforced, a
+# MoE token whose mask differs in some layer runs another expert there and
+# is held to no band of its own; but a fault that moves most tokens past
+# the band fails TP_MOE_MOST_PAST (at most half the tokens past it).
 TP_FIRST_BAND = SPEC_LOGIT_BAND
-TP_MOE_SHARE, TP_MOE_STD_FRAC = 0.8, 2.5
+TP_MOE_MOST_PAST = 0.5
+# Two bfloat16 paths without tp, read against the unsharded engine's first
+# step (how often the MoE router swaps experts without tp):
+# first_step_logits's options for each.
+TP_MOE_CONTROLS = {"chunks_of_16": {"chunk": 16}, "plain_attention": {"use_kernels": "never"}}
 
 
 def f32_logits(torch, params, model, seq, kv_dtype="model", dev="cuda"):
@@ -2212,6 +2237,12 @@ PD_ADMIT_LAYERS = 8
 # llama3-8b KV are 254 MiB: 0.53 s at 0.5 GB/s, a 4 Gbit/s link).
 PD_LINK_BYTES_PER_S = 5e8
 PD_LINK_LATENCY_S = 0.005
+
+
+def paced_link():
+    from rbg_tpu_torch.kvtransfer.transport import FakeICITransport
+    return FakeICITransport(bytes_per_s=PD_LINK_BYTES_PER_S, latency_s=PD_LINK_LATENCY_S)
+
 # The across-process group: 8 requests one after another (batch 1, so the
 # greedy tokens of the two wire paths compare bit for bit).
 PD_SERVER_PROMPT_LENS = [1024, 700, 1500, 333, 1200, 900, 1400, 640]
@@ -2317,7 +2348,7 @@ def pd_phase(torch, np, params, card, model="llama3-8b", dev="cuda"):
     from rbg_tpu_torch.engine.config import EngineConfig, SamplingParams
     from rbg_tpu_torch.engine.engine import Engine
     from rbg_tpu_torch.engine.pd import PDPair, PDStreamPair
-    from rbg_tpu_torch.kvtransfer.transport import FakeICITransport, InProcTransport
+    from rbg_tpu_torch.kvtransfer.transport import InProcTransport
     from rbg_tpu_torch.obs import names as obs_names
     from rbg_tpu_torch.obs.metrics import REGISTRY
     from rbg_tpu_torch.ops.kernels import LAUNCHES, reset_launches
@@ -2336,21 +2367,17 @@ def pd_phase(torch, np, params, card, model="llama3-8b", dev="cuda"):
     del uni
     gc.collect()
 
-    def paced():
-        return FakeICITransport(bytes_per_s=PD_LINK_BYTES_PER_S,
-                                latency_s=PD_LINK_LATENCY_S)
-
     # Witness runs (checksums on every page) on every path, then timing
     # runs without checksums: the bundle pair's TTFT, export and commit
     # rates, and the paced link's first decode token with and without
     # layer slicing.
     arms = [("bundle", None, 0, True)]
     arms += [(f"stream_{link}_admit{admit}", make, admit, True)
-             for link, make in (("inproc", InProcTransport), ("paced", paced))
+             for link, make in (("inproc", InProcTransport), ("paced", paced_link))
              for admit in (0, PD_ADMIT_LAYERS)]
     arms += [("timed_bundle", None, 0, False),
-             ("timed_paced_admit0", paced, 0, False),
-             (f"timed_paced_admit{PD_ADMIT_LAYERS}", paced, PD_ADMIT_LAYERS, False)]
+             ("timed_paced_admit0", paced_link, 0, False),
+             (f"timed_paced_admit{PD_ADMIT_LAYERS}", paced_link, PD_ADMIT_LAYERS, False)]
     lead_key = (obs_names.KVT_LAYER_ADMIT_LEAD_SECONDS, ())
     reset_launches()
     runs, recs, rates, leads = {}, {}, {}, {}
@@ -3698,25 +3725,136 @@ def tp_streams(torch, np, eng):
     return {"a": out[a], "b": out[b]}
 
 
-def first_step_logits(torch, eng, prompt):
+@contextlib.contextmanager
+def moe_masks(torch, force=None):
+    """Record the kept-expert mask of every ``_moe_mlp`` call while the
+    block runs, as ``models/llama.py`` keeps experts (``probs >=
+    threshold``): ``masks``, one bool array [tokens, E] per call (a
+    forward's calls are its layers, in order), and ``margins``, each
+    token's router-logit gap between its k-th and (k+1)-th expert in
+    bfloat16 ulps of the k-th logit (0: a tie). Wraps the module's
+    function; changes no model code.
+
+    ``force`` ([calls, tokens, E] bool): each call keeps those experts
+    (ties and all) instead of its own top k, weighted by its own
+    probabilities as the model weights its kept experts: for that call
+    the module's ``softmax`` is masked and its ``topk`` threshold is the
+    least kept probability, so ``_moe_mlp`` itself runs unchanged. The
+    recorded masks are the experts it then kept."""
+    import rbg_tpu_torch.models.llama as llama
+
+    rec, inner, module_torch = {"masks": [], "margins": []}, llama._moe_mlp, llama.torch
+
+    class Forced:
+        """The module's ``torch``, with the router's softmax masked and its
+        top-k threshold the least kept probability."""
+        mask = None
+
+        def __getattr__(self, name):
+            return getattr(torch, name)
+
+        def softmax(self, x, *a, **k):
+            p = torch.softmax(x, *a, **k)
+            return p if self.mask is None else p * self.mask
+
+        def topk(self, x, k, *a, **kw):
+            if self.mask is None:
+                return torch.topk(x, k, *a, **kw)
+            low = torch.where(self.mask > 0, x, torch.inf).amin(-1, keepdim=True)
+            return types.SimpleNamespace(values=low.expand(*low.shape[:-1], k))
+
+    forced = Forced()
+
+    def recording(cfg, blk, xm, par=None):
+        K, E = cfg.experts_per_token, cfg.num_experts
+        logits = (xm @ blk["router"]).float()
+        probs = torch.softmax(logits, dim=-1)
+        if force is not None:
+            forced.mask = torch.from_numpy(force[len(rec["masks"])]).to(
+                probs.device, probs.dtype).reshape(probs.shape)
+            probs = forced.softmax(logits, dim=-1)
+        threshold = forced.topk(probs, K, dim=-1).values[..., -1:]
+        rec["masks"].append((probs >= threshold).reshape(-1, E).cpu().numpy())
+        top = torch.topk(logits.reshape(-1, E), K + 1, dim=-1).values
+        ulp = torch.exp2(torch.floor(torch.log2(top[:, K - 1].abs().clamp_min(1e-30))) - 7)
+        rec["margins"].append(((top[:, K - 1] - top[:, K]) / ulp).cpu().numpy())
+        try:
+            return inner(cfg, blk, xm, par)
+        finally:
+            forced.mask = None
+
+    llama._moe_mlp = recording
+    if force is not None:
+        llama.torch = forced
+    try:
+        yield rec
+    finally:
+        llama._moe_mlp, llama.torch = inner, module_torch
+
+
+def swap_reading(np, gap, band, masks_a, masks_b, margins=None):
+    """Which tokens of a first step lie past ``band`` (``gap``: each token's
+    largest logit distance between two runs) and whether their kept
+    experts differ in some layer between the runs' masks ([L, tokens, E]
+    each; None for a dense model, where no token swaps). ``margins``
+    ([L, tokens], bfloat16 ulps, run B's): for each token past the band,
+    its router margin at its first differing layer."""
+    n = len(gap)
+    differ = (np.zeros((1, n), bool) if masks_a is None
+              else (masks_a != masks_b).any(axis=2))              # [L, tokens]
+    swapped = differ.any(axis=0)
+    # A swap reaches later tokens through attention: a token whose own
+    # masks agree but an earlier token's differ is "downstream".
+    downstream = ~swapped & (np.cumsum(swapped) > 0)
+    past = gap > band
+    same = ~swapped
+    first = [int(np.argmax(differ[:, t])) for t in np.flatnonzero(past & swapped)]
+    return {"tokens": n, "past_band": int(past.sum()),
+            "past_band_swapped": int((past & swapped).sum()),
+            "past_band_same_masks": int((past & same).sum()),
+            "past_band_same_masks_downstream": int((past & downstream).sum()),
+            "swapped": int(swapped.sum()),
+            "layers_differing": None if masks_a is None else int(differ.any(axis=1).sum()),
+            # (token, layer) cells whose kept experts differ, and for each
+            # token past the band the first such layer (and the margin
+            # there).
+            "cells_differing": None if masks_a is None else int(differ.sum()),
+            "past_band_first_layer": first,
+            "past_band_first_margin_ulps": (
+                [] if margins is None else
+                [round(float(margins[l, t]), 3)
+                 for l, t in zip(first, np.flatnonzero(past & swapped))]),
+            "max_abs": float(gap.max()),
+            "max_abs_same_masks": float(gap[same].max()) if same.any() else 0.0,
+            "max_abs_past_band_same_masks": (float(gap[past & same].max())
+                                             if (past & same).any() else None),
+            "max_abs_swapped": float(gap[swapped].max()) if swapped.any() else None}
+
+
+def first_step_logits(torch, eng, prompt, chunk=None, use_kernels="auto"):
     """The logits [n, V] of the engine's first step on ``prompt`` alone: its
     first prefill chunk (n tokens) through the engine's own forward_ragged,
-    params, pool kind and ``par``, on a pool of its own."""
+    params, pool kind and ``par``, on a pool of its own. ``chunk``: the
+    same n tokens as consecutive forwards of ``chunk`` tokens each (a
+    multiple of the page size); ``use_kernels``: forward_ragged's."""
     from rbg_tpu_torch.engine.kvcache import PagedKVCache
     from rbg_tpu_torch.models.llama import forward_ragged
 
     n, ps = min(len(prompt), eng.cfg.prefill_chunk), eng.cfg.page_size
-    pages = -(-n // ps)
+    pages, chunk = -(-n // ps), chunk or n
     c = PagedKVCache.create(eng.mcfg, pages + 1, ps, device=eng.device,
                             quantize=eng.cache.quantized, tp=eng.tp)
     ints = lambda x: torch.tensor(x, dtype=torch.int32, device=eng.device)  # noqa: E731
-    pos = ints([list(range(n))])
-    logits = forward_ragged(eng.params, eng.mcfg, torch.tensor([prompt[:n]], device=eng.device),
-                            pos, pos >= 0, ints([0] * n), ints([n]),
-                            ints([list(range(1, pages + 1))]), c.k_pages, c.v_pages,
-                            max_q_len=eng.cfg.prefill_chunk, k_scales=c.k_scales,
-                            v_scales=c.v_scales, par=eng.par)
-    return logits[0]
+    out = []
+    for s0 in range(0, n, chunk):
+        m = min(chunk, n - s0)
+        pos = ints([list(range(s0, s0 + m))])
+        out.append(forward_ragged(
+            eng.params, eng.mcfg, torch.tensor([prompt[s0:s0 + m]], device=eng.device),
+            pos, pos >= 0, ints([0] * m), ints([s0 + m]), ints([list(range(1, pages + 1))]),
+            c.k_pages, c.v_pages, use_kernels=use_kernels, max_q_len=eng.cfg.prefill_chunk,
+            k_scales=c.k_scales, v_scales=c.v_scales, par=eng.par)[0])
+    return torch.cat(out)
 
 
 def decode_reading(torch, np, eng):
@@ -3762,6 +3900,340 @@ def pool_bytes(eng):
                (c.k_pages, c.v_pages, c.k_scales, c.v_scales) if t is not None)
 
 
+# ---- the tp phase's serving loops over the mesh (rank 0 leads) ----
+
+# tiny's two-rank services: 8 submissions from threads on rank 0, 20 ms
+# apart, into max_batch 4 (the queue forms and the join hint fires): 5
+# greedy, 1 seeded, 1 cancelled after its first token, 1 whose deadline
+# (TP_SVC_DEADLINE_S after submission) runs out while it decodes
+# TP_SVC_LONG tokens.
+TP_SVC_PROMPT_LENS = (5, 40, 23, 70, 31, 12, 50, 18)
+# tiny's layer-sliced pair: a link slow enough for tiny's KV (a few KB a
+# layer) to land a layer at a time.
+TP_TINY_LINK = dict(bytes_per_s=2e5, latency_s=0.0005)
+TP_SVC_LONG = 200
+TP_SVC_DEADLINE_S = 1.5
+# llama3-8b's two-rank service: 8 requests of 128-512 random tokens, 32 new.
+TP_LLAMA_SVC_LENS = (128, 512, 300, 200, 450, 160, 384, 256)
+TP_LLAMA_SVC_NEW = 32
+# The tier drive at tp 2: fewer and shorter prompts than the tier phase's
+# through a pool that holds about two of them, twice, one at a time, under
+# a budget of TP_TIER_HOST_PAGES whole pages: the budget evicts (a page)
+# and pass 2 still hits every prompt as deep as the device-hit engine (96
+# pages evict 90 and cut every hit short; 152 evict none).
+TP_TIER_PROMPT_LENS = (512, 896, 640, 768)
+TP_TIER_NUM_PAGES = 100
+TP_TIER_HOST_PAGES = 144
+TP_TIER_NEW = 8
+# The layer-sliced PD drive at tp 2 (PD_LAYER_SPLIT, PD_ADMIT_LAYERS, the pd
+# phase's paced link, one per rank; 1 and 1 at a model of fewer layers than
+# PD_ADMIT_LAYERS, as the pd phase's CPU rehearsal); its last prompt also goes as a bundle
+# through a two-rank DecodeService (llama3-8b's 512 tokens: ~67 MB of whole
+# heads in one plan).
+TP_PD_PROMPT_LENS = (2032, 1100, 512)
+
+
+def tp_service_jobs(np, V, lens, new, mix):
+    """(prompt, sampling, kind) of a service drive: with ``mix``, tiny's
+    (see TP_SVC_PROMPT_LENS), else all greedy."""
+    from rbg_tpu_torch.engine.config import SamplingParams
+
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(0, V, n).tolist() for n in lens]
+    greedy = SamplingParams(max_new_tokens=new)
+    if not mix:
+        return [(p, greedy, "run") for p in prompts]
+    seeded = SamplingParams(max_new_tokens=new, temperature=0.9, top_k=40, seed=11)
+    long = SamplingParams(max_new_tokens=TP_SVC_LONG)
+    kinds = ([(greedy, "run")] * 3 + [(seeded, "run"), (long, "cancel")]
+             + [(greedy, "run")] * 2 + [(long, "deadline")])
+    return [(p, s, k) for p, (s, k) in zip(prompts, kinds)]
+
+
+def drive_service(svc, jobs):
+    """Submit ``jobs`` to ``svc`` from threads, 20 ms apart; a watcher
+    stamps each token's arrival (~1 ms). Returns per job its tokens, error,
+    TTFT (submission to the first token) and ITL (the gaps after it)."""
+    import threading
+
+    pend, out = [None] * len(jobs), [None] * len(jobs)
+    stamps = [[] for _ in jobs]
+    done = threading.Event()
+
+    def watch():
+        while not done.is_set():
+            now = time.perf_counter()
+            for j, p in enumerate(pend):
+                if p is not None and len(p.tokens) > len(stamps[j]):
+                    stamps[j].extend([now] * (len(p.tokens) - len(stamps[j])))
+            time.sleep(0.001)
+
+    def run(j):
+        prompt, sp, kind = jobs[j]
+        dl = time.monotonic() + TP_SVC_DEADLINE_S if kind == "deadline" else None
+        p = pend[j] = svc.submit_async(prompt, sp, deadline=dl)
+        if kind == "cancel":
+            while not p.tokens and not p.done.is_set():
+                time.sleep(0.001)
+            svc.cancel(p)
+        err = None
+        try:
+            svc.wait(p, TP_TIMEOUT_S)
+        except Exception as e:  # noqa: BLE001 — the drive reads it
+            err = f"{type(e).__name__}: {e}"
+        out[j] = {"kind": kind, "tokens": list(p.tokens), "error": err,
+                  "t_submit": p.t_submit}
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    threads = [threading.Thread(target=run, args=(j,)) for j in range(len(jobs))]
+    for t in threads:
+        t.start()
+        time.sleep(0.02)
+    for t in threads:
+        t.join()
+    done.set()
+    watcher.join()
+    for o, s in zip(out, stamps):
+        o["ttft_s"] = s[0] - o.pop("t_submit") if s else None
+        o["itl_s"] = [b - a for a, b in zip(s, s[1:])]
+    return out
+
+
+def settle_service(svc):
+    """End a service's loop (the leader's stop() sends its last plan; a
+    follower's waits for it, and no other collective runs meanwhile), then
+    read its rank's engine: metrics, rows and requests left, the plans."""
+    svc.stop(timeout=TP_TIMEOUT_S)
+    eng = svc.engine
+    return {"metrics": {k: eng.metrics[k] for k in ("steps", "joins", "decode_windows",
+                                                    "preemptions", "unified_steps")},
+            "running": len(eng.running), "waiting": len(eng.waiting),
+            "live": sum(r.state != "finished" for r in eng.requests.values()),
+            "loop_alive": svc._thread.is_alive(),
+            "fault": None if svc.fault is None else repr(svc.fault),
+            "plans": None if svc._lockstep is None else svc._lockstep.stats()}
+
+
+def decode_drive(svc, bundles, stream):
+    """Bundles from threads, then ``stream`` (a bundle's KV as chunk stream
+    frames, fed on this thread): each one's tokens, the first included."""
+    import threading
+
+    from rbg_tpu_torch.engine.config import SamplingParams
+    from rbg_tpu_torch.kvtransfer.chunks import StreamMeta, bundle_to_frames
+
+    sp = SamplingParams(max_new_tokens=16)
+    out = [None] * len(bundles)
+    threads = [threading.Thread(target=lambda j=j: out.__setitem__(
+        j, svc.submit_bundle(bundles[j], sp))) for j in range(len(bundles))]
+    for t in threads:
+        t.start()
+        time.sleep(0.02)
+    for t in threads:
+        t.join()
+    if stream is not None:
+        meta = StreamMeta(stream_id="tp-stream", prompt=list(stream.prompt),
+                          n_pages=stream.k_data.shape[1],
+                          k_page_shape=tuple(stream.k_data.shape[2:]),
+                          v_page_shape=tuple(stream.v_data.shape[2:]), dtype=stream.dtype,
+                          layers=stream.k_data.shape[0], page_size=svc.engine.cfg.page_size)
+        rx = svc.kv_streams.get_or_create(meta.stream_id)
+        svc.watch_stream(rx)
+        for f in bundle_to_frames(meta, stream.k_data, stream.v_data, stream.first_token, 1):
+            rx.feed(f)
+        rx.wait_ready(60)
+        p = svc.submit_stream(rx, sp)
+        svc.wait(p, TP_TIMEOUT_S)
+        out.append([stream.first_token] + p.tokens)
+    return out
+
+
+def pd_runs(pair, prompts, sp):
+    """Each prompt through a PDStreamPair: tokens and layers at admission."""
+    runs = [pair.generate_one(p, sp) for p in prompts]
+    return {"tokens": [r["tokens"] for r in runs],
+            "layers_at_admit": [r["layers_at_admit"] for r in runs]}
+
+
+def tp_tiny_services(torch, np, mesh, rank, dev, arrays):
+    """tiny (f32) through the two-rank services on weights drawn on the
+    CPU: EngineService (TP_SVC_PROMPT_LENS' mix), DecodeService (two
+    bundles of a tp 2 PDPair, then the first as a chunk stream) and
+    PDStreamPair(layer_split=1, admit_layers=1) on a paced link (tiny has 2
+    layers: PD_LAYER_SPLIT 4 would send them whole). Rank 0 keeps the
+    bundles in ``arrays`` for the one-rank counterparts."""
+    from rbg_tpu_torch.engine.config import SamplingParams
+    from rbg_tpu_torch.engine.pd import PDPair, PDStreamPair
+    from rbg_tpu_torch.engine.service import DecodeService, EngineService
+    from rbg_tpu_torch.kvtransfer.transport import FakeICITransport
+    from rbg_tpu_torch.models.config import get_config
+    from rbg_tpu_torch.models.llama import init_params
+    from rbg_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    params = init_params(get_config("tiny"), 0, "cpu")
+    cfg = tiny_service_config(dev)
+    out = {}
+    svc = EngineService(cfg, params=params, device=dev, mesh=mesh)
+    reset_launches()
+    if rank == 0:
+        out["service"] = drive_service(svc, tp_service_jobs(np, 256, TP_SVC_PROMPT_LENS,
+                                                            16, True))
+    else:
+        try:
+            svc.submit([1, 2, 3], SamplingParams())
+            out["follower_submit"] = None
+        except ValueError as e:
+            out["follower_submit"] = str(e)
+    out["service_state"] = settle_service(svc)
+    sync(torch, dev)
+    out["launches"] = {k: LAUNCHES[k] for k in LLAMA_KERNELS}
+    rng = np.random.RandomState(8)
+    pair = PDPair(cfg, params=params, device=dev, mesh=mesh)
+    bundles = [pair.prefill.prefill(rng.randint(0, 256, n).tolist()) for n in (37, 21)]
+    del pair
+    if rank == 0:
+        for j, b in enumerate(bundles):
+            arrays[f"tiny_bundle{j}/k"], arrays[f"tiny_bundle{j}/v"] = b.k_data, b.v_data
+            arrays[f"tiny_bundle{j}/meta"] = np.array(json.dumps(
+                [b.prompt, b.first_token, b.dtype]))
+    dec = DecodeService(cfg, params=params, device=dev, mesh=mesh)
+    if rank == 0:
+        out["decode"] = decode_drive(dec, bundles, bundles[0])
+    out["decode_state"] = settle_service(dec)
+    pair = PDStreamPair(cfg, params=params, device=dev, mesh=mesh, layer_split=1,
+                        admit_layers=1,
+                        transport=FakeICITransport(**TP_TINY_LINK))
+    out["pd"] = pd_runs(pair, [b.prompt for b in bundles], SamplingParams(max_new_tokens=16))
+    out["pd_plans"] = pair.lockstep.stats()
+    return out
+
+
+def tiny_service_config(dev):
+    from rbg_tpu_torch.engine.config import EngineConfig
+    return EngineConfig(model="tiny", num_pages=256, max_seq_len=256, max_batch=4,
+                        multi_step=4, device=dev)
+
+
+def tp_tier_drive(torch, np, params, mesh, dev, model="llama3-8b"):
+    """The host tier at tp 2 (each rank its own KV heads, 1/2 the budget):
+    TP_TIER_PROMPT_LENS through a pool of TP_TIER_NUM_PAGES, twice, one at a
+    time; every promoted page's checksum on this rank against the page's
+    before its spill (``tier_probe``); pass 2's tokens against a tp 2
+    engine that device-hits them (a pool for all, its second pass), which
+    hits every prompt as deep (TP_TIER_HOST_PAGES)."""
+    from rbg_tpu_torch.engine.config import EngineConfig
+    from rbg_tpu_torch.engine.engine import Engine
+    from rbg_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    sync_ = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    prompts, sp, cfg = tier_drive_inputs(np, model, dev)
+    eng = Engine(EngineConfig(num_pages=TP_TIER_NUM_PAGES, **cfg), params=params, mesh=mesh,
+                 sliced=True)
+    rec = tier_probe(torch, eng.host_tier, eng.cfg.page_size, sync_)
+    reset_launches()
+    passes = [[timed_generate(eng, p, sp, rec) for p in prompts] for _ in range(2)]
+    sync_()
+    launches = {k: LAUNCHES[k] for k in LLAMA_KERNELS}
+    stats = dict(eng.host_tier.stats())
+    out = {"tokens": [[r[0] for r in ps] for ps in passes],
+           "hits": [r[2] for r in passes[1]], "stats": stats,
+           "closes": eng.host_tier.accounting_closes(),
+           "host_hit_tokens": eng.metrics["host_hit_tokens"],
+           "checked": rec["checked"], "mismatch": len(rec["mismatch"]), "launches": launches}
+    del eng
+    free(torch, dev)
+    cfg.pop("host_tier_bytes")
+    ref = Engine(EngineConfig(num_pages=TP_TIER_NUM_PAGES * len(prompts), **cfg),
+                 params=params, mesh=mesh, sliced=True)
+    hit = [[timed_generate(ref, p, sp) for p in prompts] for _ in range(2)][1]
+    out["device_hit"], out["device_hits"] = [r[0] for r in hit], [r[2] for r in hit]
+    del ref
+    free(torch, dev)
+    return out
+
+
+def tier_drive_inputs(np, model, dev):
+    """The tier drive's prompts, sampling and engine config (its budget
+    TP_TIER_HOST_PAGES whole pages of ``model``)."""
+    from rbg_tpu_torch.engine.config import SamplingParams
+    from rbg_tpu_torch.models.config import get_config
+
+    m = get_config(model)
+    rng = np.random.RandomState(12)
+    prompts = [rng.randint(1, m.vocab_size, n).tolist() for n in TP_TIER_PROMPT_LENS]
+    page = 2 * m.num_layers * 16 * m.num_kv_heads * m.head_dim_ * m.torch_dtype.itemsize
+    cfg = dict(model=model, max_seq_len=1024, prefill_chunk=512, multi_step=4, device=dev,
+               host_tier_bytes=TP_TIER_HOST_PAGES * page)
+    return prompts, SamplingParams(max_new_tokens=TP_TIER_NEW), cfg
+
+
+def tp_llama_loops(torch, np, mesh, rank, dev, model="llama3-8b"):
+    """llama3-8b's serving loops at tp 2, each on weights it draws itself
+    from the seed (rank-local): PDStreamPair(PD_LAYER_SPLIT,
+    PD_ADMIT_LAYERS) on a paced link, then the same pair at admit_layers
+    0; the last prompt's bundle through a two-rank DecodeService; the
+    two-rank EngineService on TP_LLAMA_SVC_LENS."""
+    from rbg_tpu_torch.engine.config import EngineConfig, SamplingParams
+    from rbg_tpu_torch.engine.pd import PDStreamPair
+    from rbg_tpu_torch.engine.service import DecodeService, EngineService
+    from rbg_tpu_torch.models.config import get_config
+    from rbg_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    out = {}
+    V = get_config(model).vocab_size
+    rng = np.random.RandomState(13)
+    prompts = [rng.randint(1, V, n).tolist() for n in TP_PD_PROMPT_LENS]
+    sp = SamplingParams(max_new_tokens=PD_NEW_TOKENS)
+    pd_cfg = EngineConfig(model=model, num_pages=PD_NUM_PAGES, max_seq_len=2080,
+                          prefill_chunk=512, multi_step=4, device=dev)
+    deep = pd_cfg.model_config.num_layers > PD_ADMIT_LAYERS
+    pair = PDStreamPair(pd_cfg, device=dev, mesh=mesh,
+                        layer_split=PD_LAYER_SPLIT if deep else 1,
+                        admit_layers=PD_ADMIT_LAYERS if deep else 1, transport=paced_link())
+    reset_launches()
+    out["pd_sliced"] = pd_runs(pair, prompts, sp)
+    pair.admit_layers = 0
+    out["pd_full"] = pd_runs(pair, prompts, sp)
+    sync(torch, dev)
+    out["pd_launches"] = {k: LAUNCHES[k] for k in LLAMA_KERNELS}
+    out["pd_plans"] = pair.lockstep.stats()
+    bundle = pair.prefill.prefill(prompts[-1], sp)
+    out["bundle_bytes"] = bundle.nbytes
+    del pair
+    free(torch, dev)
+    dec = DecodeService(pd_cfg, device=dev, mesh=mesh)
+    if rank == 0:
+        out["decode"] = decode_drive(dec, [bundle], None)[0]
+    out["decode_state"] = settle_service(dec)
+    del dec, bundle
+    free(torch, dev)
+    svc = EngineService(llama_service_config(model, dev), device=dev, mesh=mesh)
+    reset_launches()
+    if rank == 0:
+        out["service"] = drive_service(svc, tp_service_jobs(
+            np, V, TP_LLAMA_SVC_LENS, TP_LLAMA_SVC_NEW, False))
+    out["service_state"] = settle_service(svc)
+    sync(torch, dev)
+    out["service_launches"] = {k: LAUNCHES[k] for k in LLAMA_KERNELS}
+    del svc
+    free(torch, dev)
+    return out
+
+
+def serves_loops(model):
+    """The tp phase drives the tier, PD and service loops at the dense GQA
+    model (llama3-8b; tiny in a CPU rehearsal)."""
+    from rbg_tpu_torch.models.config import get_config
+    cfg = get_config(model)
+    return not cfg.mla and not cfg.num_experts
+
+
+def llama_service_config(model, dev):
+    from rbg_tpu_torch.engine.config import EngineConfig
+    return EngineConfig(model=model, num_pages=TP_NUM_PAGES, max_seq_len=1024,
+                        max_batch=8, multi_step=4, device=dev)
+
 def tp_rank(torch, np, world, rank, port, out_path, dev="cuda", models=TP_MODELS):
     """One rank of the tp phase (``spawn_tp_ranks``): every rank makes the
     same calls. The tiny models from weights drawn on the CPU
@@ -3796,6 +4268,8 @@ def tp_rank(torch, np, world, rank, port, out_path, dev="cuda", models=TP_MODELS
         sync(torch, dev)
         res["tiny"][f"{model} {axes}"] = {"tokens": toks,
                                           "launches": {k: LAUNCHES[k] for k in kernels}}
+    res["services"] = tp_tiny_services(torch, np, make_mesh(tp=TP_WORLD, device=dev), rank,
+                                       dev, arrays)
     for model in models:
         mesh = make_mesh(tp=TP_WORLD, device=dev)
         peak_reset(torch, dev)
@@ -3809,7 +4283,8 @@ def tp_rank(torch, np, world, rank, port, out_path, dev="cuda", models=TP_MODELS
                       device=dev)
             eng = Engine(EngineConfig(multi_step=4, **kw), params=params, mesh=mesh,
                          sliced=True)
-            first = first_step_logits(torch, eng, tp_prompts(np, eng.mcfg.vocab_size)[0])
+            with moe_masks(torch) as rec:
+                first = first_step_logits(torch, eng, tp_prompts(np, eng.mcfg.vocab_size)[0])
             reset_launches()
             streams = tp_streams(torch, np, eng)
             launches = {k: LAUNCHES[k] for k in kernels}
@@ -3820,11 +4295,18 @@ def tp_rank(torch, np, world, rank, port, out_path, dev="cuda", models=TP_MODELS
                                                        sliced=True))
             key = f"{model}/{kv_dtype}"
             arrays[key] = first.float().cpu().numpy()
+            if rec["masks"]:
+                arrays[f"{key}/masks"] = np.stack(rec["masks"])
             res["big"][key] = {"tokens": streams, "launches": launches, "pool_bytes": pools_b,
                                "init": init, **reading}
             free(torch, dev)
+        loops = serves_loops(model)
+        if loops:
+            res["tier"] = tp_tier_drive(torch, np, params, mesh, dev, model)
         del params
         free(torch, dev)
+        if loops:
+            res["loops"] = tp_llama_loops(torch, np, mesh, rank, dev, model)
     np.savez(out_path, results=np.array(json.dumps(res)), **arrays)
     dist.barrier()
     dist.destroy_process_group()
@@ -3879,6 +4361,191 @@ def spawn_tp_ranks(out_dir, dev="cuda", models=TP_MODELS):
     return out, time.perf_counter() - t0
 
 
+def service_reading(out):
+    """TTFT, ITL and TPOT p50 over a service drive's requests (ms). ITL is
+    every gap between two tokens as they reached the caller: a decode
+    window delivers its multi_step tokens together, so most gaps are ~0
+    and TPOT (each request's mean gap after its first token) reads the
+    pace."""
+    ttft = [o["ttft_s"] for o in out if o["ttft_s"] is not None]
+    itl = [g for o in out for g in o["itl_s"]]
+    tpot = [sum(o["itl_s"]) / len(o["itl_s"]) for o in out if o["itl_s"]]
+    ms = lambda v: statistics.median(v) * 1e3 if v else None  # noqa: E731
+    return {"ttft_p50_ms": ms(ttft), "itl_p50_ms": ms(itl), "tpot_p50_ms": ms(tpot),
+            "requests": len(out)}
+
+
+def check_tiny_services(torch, np, ranks, dev, card):
+    """The one-rank counterparts on the card of tiny's two-rank services:
+    the same submissions through a one-rank EngineService (the 6 uncut
+    streams equal), the ranks' bundles and stream through a one-rank
+    DecodeService, the same prompts through a one-rank PDStreamPair
+    (layer_split 1, admit_layers 1). Both ranks' engines ended with equal
+    metrics and no row. Returns the ranks' launches of the service drive."""
+    from rbg_tpu_torch.engine.config import SamplingParams
+    from rbg_tpu_torch.engine.pd import KVBundle, PDStreamPair
+    from rbg_tpu_torch.engine.service import DecodeService, EngineService
+    from rbg_tpu_torch.kvtransfer.transport import FakeICITransport
+    from rbg_tpu_torch.models.config import get_config
+    from rbg_tpu_torch.models.llama import init_params
+
+    got = ranks[0][0]["services"]
+    params = params_to(init_params(get_config("tiny"), 0, "cpu"), dev)
+    cfg = tiny_service_config(dev)
+    svc = EngineService(cfg, params=params, device=dev)
+    want = drive_service(svc, tp_service_jobs(np, 256, TP_SVC_PROMPT_LENS, 16, True))
+    svc.stop()
+    uncut = [j for j, o in enumerate(got["service"]) if o["kind"] == "run"]
+    streams_equal = all(got["service"][j]["tokens"] == want[j]["tokens"] for j in uncut)
+    cut = {o["kind"]: {"tokens": len(o["tokens"]), "error": o["error"]}
+           for o in got["service"] if o["kind"] != "run"}
+    cut_ok = (0 < cut["cancel"]["tokens"] < TP_SVC_LONG and cut["cancel"]["error"] is None
+              and 0 < cut["deadline"]["tokens"] < TP_SVC_LONG
+              and str(cut["deadline"]["error"]).startswith("DeadlineExceeded"))
+    states = [r["services"][k] for r, _ in ranks for k in ("service_state", "decode_state")]
+    clean = all(st["running"] == st["waiting"] == st["live"] == 0 and not st["loop_alive"]
+                and st["fault"] is None for st in states)
+    metrics_equal = all(len({json.dumps(r["services"][k]["metrics"]) for r, _ in ranks}) == 1
+                        for k in ("service_state", "decode_state"))
+    arrays = ranks[0][1]
+    bundles = []
+    for j in range(2):
+        prompt, first, wire = json.loads(str(arrays[f"tiny_bundle{j}/meta"]))
+        bundles.append(KVBundle(prompt=prompt, first_token=first, dtype=wire,
+                                k_data=arrays[f"tiny_bundle{j}/k"],
+                                v_data=arrays[f"tiny_bundle{j}/v"]))
+    dec = DecodeService(cfg, params=params, device=dev)
+    dec_want = decode_drive(dec, bundles, bundles[0])
+    dec.stop()
+    pair = PDStreamPair(cfg, params=params, device=dev, layer_split=1, admit_layers=1,
+                        transport=FakeICITransport(**TP_TINY_LINK))
+    pd_want = pd_runs(pair, [b.prompt for b in bundles], SamplingParams(max_new_tokens=16))
+    pd_ranks = [r["services"]["pd"] for r, _ in ranks]
+    follower = ranks[1][0]["services"]["follower_submit"]
+    emit("tp_services", model="tiny", world=TP_WORLD,
+         engine_service={"uncut_streams_equal_one_rank": streams_equal, "cut": cut,
+                         "reading_tp2": service_reading(got["service"]),
+                         "reading_tp1": service_reading(want)},
+         decode_service={"tokens_equal_one_rank": got["decode"] == dec_want,
+                         "bundles": 2, "streams": 1},
+         pd_layer_sliced={"tokens_equal_one_rank": all(p["tokens"] == pd_want["tokens"]
+                                                      for p in pd_ranks),
+                          "layers_at_admit": [p["layers_at_admit"] for p in pd_ranks],
+                          "one_rank_layers_at_admit": pd_want["layers_at_admit"]},
+         ranks_metrics_equal=metrics_equal, no_rows_left=clean,
+         follower_submit=follower,
+         states=[{k: r["services"][k] for k in ("service_state", "decode_state")}
+                 for r, _ in ranks],
+         pd_plans=[r["services"]["pd_plans"] for r, _ in ranks],
+         launches=[r["services"]["launches"] for r, _ in ranks], card=card)
+    engaged = all(any(a is not None for a in p["layers_at_admit"]) for p in pd_ranks)
+    if not (streams_equal and cut_ok and clean and metrics_equal and engaged
+            and got["decode"] == dec_want and follower and "rank 0" in follower
+            and all(p["tokens"] == pd_want["tokens"] for p in pd_ranks)):
+        raise AssertionError(f"tp services (tiny): streams {streams_equal}, cut {cut}, "
+                             f"clean {clean}, metrics {metrics_equal}, engaged {engaged}, "
+                             f"decode {got['decode']} vs {dec_want}, follower {follower}, "
+                             f"pd {pd_ranks} vs {pd_want}")
+    if dev == "cuda":
+        for r, _ in ranks:
+            check_launches(r["services"]["launches"], LLAMA_KERNELS)
+    return [r["services"]["launches"] for r, _ in ranks]
+
+
+def check_llama_loops(torch, np, ranks, params, model, dev, card):
+    """llama3-8b's loops at tp 2 against the whole model on the card:
+    the host tier's promoted pages match their checksums on every rank,
+    pass 2 equals a tp 2 device-hit engine's tokens, and the page counts
+    equal a one-rank engine's at the same budget; the layer-sliced PD
+    admission engaged on both ranks with admit_layers 0's tokens, and a
+    DecodeService took the last prompt's bundle to the same tokens; the
+    two-rank service completed every request, each token judged against a
+    float32 forward (SPEC_LOGIT_BAND), beside a one-rank service's TTFT
+    and ITL. Returns the ranks' launches of the three drives."""
+    from rbg_tpu_torch.engine.config import EngineConfig
+    from rbg_tpu_torch.engine.engine import Engine
+    from rbg_tpu_torch.engine.service import EngineService
+    from rbg_tpu_torch.models.config import get_config
+
+    prompts, sp, cfg = tier_drive_inputs(np, model, dev)
+    one = Engine(EngineConfig(num_pages=TP_TIER_NUM_PAGES, **cfg), params=params)
+    for _ in range(2):
+        for p in prompts:
+            timed_generate(one, p, sp)
+    one_stats = one.host_tier.stats()
+    del one
+    free(torch, dev)
+    counts = ("spilled_pages", "promoted_pages", "evicted_pages", "pages")
+    tiers = [r["tier"] for r, _ in ranks]
+    tier_ok = all(t["mismatch"] == 0 and t["checked"] == t["stats"]["promoted_pages"] > 0
+                  and t["hits"] == t["device_hits"] and t["tokens"][1] == t["device_hit"]
+                  and t["stats"]["evicted_pages"] > 0 and t["closes"]
+                  and all(t["stats"][k] == one_stats[k] for k in counts) for t in tiers)
+    loops = [r["loops"] for r, _ in ranks]
+    sliced_ok = all(lp["pd_sliced"]["tokens"] == lp["pd_full"]["tokens"]
+                    and lp["pd_sliced"]["layers_at_admit"][0] is not None
+                    and lp["pd_sliced"]["tokens"] == loops[0]["pd_sliced"]["tokens"]
+                    for lp in loops)
+    decode_ok = loops[0]["decode"] == loops[0]["pd_full"]["tokens"][-1]
+    svc = EngineService(llama_service_config(model, dev), params=params, device=dev)
+    jobs = tp_service_jobs(np, get_config(model).vocab_size, TP_LLAMA_SVC_LENS,
+                           TP_LLAMA_SVC_NEW, False)
+    want = drive_service(svc, jobs)
+    svc.stop()
+    del svc
+    free(torch, dev)
+    got = loops[0]["service"]
+    complete = all(o["error"] is None and len(o["tokens"]) == TP_LLAMA_SVC_NEW for o in got)
+    judged = []
+    for (prompt, jsp, _), o in zip(jobs, got):
+        lg = f32_logits(torch, params, model, prompt + o["tokens"][:-1], "model", dev)
+        judged.append(judge(torch, lg[len(prompt) - 1:], len(prompt), o["tokens"], jsp, dev))
+        del lg
+    states = [lp[k] for lp in loops for k in ("service_state", "decode_state")]
+    clean = all(st["running"] == st["waiting"] == st["live"] == 0 and not st["loop_alive"]
+                and st["fault"] is None for st in states)
+    metrics_equal = all(len({json.dumps(lp[k]["metrics"]) for lp in loops}) == 1
+                        for k in ("service_state", "decode_state"))
+    emit("tp_loops", model=model, world=TP_WORLD,
+         collectives="gloo over one card (staged through the host)",
+         tier={"ranks": [{k: t[k] for k in ("stats", "checked", "mismatch", "host_hit_tokens",
+                                            "closes")} for t in tiers],
+               "one_rank": {k: one_stats[k] for k in counts + ("bytes", "max_bytes")},
+               "hit_depths": [{"host": t["hits"], "device": t["device_hits"]} for t in tiers],
+               "pass2_equals_device_hit": [t["tokens"][1] == t["device_hit"] for t in tiers],
+               "prompt_lens": TP_TIER_PROMPT_LENS, "num_pages": TP_TIER_NUM_PAGES,
+               "host_tier_bytes": cfg["host_tier_bytes"]},
+         pd={"layers_at_admit": [lp["pd_sliced"]["layers_at_admit"] for lp in loops],
+             "sliced_equals_full": [lp["pd_sliced"]["tokens"] == lp["pd_full"]["tokens"]
+                                    for lp in loops],
+             "prompt_lens": TP_PD_PROMPT_LENS, "plans": [lp["pd_plans"] for lp in loops]},
+         decode_service={"bundle_bytes": loops[0]["bundle_bytes"],
+                         "tokens_equal_pd": decode_ok,
+                         "plans": [lp["decode_state"]["plans"] for lp in loops]},
+         engine_service={"complete": complete,
+                         "judged": [{"ok": ok, "min_margin": m} for ok, m in judged],
+                         "band": SPEC_LOGIT_BAND,
+                         "reading_tp2_gloo": service_reading(got),
+                         "reading_tp1": service_reading(want),
+                         "plans": [lp["service_state"]["plans"] for lp in loops]},
+         ranks_metrics_equal=metrics_equal, no_rows_left=clean,
+         states=[{k: lp[k] for k in ("service_state", "decode_state")} for lp in loops],
+         card=card)
+    if not (tier_ok and sliced_ok and decode_ok and complete and clean and metrics_equal
+            and all(ok for ok, _ in judged)):
+        raise AssertionError(f"tp loops ({model}): tier {tier_ok}, pd {sliced_ok}, decode "
+                             f"{decode_ok}, service {complete} {judged}, clean {clean}, "
+                             f"metrics {metrics_equal}")
+    launches = []
+    for r, _ in ranks:
+        for k in ("pd_launches", "service_launches"):
+            launches.append(r["loops"][k])
+        launches.append(r["tier"]["launches"])
+        if dev == "cuda":
+            for lc in launches[-3:]:
+                check_launches(lc, LLAMA_KERNELS)
+    return launches
+
 def tp_phase(torch, np, card, dev="cuda", models=TP_MODELS):
     """Tensor-parallel serving at tp 2 as a gloo world of two processes on
     the one card (gloo stages every collective through the host: the
@@ -3888,7 +4555,9 @@ def tp_phase(torch, np, card, dev="cuda", models=TP_MODELS):
     tiny-mla tokens equal; llama3-8b and deepseek-v2-lite streams judged
     token by token against a float32 forward (SPEC_LOGIT_BAND, on a pool of
     the stream's kind), their first step's logits against the unsharded
-    engine's (TP_FIRST_BAND; MoE: TP_MOE_SHARE, TP_MOE_STD_FRAC), their
+    engine's (TP_FIRST_BAND where the kept experts agree, and at every
+    token with tp's experts forced on the unsharded engine; at most
+    TP_MOE_MOST_PAST of the tokens past it unforced), their
     split leaves and GQA pools halved, and
     every kernel of each case launched on the ranks. Returns the ranks'
     launches, summed."""
@@ -3897,6 +4566,7 @@ def tp_phase(torch, np, card, dev="cuda", models=TP_MODELS):
     from rbg_tpu_torch.models.config import get_config
     from rbg_tpu_torch.models.llama import init_params
 
+    t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
         ranks, seconds = spawn_tp_ranks(d, dev, models)
     launches = {k: 0 for k in LLAMA_KERNELS + INT8_KERNELS + MLA_KERNELS + MLA_INT8_KERNELS}
@@ -3923,11 +4593,14 @@ def tp_phase(torch, np, card, dev="cuda", models=TP_MODELS):
             raise AssertionError(f"tp {model} {axes}: {case['tokens']} vs unsharded {want}")
         if dev == "cuda":
             check_launches(case["launches"], kernels)
+    drives = check_tiny_services(torch, np, ranks, dev, card)
 
     greedy = SamplingParams()
     for model in models:
         params = init_params(get_config(model), 0, dev)
         whole = tree_bytes(params, model)
+        if serves_loops(model):
+            drives += check_llama_loops(torch, np, ranks, params, model, dev, card)
         for kv_dtype, kernels in tp_pools(get_config(model)):
             key = f"{model}/{kv_dtype}"
             rec = res0["big"][key]
@@ -3935,7 +4608,34 @@ def tp_phase(torch, np, card, dev="cuda", models=TP_MODELS):
                       device=dev)
             eng = Engine(EngineConfig(multi_step=1, **kw), params=params)
             pa, pb = tp_prompts(np, eng.mcfg.vocab_size)
-            first1 = first_step_logits(torch, eng, pa).float()
+            with moe_masks(torch) as rec1:
+                first1 = first_step_logits(torch, eng, pa).float()
+            first2 = torch.from_numpy(ranks[0][1][key]).to(dev)
+            # Rank 0's kept experts (the ranks see the same replicated
+            # hidden states and router); None for a dense model.
+            tp_masks = ranks[0][1].get(f"{key}/masks")
+            masks1 = np.stack(rec1["masks"]) if rec1["masks"] else None
+            margins1 = np.stack(rec1["margins"]) if rec1["margins"] else None
+            forced, controls = None, {}
+            if tp_masks is not None:
+                # The unsharded engine with tp's kept experts forced: no
+                # token swaps, so tp is held to the dense band at every
+                # token; and two other bfloat16 paths without tp (the
+                # controls), read against the unsharded engine.
+                with moe_masks(torch, force=tp_masks) as recf:
+                    gap = (first2 - first_step_logits(torch, eng, pa).float()).abs().amax(-1)
+                forced = {"max_abs": float(gap.max()),
+                          "past_band": int((gap > TP_FIRST_BAND).sum()),
+                          "cells_not_forced": int((np.stack(recf["masks"]) != tp_masks).sum())}
+                for name, how in TP_MOE_CONTROLS.items():
+                    with moe_masks(torch) as rc:
+                        gap = (first_step_logits(torch, eng, pa, **how).float()
+                               - first1).abs().amax(-1)
+                    # A chunked forward records [chunk][layer]: to [layer, token].
+                    calls = np.stack(rc["masks"])
+                    calls = calls.reshape(-1, len(masks1), *calls.shape[1:]).swapaxes(0, 1)
+                    controls[name] = swap_reading(np, gap.cpu().numpy(), TP_FIRST_BAND,
+                                                  calls.reshape(masks1.shape), masks1, margins1)
             pools1 = pool_bytes(eng)
             reading1 = decode_reading(torch, np, eng)
             del eng
@@ -3945,18 +4645,19 @@ def tp_phase(torch, np, card, dev="cuda", models=TP_MODELS):
             seqs = {k: p + rec["tokens"][k][:-1] for k, p in (("a", pa), ("b", pb))}
             f32 = {k: f32_logits(torch, params, model, q, kv_dtype, dev) for k, q in seqs.items()}
             r32 = f32["a"][:len(first1)]
-            first2 = torch.from_numpy(ranks[0][1][key]).to(dev)
             tok_max = (first2 - first1).abs().amax(-1)
             d_max = float(tok_max.max())
-            share = float((tok_max <= TP_FIRST_BAND).float().mean())
             ratio = float((first2 - r32).abs().mean() / (first1 - r32).abs().mean())
-            std = float(r32.std())
-            if get_config(model).num_experts:
-                limits = {"share_within_band": TP_MOE_SHARE,
-                          "max_abs": TP_MOE_STD_FRAC * std}
-            else:
-                limits = {"share_within_band": 1.0, "max_abs": TP_FIRST_BAND}
-            banded = share >= limits["share_within_band"] and d_max <= limits["max_abs"]
+            swaps = swap_reading(np, tok_max.cpu().numpy(), TP_FIRST_BAND, tp_masks, masks1,
+                                 margins1)
+            emit("tp_first_step_swaps", model=model, kv_dtype=kv_dtype, tp=swaps,
+                 forced=forced, controls=controls, card=card)
+            limits = {"same_masks_max_abs": TP_FIRST_BAND, "forced_max_abs": TP_FIRST_BAND,
+                      "past_band_tokens": int(TP_MOE_MOST_PAST * len(first1))}
+            banded = (swaps["max_abs_same_masks"] <= limits["same_masks_max_abs"]
+                      and swaps["past_band"] <= limits["past_band_tokens"]
+                      and (forced is None or (forced["max_abs"] <= limits["forced_max_abs"]
+                                              and forced["cells_not_forced"] == 0)))
             judged = [judge(torch, f32[k][len(p) - 1:], len(p), rec["tokens"][k], greedy, dev)
                       for k, p in (("a", pa), ("b", pb))]
             # The judge's own check: stream A with its middle token replaced
@@ -3977,8 +4678,8 @@ def tp_phase(torch, np, card, dev="cuda", models=TP_MODELS):
                  planted={"ok": planted[0], "min_margin": planted[1]},
                  band=SPEC_LOGIT_BAND,
                  first_step={"tokens": len(first1), "max_abs_vs_unsharded": d_max,
-                             "band": TP_FIRST_BAND, "share_within_band": share,
-                             "logit_std_f32": std, "limits": limits,
+                             "band": TP_FIRST_BAND, "swaps": swaps, "forced": forced,
+                             "logit_std_f32": float(r32.std()), "limits": limits,
                              "mean_vs_f32_ratio_to_unsharded": ratio,
                              "ratio_limit": BF16_VS_CONTROL},
                  launches=[r["big"][key]["launches"] for r, _ in ranks],
@@ -3998,14 +4699,18 @@ def tp_phase(torch, np, card, dev="cuda", models=TP_MODELS):
             if not (all(ok for ok, _ in judged) and not planted[0] and all(halves)
                     and banded and ratio <= BF16_VS_CONTROL):
                 raise AssertionError(f"tp {key}: judged {judged}, planted {planted}, "
-                                     f"bytes {halves}, first step {d_max} / {share} "
-                                     f"(limits {limits}) / {ratio}")
+                                     f"bytes {halves}, first step {d_max} / {swaps} / "
+                                     f"forced {forced} (limits {limits}) / {ratio}")
             if dev == "cuda":
                 for r, _ in ranks:
                     check_launches(r["big"][key]["launches"], kernels)
         del params
         free(torch, dev)
-    emit("tp_phase", seconds_ranks=seconds, launches=launches)
+    for lc in drives:
+        for k, n in lc.items():
+            launches[k] += n
+    emit("tp_phase", seconds_ranks=seconds, seconds=time.perf_counter() - t_phase,
+         launches=launches)
     return launches
 
 

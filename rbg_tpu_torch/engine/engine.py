@@ -169,12 +169,17 @@ class Engine:
         self.radix = (RadixCache(self.allocator, cfg.page_size)
                       if cfg.enable_radix_cache else None)
         # Host-DRAM spill tier under the device pool (engine/kvtier.py):
-        # radix evictions spill into it, admission promotes out of it.
+        # radix evictions spill into it, admission promotes out of it. Under
+        # tp each rank spills and promotes its own KV heads, so its tier is
+        # charged 1/heads_tp of the budget: the same pages stay resident,
+        # spill and are evicted as in a tier of whole pages under the whole
+        # budget, with no collective on the admission path.
         self.host_tier = None
         if cfg.host_tier_bytes and self.radix is not None \
                 and not self.cache.quantized:
             from rbg_tpu_torch.engine.kvtier import HostKVTier
-            self.host_tier = HostKVTier(cfg.page_size, cfg.host_tier_bytes)
+            self.host_tier = HostKVTier(cfg.page_size,
+                                        cfg.host_tier_bytes // self.cache.heads_tp)
         self.waiting: List[Request] = []
         self.running: List[Request] = []
         self.requests: Dict[int, Request] = {}
@@ -233,10 +238,6 @@ class Engine:
         if ep > 1 and not m.num_experts:
             raise ValueError(f"ep={ep} on {m.name}, a dense model: an ep axis "
                              "splits experts, and this model has none")
-        if tp > 1 and self.cfg.host_tier_bytes:
-            raise ValueError("host_tier_bytes with tp > 1: the host tier holds "
-                             "whole pages (ROADMAP.md queue 1 item 8: the host "
-                             "KV tier under tp)")
 
     def _shard_state(self, params: dict, sliced: bool = False) -> dict:
         """This rank's weights (the reference's ``_shard_state``): a whole

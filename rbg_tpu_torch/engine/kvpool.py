@@ -9,7 +9,10 @@ the pool's medium (Mooncake's DRAM/SSD tier analog); the device pool
 stays private to each engine. The host KV tier (``engine/kvtier.py``)
 keeps its spilled pages here. A page whose dtype numpy lacks (bfloat16)
 is stored as a view of its raw bits, so ``nbytes`` and the payload CRC
-are those of the device page.
+are those of the device page. Recency is a logical clock (one tick per
+match, extend or put), where the reference reads ``time.monotonic()``: the
+same eviction order wherever that clock advances between calls, and the
+same on every rank of a mesh whose host tiers see the same calls.
 
 * ``KVPoolServer`` — the ``kv-pool`` role's process
   (``python -m rbg_tpu_torch.engine.kvpool``): ops ``pool_match`` /
@@ -34,8 +37,8 @@ import json
 import os
 import socket
 import socketserver
+import itertools
 import ssl
-import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -45,6 +48,8 @@ from rbg_tpu_torch.kvtransfer.chunks import host_dtype, payload_checksum
 from rbg_tpu_torch.obs import names as obs_names
 from rbg_tpu_torch.obs.metrics import REGISTRY
 from rbg_tpu_torch.utils.locktrace import named_lock
+
+_ticks = itertools.count()
 
 
 class _Node:
@@ -62,7 +67,7 @@ class _Node:
         self.crc: Optional[int] = None
         self.children: Dict[int, "_Node"] = {}
         self.parent = parent
-        self.last_used = time.monotonic()
+        self.last_used = next(_ticks)
         self.nbytes = 0
         # Directory hash-chain key of the prefix ending at this node
         # (chunks.prefix_keys convention) — eviction invalidates it.
@@ -116,7 +121,7 @@ class KVPoolStore:
             node = self.root
             ks, vs, run = [], [], []
             i, n = 0, (len(tokens) // ps) * ps
-            now = time.monotonic()
+            now = next(_ticks)
             while i < n:
                 child = node.children.get(tuple(tokens[i:i + ps]))
                 if child is None or child.placeholder:
@@ -167,7 +172,7 @@ class KVPoolStore:
         with self._lock:
             node = self.root
             i = 0
-            now = time.monotonic()
+            now = next(_ticks)
             while i < start_tokens:
                 child = node.children.get(tuple(tokens[i:i + ps]))
                 if child is None:
@@ -306,7 +311,7 @@ class KVPoolStore:
         new_pages = 0
         with self._lock:
             node = self.root
-            now = time.monotonic()
+            now = next(_ticks)
             for key, kp, vp, dk, crc in staged:
                 child = node.children.get(key)
                 if child is not None:

@@ -43,10 +43,12 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from rbg_tpu_torch.engine import lockstep
 from rbg_tpu_torch.engine.config import EngineConfig, SamplingParams
 from rbg_tpu_torch.engine.engine import Engine, Request
 from rbg_tpu_torch.engine.kvcache import pages_for_tokens
 from rbg_tpu_torch.engine.kvtier import _to_device, _to_host
+from rbg_tpu_torch.engine.lockstep import LockstepError, Plan
 from rbg_tpu_torch.kvtransfer.chunks import (KVChunk, StreamError, StreamFin,
                                              StreamFirstToken, StreamMeta,
                                              slab_to_chunks)
@@ -505,6 +507,33 @@ class DecodeWorker:
         # release its pages instead of holding KV capacity forever.
         self._stream_commits: Dict[str, _StreamCommit] = {}
         self.stream_ttl_s = 120.0
+        # A leading DecodeService's plan: every engine call this worker
+        # makes (page allocations and releases, page commits, admissions)
+        # is appended in order, for the followers' ``replay``. None: none
+        # recorded.
+        self.journal: Optional[list] = None
+        # A PD pair over a mesh: the leader's verdict on each layer window
+        # of the layer-sliced chain (``_wait_layer_watermark``).
+        self.lockstep: Optional[lockstep.Lockstep] = None
+
+    # ---- the engine calls a leader records and a follower replays ----
+
+    def _alloc(self, n: int) -> Optional[List[int]]:
+        return lockstep.record(self.journal, "alloc", self.engine._alloc, n)
+
+    def _release(self, pages: List[int]) -> None:
+        lockstep.record(self.journal, "release", self.engine.allocator.release, pages)
+
+    def replay(self, op: tuple) -> None:
+        """A follower's replay of one recorded call on this rank's engine:
+        the same pages allocated, the same host pages committed (this
+        rank's KV heads of them), the same request admitted under the same
+        id, or ``LockstepError``."""
+        calls = {"alloc": self.engine._alloc, "release": self.engine.allocator.release,
+                 "commit": self._write_pages, "admit_row": self._admit_row_now}
+        if op[0] not in calls:
+            raise LockstepError(f"a decode worker replays no {op[0]!r}")
+        lockstep.replay(op, calls[op[0]])
 
     # ---- shared commit primitive ----
 
@@ -512,6 +541,13 @@ class DecodeWorker:
                       v_host: np.ndarray, wire: str,
                       layer_lo: Optional[int] = None,
                       layer_hi: Optional[int] = None) -> None:
+        lockstep.record(self.journal, "commit", self._write_pages, pages, k_host, v_host,
+                        wire, layer_lo, layer_hi)
+
+    def _write_pages(self, pages: List[int], k_host: np.ndarray,
+                     v_host: np.ndarray, wire: str,
+                     layer_lo: Optional[int] = None,
+                     layer_hi: Optional[int] = None) -> None:
         """Write host K/V pages into the device pool in place: staging
         (one host-to-device copy per pool, of this rank's KV heads under
         tp) outside the commit lock, the ``index_copy_`` on the page axis
@@ -553,7 +589,7 @@ class DecodeWorker:
         eng._grammar_check(sampling)
         n_pages = bundle.k_data.shape[1]
         need = pages_for_tokens(len(prompt) + 1, eng.cfg.page_size)
-        pages = eng._alloc(need)
+        pages = self._alloc(need)
         if pages is None:
             raise RuntimeError("decode engine out of KV pages")
         # Context-manager form: a raise in the page import must still end
@@ -566,7 +602,7 @@ class DecodeWorker:
             rid = self._admit_row(prompt, bundle.first_token, pages,
                                   sampling)
         except Exception:
-            eng.allocator.release(pages)
+            self._release(pages)
             raise
         self.metrics["bundles"] += 1
         self.metrics["bytes_in"] += bundle.nbytes
@@ -580,6 +616,11 @@ class DecodeWorker:
         handling. The caller releases pages on a raise. The row joins the
         engine's NEXT decode window: a window in flight keeps its own rows
         (the fused step drains it when its batch changes)."""
+        return lockstep.record(self.journal, "admit_row", self._admit_row_now,
+                               list(prompt), int(first_token), pages, sampling)
+
+    def _admit_row_now(self, prompt: List[int], first_token: int,
+                       pages: List[int], sampling: SamplingParams) -> int:
         eng = self.engine
         lora_idx = eng._resolve_lora(sampling)
         req = Request(prompt, sampling)
@@ -645,7 +686,7 @@ class DecodeWorker:
                 # window chain cancels it and releases them there) —
                 # releasing here too would double-free the page ids.
                 if sc.pages is not None and not sc.admitted:
-                    eng.allocator.release(sc.pages)
+                    self._release(sc.pages)
                 del self._stream_commits[sid]
                 self.metrics["stream_errors"] += 1
                 REGISTRY.inc(obs_names.KVT_STREAMS_TOTAL,
@@ -657,7 +698,7 @@ class DecodeWorker:
             if sc.pages is None:
                 need = pages_for_tokens(len(a.meta.prompt) + 1,
                                         eng.cfg.page_size)
-                pages = eng._alloc(need)
+                pages = self._alloc(need)
                 if pages is None:
                     continue   # retry when pages free up
                 sc.pages = pages
@@ -732,7 +773,7 @@ class DecodeWorker:
         sc = self._stream_commits[rx.stream_id]
         if sc.pages is None:
             need = pages_for_tokens(len(prompt) + 1, eng.cfg.page_size)
-            sc.pages = eng._alloc(need)
+            sc.pages = self._alloc(need)
             if sc.pages is None:
                 del self._stream_commits[rx.stream_id]
                 # StreamError (not RuntimeError): the wire code lets the
@@ -748,7 +789,7 @@ class DecodeWorker:
             rid = self._admit_row(prompt, int(a.first_token), pages,
                                   sampling)
         except Exception:
-            eng.allocator.release(pages)
+            self._release(pages)
             raise
         self.metrics["streams_in"] += 1
         self.metrics["bytes_in"] += a.bytes_seen
@@ -792,7 +833,39 @@ class DecodeWorker:
         """Block (pumping commits) until the first ``hi`` layers are fully
         on device. A layer missing its watermark degrades to waiting — the
         same wait the full-coverage path would pay — bounded by
-        ``deadline`` and the receiver's error state, never a wedge."""
+        ``deadline`` and the receiver's error state, never a wedge.
+
+        Under a lockstep (a PD pair over a mesh) the window runs on every
+        rank or on none: the leader waits for its own layers and broadcasts
+        its verdict; a follower takes it and waits for its own layers; then
+        every rank answers, and a window any rank missed fails the chain on
+        every rank."""
+        lock = self.lockstep
+        if lock is None:
+            return self._await_layers(sc, hi, deadline)
+        err = None
+        if lock.leader:
+            try:
+                self._await_layers(sc, hi, deadline)
+            except StreamError as e:
+                err = e
+            lock.send(Plan(kind="window", value=err is None))
+        elif not lock.recv("window").value:
+            err = StreamError(f"stream {sc.receiver.stream_id}: rank 0's layer "
+                              f"window {hi} failed")
+        else:
+            try:
+                self._await_layers(sc, hi, deadline)
+            except StreamError as e:
+                err = e
+        if not lock.agree(err is None) and err is None:
+            err = StreamError(f"stream {sc.receiver.stream_id}: layer window {hi} "
+                              "failed on another rank")
+        if err is not None:
+            raise err
+
+    def _await_layers(self, sc: _StreamCommit, hi: int,
+                      deadline: Optional[float]) -> None:
         rx = sc.receiver
         while self._device_layer_coverage(sc) < hi:
             if rx.error() is not None:
@@ -829,7 +902,9 @@ class DecodeWorker:
         sampling = sampling or SamplingParams()
         eng = self.engine
         rx = receiver
-        if rx.error() is not None:
+        # Under a lockstep a stream error is the first window's verdict, so
+        # every rank fails the chain together.
+        if rx.error() is not None and self.lockstep is None:
             raise StreamError(rx.error())
         if sampling.lora is not None:
             # The layer-window forward has no adapter path — callers route
@@ -853,7 +928,7 @@ class DecodeWorker:
         sc = self._stream_commits[sid]
         if sc.pages is None:
             need = pages_for_tokens(len(prompt) + 1, eng.cfg.page_size)
-            sc.pages = eng._alloc(need)
+            sc.pages = self._alloc(need)
             if sc.pages is None:
                 del self._stream_commits[sid]
                 raise StreamError("decode engine out of KV pages")
@@ -865,7 +940,7 @@ class DecodeWorker:
             rid = self._admit_row(prompt, int(a.first_token), pages,
                                   sampling)
         except Exception:
-            eng.allocator.release(pages)
+            self._release(pages)
             del self._stream_commits[sid]
             raise
         # Page ownership moved to the request — a later stream error must
@@ -999,7 +1074,7 @@ class DecodeWorker:
         pages recycle. Loop thread only."""
         sc = self._stream_commits.pop(receiver.stream_id, None)
         if sc is not None and sc.pages is not None:
-            self.engine.allocator.release(sc.pages)
+            self._release(sc.pages)
 
 
 class PDPair:
@@ -1041,7 +1116,17 @@ class PDStreamPair:
     """In-process PD pair over an explicit ``kvtransfer`` transport — the
     chunked/overlapped twin of ``PDPair``. ``stream=False`` sends the SAME
     frames whole (every chunk after prefill completes, admission only at
-    FIN): the whole-bundle baseline measured over the identical link."""
+    FIN): the whole-bundle baseline measured over the identical link.
+
+    Over a mesh every rank runs the pair on its own link, making the same
+    calls. When a row is admitted, and whether layer-sliced or at full
+    coverage, hangs on when each rank's chunks land, so the mesh's rank 0
+    decides it and broadcasts it (``engine/lockstep.py``); every other
+    rank waits until its own stream reaches that coverage and takes the
+    same branch, and every rank answers whether it got there (a rank that
+    did not fails the attempt on every rank, and all retry). The
+    layer-sliced chain runs each window on every rank or on none
+    (``DecodeWorker._wait_layer_watermark``)."""
 
     def __init__(self, cfg: EngineConfig, params: Optional[dict] = None,
                  device=None, transport=None, layer_split: int = 0,
@@ -1052,13 +1137,8 @@ class PDStreamPair:
         self.decode = DecodeWorker(cfg, params=self.prefill.engine.params,
                                    device=self.prefill.engine.device, mesh=mesh,
                                    sliced=True)
-        if admit_layers and self.prefill.engine.tp > 1:
-            # Whether a row is admitted at layer coverage or at full coverage
-            # depends on when each rank's chunks land, so the ranks would run
-            # different forwards and their collectives would not pair up.
-            raise ValueError("admit_layers with tp > 1: layer-sliced admission "
-                             "is timed per rank (ROADMAP.md queue 1 item 8: a "
-                             "multi-rank EngineService, whose rank 0 decides)")
+        self.lockstep = lockstep.of(mesh)
+        self.decode.lockstep = self.lockstep
         self.transport = transport or InProcTransport()
         self.layer_split = layer_split
         # > 0: admit at layer-k coverage and run the first decode step as
@@ -1109,36 +1189,42 @@ class PDStreamPair:
             # (stream arm) / at FIN (whole-bundle semantics).
             self.decode.begin_stream(rx)
             deadline = time.monotonic() + recv_timeout
+            lock = self.lockstep
+            if lock is not None and not lock.leader:
+                coverage = lock.recv("admit").value
+                ok = (coverage not in ("layers", "full")
+                      or self._await_coverage(rx, coverage, stream, deadline))
+            else:
+                coverage = self._coverage(rx, sampling, stream, deadline)
+                ok = True
+                if lock is not None:
+                    lock.send(Plan(kind="admit", value=coverage))
+            if lock is not None and not lock.agree(ok):
+                # A follower's own stream failed or ran out of time before
+                # it reached rank 0's coverage: every rank fails this
+                # attempt and retries (token-exact: decode never started).
+                coverage = "error"
             rid = None
-            while rid is None:
-                if rx.error() is not None:
-                    last_err = rx.error()
-                    self.decode.abandon_stream(rx)
-                    break
-                self.decode.pump_streams()
-                if (self.admit_layers > 0 and stream
-                        and sampling.lora is None and not rx.ready()
-                        and rx.ready_layers(self.admit_layers)):
-                    # Layer-sliced early admission: layer-k coverage is in
-                    # but full coverage is not — start decoding under the
-                    # transfer tail. A mid-chain stream failure cancels
-                    # the row before any token is emitted, so falling into
-                    # the retry loop stays token-exact.
-                    try:
-                        rid = self.decode.finalize_stream_layer_sliced(
-                            rx, sampling, min_layers=self.admit_layers,
-                            deadline=deadline)
-                    except StreamError as e:
-                        last_err = str(e)
-                    break
-                if rx.ready() and (stream or rx.t_fin is not None):
-                    rid = self.decode.finalize_stream(rx, sampling)
-                    break
-                if time.monotonic() >= deadline:
-                    self.decode.abandon_stream(rx)
-                    raise StreamError(
-                        f"stream {sid} never became ready")
-                time.sleep(0.0002)
+            if coverage == "error":
+                last_err = rx.error() or "rank 0's stream failed"
+                self.decode.abandon_stream(rx)
+            elif coverage == "timeout":
+                self.decode.abandon_stream(rx)
+                raise StreamError(f"stream {sid} never became ready")
+            elif coverage == "layers":
+                # Layer-sliced early admission: layer-k coverage is in but
+                # full coverage is not — start decoding under the transfer
+                # tail. A mid-chain stream failure cancels the row before
+                # any token is emitted, so falling into the retry loop
+                # stays token-exact.
+                try:
+                    rid = self.decode.finalize_stream_layer_sliced(
+                        rx, sampling, min_layers=self.admit_layers,
+                        deadline=deadline)
+                except StreamError as e:
+                    last_err = str(e)
+            else:
+                rid = self.decode.finalize_stream(rx, sampling)
             if rid is None:
                 continue   # retry (token-exact: decode never started)
             tokens = [first_token]
@@ -1167,6 +1253,42 @@ class PDStreamPair:
                     else 0}
         raise StreamError(
             f"stream failed after {max_retries + 1} attempts: {last_err}")
+
+    def _coverage(self, rx, sampling: SamplingParams, stream: bool,
+                  deadline: float) -> str:
+        """Commit chunks as they land until the row can be admitted:
+        "layers" (layer-k coverage but not full: the layer-sliced chain),
+        "full" (at coverage on the stream arm, at FIN on the whole-bundle
+        arm), "error" (the receiver failed) or "timeout"."""
+        while True:
+            if rx.error() is not None:
+                return "error"
+            self.decode.pump_streams()
+            if (self.admit_layers > 0 and stream and sampling.lora is None
+                    and not rx.ready() and rx.ready_layers(self.admit_layers)):
+                return "layers"
+            if rx.ready() and (stream or rx.t_fin is not None):
+                return "full"
+            if time.monotonic() >= deadline:
+                return "timeout"
+            time.sleep(0.0002)
+
+    def _await_coverage(self, rx, coverage: str, stream: bool,
+                        deadline: float) -> bool:
+        """A follower's wait for its own stream to reach rank 0's coverage
+        ("layers" or "full"); False where its receiver fails or the
+        deadline passes first (this rank cannot follow)."""
+        while True:
+            if rx.error() is not None:
+                return False
+            self.decode.pump_streams()
+            if rx.ready() and (stream or rx.t_fin is not None):
+                return True
+            if coverage == "layers" and rx.ready_layers(self.admit_layers):
+                return True
+            if time.monotonic() >= deadline:
+                return False
+            time.sleep(0.0002)
 
     def generate(self, prompts: List[List[int]],
                  sampling: Optional[SamplingParams] = None,

@@ -6,12 +6,20 @@ TPU: only whole frozen pages are shared (no copy-on-write on device), so a
 cache hit contributes ``(match_len // page_size) * page_size`` reusable
 tokens. Eviction is LRU over leaves, integrated with the PageAllocator's
 refcounts: a cached page is freed only when no running request references it.
+
+Recency is a logical clock (one tick per touch), where the reference reads
+``time.monotonic()``: the same order wherever that clock advances between
+touches, and ties broken by the trie alone. The ranks of a mesh
+(``Engine(mesh=...)``), making the same calls, so evict the same leaves
+(and spill the same pages to a host tier) whatever their clocks read.
 """
 
 from __future__ import annotations
 
-import time
+import itertools
 from typing import Dict, List, Optional, Tuple
+
+_ticks = itertools.count()
 
 
 class _Node:
@@ -22,7 +30,7 @@ class _Node:
         self.pages = pages       # physical page ids, len == len(key)/page_size
         self.children: Dict[int, "_Node"] = {}
         self.parent = parent
-        self.last_used = time.monotonic()
+        self.last_used = next(_ticks)
 
 
 class RadixCache:
@@ -45,7 +53,7 @@ class RadixCache:
         i = 0
         n = len(tokens)
         while True:
-            node.last_used = time.monotonic()
+            node.last_used = next(_ticks)
             if i >= n:
                 break
             child = node.children.get(tokens[i])
@@ -116,7 +124,7 @@ class RadixCache:
             kl = len(child.key)
             if tuple(tokens[i:i + kl]) == child.key:
                 node = child
-                node.last_used = time.monotonic()
+                node.last_used = next(_ticks)
                 i += kl
                 continue
             # Diverging inside a node: split at the longest common

@@ -55,28 +55,17 @@ def main(argv=None) -> int:
     import torch
     import torch.distributed as dist
 
-    from rbg_tpu_torch.parallel.mesh import device_type
+    from rbg_tpu_torch.parallel.mesh import contract_world, device_type, init_world
 
-    kind = device_type(args.device)
+    device_type(args.device)   # no card and no --device cpu: fail before binding
     srv = socketserver.ThreadingTCPServer(("127.0.0.1", port), Handler)
     srv.allow_reuse_address = True
     srv.daemon_threads = True
     threading.Thread(target=srv.serve_forever, daemon=True).start()
     print(f"rendezvous-check listening on {port}", flush=True)
 
-    coordinator = os.environ["RBG_JAX_COORDINATOR_ADDRESS"]
-    num = int(os.environ["RBG_JAX_NUM_PROCESSES"])
-    pid = int(os.environ["RBG_JAX_PROCESS_ID"])
-    if os.environ.get("RBG_REGISTRY_PATH"):
-        coordinator = "127.0.0.1:" + coordinator.rsplit(":", 1)[1]
-
-    dev = torch.device("cpu")
-    if kind == "cuda":
-        dev = torch.device("cuda", pid % torch.cuda.device_count())
-        torch.cuda.set_device(dev)
-    dist.init_process_group("nccl" if kind == "cuda" else "gloo",
-                            init_method=f"tcp://{coordinator}",
-                            world_size=num, rank=pid)
+    coordinator, num, pid = contract_world()
+    dev = init_world(coordinator, num, pid, args.device)
 
     # The leader broadcasts the group identity; everyone counts the devices.
     group = os.environ.get("RBG_GROUP_NAME", "")

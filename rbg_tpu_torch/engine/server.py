@@ -38,6 +38,11 @@ it after, and registers them in the cluster prefix directory the pool
 hosts under ``--advertise-addr``; ``--kv-stream off`` keeps the
 whole-bundle wire. ``start_server`` serves an existing EngineService (or
 a PrefillWorker / DecodeService) from a thread of the calling process.
+Under the control plane's multi-process contract (``RBG_DISTRIBUTED=1``,
+``RBG_JAX_NUM_PROCESSES`` > 1, ``RBG_JAX_COORDINATOR_ADDRESS``,
+``RBG_JAX_PROCESS_ID``) the process first joins that world (nccl on the
+card, gloo with ``--device cpu``), then serves its role unsharded; the
+ready line names its rank.
 """
 
 from __future__ import annotations
@@ -748,6 +753,17 @@ def serve(args) -> None:
 
     cfg = build_config(args)
     cfg.validate()  # fail fast on bad flags, before the port binds
+    # The control plane's multi-process contract (RBG_DISTRIBUTED=1 and
+    # RBG_JAX_NUM_PROCESSES > 1), read as the reference's serve() reads it:
+    # the world forms before the role is built. Each process then serves its
+    # own role unsharded, as the reference's does (its mesh_spec is inert).
+    world = ""
+    if (os.environ.get("RBG_DISTRIBUTED", "0") == "1"
+            and int(os.environ.get("RBG_JAX_NUM_PROCESSES", "1")) > 1):
+        from rbg_tpu_torch.parallel.mesh import contract_world, init_world
+        coordinator, num, rank = contract_world()
+        init_world(coordinator, num, rank, args.device)
+        world = f" world={rank}/{num}"
     # The windowed sampler the `slo` op reads starts with the process.
     timeseries.ensure_started()
     drain_deadline_s = float(
@@ -790,7 +806,7 @@ def serve(args) -> None:
         setattr(server, {"prefill": "prefill", "decode": "decode"}.get(
             cfg.mode, "service"), role)
         print(f"engine ready mode={cfg.mode} model={cfg.model} "
-              f"device={role.engine.device} addr={server.addr}", flush=True)
+              f"device={role.engine.device} addr={server.addr}{world}", flush=True)
 
     threading.Thread(target=init_engine, daemon=True).start()
     print(f"engine listening on {server.addr}", flush=True)

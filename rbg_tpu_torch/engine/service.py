@@ -10,6 +10,11 @@ role: KV bundles and KV streams from many connections decode together
 (the loop commits inbound stream chunks into the page table between
 steps, ``_pump``).
 
+Over a mesh of several ranks (``mesh=``, every rank building the same
+service) the mesh's rank 0 leads: its loop decides and broadcasts each
+iteration's engine calls as a plan, and every other rank's loop replays
+them (``engine/lockstep.py``). Submissions go to rank 0 only.
+
 Admission: a full queue, a deadline the measured backlog cannot meet, or
 (with ``early_reject="auto"``) a predicted TTFT over the gate sheds the
 submission with ``Overloaded`` and a ``retry_after_s`` hint. A deadline
@@ -29,8 +34,10 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from rbg_tpu_torch.engine import lockstep
 from rbg_tpu_torch.engine.config import EngineConfig, SamplingParams, warm_prompt
 from rbg_tpu_torch.engine.engine import Engine
+from rbg_tpu_torch.engine.lockstep import LockstepError, Plan
 from rbg_tpu_torch.engine.protocol import (CODE_DEADLINE, DeadlineExceeded,
                                            Overloaded, Rejected)
 from rbg_tpu_torch.obs import names, trace
@@ -152,7 +159,8 @@ def _embed_batch(engine: Engine, prompts: List[List[int]]) -> List[List[float]]:
 class _BatchService:
     """The loop and its admission gates. Subclasses set ``engine`` before
     calling ``__init__`` and implement ``_admit(item, sampling) -> rid``
-    (raising fails just that request)."""
+    (raising fails just that request) and ``_replay(op)`` (a follower's
+    replay of one engine call a leader recorded with ``lockstep.record``)."""
 
     engine: Engine
     # Role label the SLO judgments carry.
@@ -182,12 +190,24 @@ class _BatchService:
         self._stopped = False
         self._queue: List[Tuple[object, SamplingParams, Pending]] = []
         self._cancels: List[Pending] = []
+        # Embeddings forwards waiting for the loop thread (several ranks).
+        self._embeds: list = []
         # Inbound KV stream receivers awaiting loop-thread adoption
         # (DecodeService.watch_stream fills it; _pump drains it).
         self._new_streams: List[object] = []
         self._done_times = collections.deque(maxlen=_RATE_WINDOW)
-        self._thread = threading.Thread(target=self._loop, daemon=True,
-                                        name=type(self).__name__.lower())
+        # Over several ranks: the plan broadcast, this iteration's engine
+        # calls in order (the leader's plan; None on one rank), the last
+        # plan's time (the heartbeat) and the fault that ended the loop.
+        self._lockstep = lockstep.of(self.engine.mesh)
+        self.leading = self._lockstep is None or self._lockstep.leader
+        self._ops: Optional[list] = (
+            [] if self._lockstep is not None and self.leading else None)
+        self._last_plan = time.monotonic()
+        self.fault: Optional[BaseException] = None
+        self._thread = threading.Thread(
+            target=self._loop if self.leading else self._follow, daemon=True,
+            name=type(self).__name__.lower())
         self._thread.start()
 
     # -- subclass hooks --
@@ -203,6 +223,115 @@ class _BatchService:
         """The prompt tokens of a submission, for the TTFT predictor (None:
         no prefill work here)."""
         return None
+
+    def _replay(self, op: tuple) -> None:
+        raise LockstepError(f"no replay for {op[0]!r}")
+
+    # -- lockstep over a mesh --
+
+    def _refuse_follower(self) -> None:
+        if not self.leading:
+            raise ValueError(f"rank {self._lockstep.rank} follows rank 0's serving "
+                             "loop: submit to the mesh's rank 0")
+        if self.fault is not None:
+            raise RuntimeError(f"the serving loop stopped on a fault: {self.fault}")
+
+    def _cancel_row(self, rid: int) -> None:
+        lockstep.record(self._ops, "cancel", self.engine.cancel_request, rid)
+
+    def _decide(self, plan: Plan) -> None:
+        """The leader's broadcast of a plan and every rank's answer. A rank
+        that could not apply it, or a plan group that failed, raises
+        ``LockstepError`` here (the followers raise on their own)."""
+        try:
+            self._lockstep.send(plan)
+            ok = self._lockstep.agree(True)
+        except LockstepError:
+            raise
+        except RuntimeError as e:
+            raise LockstepError(f"the plan broadcast failed: {e}") from e
+        if not ok:
+            raise LockstepError(f"a follower could not apply rank 0's {plan.kind!r} plan")
+
+    def _run_embeds(self) -> None:
+        """Over several ranks an embeddings forward's collectives must pair
+        up too: the loop thread runs each one, after a plan that has every
+        follower run it with it (``EngineService.embed`` queues them)."""
+        with self._lock:
+            jobs, self._embeds = self._embeds, []
+        for prompts, done, out in jobs:
+            try:
+                self._decide(Plan(kind="embed", value=prompts))
+                out.append(embed_prompts(self.engine, prompts))
+            except Exception as e:  # noqa: BLE001 — the caller raises it
+                out.append(e)
+                if isinstance(e, LockstepError):
+                    done.set()
+                    raise
+            done.set()
+
+    def _lead(self, step: bool) -> None:
+        """The leader's broadcast before its step (or, idle, of any calls it
+        made and at least every HEARTBEAT_S)."""
+        if self._lockstep is None:
+            return
+        now = time.monotonic()
+        if step or self._ops or now - self._last_plan >= lockstep.HEARTBEAT_S:
+            plan = Plan(ops=list(self._ops), join_hint=self.engine.join_hint, step=step)
+            self._ops.clear()
+            self._last_plan = now
+            self._decide(plan)
+
+    def _follow(self) -> None:
+        """A follower's loop: replay each plan of the leader on this rank's
+        engine, answer whether it could, then step with it, until the
+        leader stops. A plan it cannot replay, a step that fails here (told
+        at the next plan) or a rank that could not follow ends the loop with
+        ``fault`` set (and raises in this thread)."""
+        eng, lock = self.engine, self._lockstep
+        failed: Optional[BaseException] = None
+        try:
+            while True:
+                plan = lock.recv()
+                if plan.kind == "stop":
+                    return
+                err = failed
+                if err is None:
+                    try:
+                        self._apply(plan)
+                    except Exception as e:  # noqa: BLE001 — every rank hears of it
+                        err = e
+                if not lock.agree(err is None):
+                    raise err or LockstepError(
+                        f"another rank could not apply rank 0's {plan.kind!r} plan")
+                try:
+                    if plan.kind == "embed":
+                        embed_prompts(eng, plan.value)
+                    elif plan.step:
+                        eng.step()
+                        eng.last_join_waits.clear()
+                except Exception as e:  # noqa: BLE001 — told at the next plan
+                    traceback.print_exc()
+                    failed = e
+        except BaseException as e:
+            self.fault = e
+            raise
+
+    def _apply(self, plan: Plan) -> None:
+        """A follower's replay of one plan's engine calls (before its
+        step)."""
+        eng = self.engine
+        if plan.kind == "embed":
+            return
+        if plan.kind != "loop":
+            raise LockstepError(f"a serving loop replays no {plan.kind!r} plan")
+        for op in plan.ops:
+            if op[0] == "cancel":
+                lockstep.replay(op, eng.cancel_request)
+            else:
+                self._replay(op)
+        eng.join_hint = plan.join_hint
+        lockstep.expect("has_work() before the step", eng.has_work(), plan.step)
 
     # -- admission control --
 
@@ -282,6 +411,7 @@ class _BatchService:
         seconds; raises ``Overloaded`` / ``DeadlineExceeded`` instead of
         queueing work that cannot be served. ``span`` (or the current span)
         parents the request's queue-wait and scan spans."""
+        self._refuse_follower()
         parent = span if span is not None else trace.current()
         qspan = parent.child(names.SPAN_SERVICE_QUEUE_WAIT)
         now = time.monotonic()
@@ -333,6 +463,7 @@ class _BatchService:
     def submit_wave(self, items) -> List[Pending]:
         """Atomically enqueue ``[(item, sampling), ...]`` so one loop
         iteration admits them together (up to max_batch)."""
+        self._refuse_follower()
         ps = []
         with self._lock:
             for item, sampling in items:
@@ -346,11 +477,14 @@ class _BatchService:
         """Build the CUDA kernels (first use compiles them) and run one wave
         per decode bucket size through the normal submit path, largest
         first. The prefill-rate EMA then restarts, so the early-reject
-        predictor learns from warm steps only. Returns elapsed seconds."""
+        predictor learns from warm steps only. Returns elapsed seconds. A
+        follower only builds: it replays the leader's warm waves."""
         t0 = time.monotonic()
         if self.engine.device.type == "cuda":
             from rbg_tpu_torch.ops.kernels.build import build
             build()
+        if not self.leading:
+            return time.monotonic() - t0
         eng = self.engine
         sizes = sorted({eng._bucket(b) for b in range(1, eng.cfg.max_batch + 1)},
                        reverse=True)
@@ -409,15 +543,18 @@ class _BatchService:
 
     def cancel(self, pending: Pending) -> None:
         """Abort a request (routed through the loop thread)."""
+        self._refuse_follower()
         with self._lock:
             self._cancels.append(pending)
         self._wake.set()
 
-    def stop(self) -> None:
+    def stop(self, timeout: float = 30.0) -> None:
+        """End the loop. The leader's last plan stops every follower; a
+        follower's stop waits for it."""
         self._stopped = True
         self._wake.set()
         if threading.current_thread() is not self._thread:
-            self._thread.join(timeout=30.0)
+            self._thread.join(timeout=timeout)
 
     # -- loop --
 
@@ -445,7 +582,7 @@ class _BatchService:
             with self._lock:
                 self.counters["deadline_running_aborts"] += len(expired)
         for rid, p in expired:
-            self.engine.cancel_request(rid)
+            self._cancel_row(rid)
             del self._pending[rid]
             REGISTRY.inc(names.SERVING_DEADLINE_EXCEEDED_TOTAL, stage="running")
             p.error = "deadline exceeded mid-generation (aborted)"
@@ -471,7 +608,10 @@ class _BatchService:
             REGISTRY.inc(names.SERVING_TOKENS_TOTAL, float(n), service=svc)
 
     def _fail_step(self, e: Exception) -> None:
-        """A device fault fails every admitted request, not the loop."""
+        """A device fault fails every admitted request, not the loop. Over
+        several ranks it ends the loop: the ranks' engines may have parted
+        in a step that failed part way, and no plan can join them again, so
+        the queue fails too and later submissions raise."""
         traceback.print_exc()
         with self._lock:
             self.counters["loop_errors"] += 1
@@ -482,11 +622,45 @@ class _BatchService:
             p.done.set()
         self._pending.clear()
         self.engine._dec = None   # the decode window's rows are gone
+        if self._lockstep is not None:
+            self.fault = e
+            self._stopped = True
+            with self._lock:
+                queued, self._queue = self._queue, []
+                embeds, self._embeds = self._embeds, []
+            for _, _, p in queued:
+                p.error = f"the serving loop stopped on a fault: {e}"
+                p.done.set()
+            for _, done, out in embeds:
+                out.append(RuntimeError(f"the serving loop stopped on a fault: {e}"))
+                done.set()
 
     def _loop(self):
+        if self._lockstep is None:
+            return self._serve()
+        try:
+            self._serve()
+        except LockstepError as e:
+            # Every rank answered no to the last plan, or the plan group
+            # failed: the followers raise on their own, no plan follows.
+            self._fail_step(e)
+            return
+        except Exception as e:  # noqa: BLE001 — the followers hear of it
+            self._fail_step(e)
+        # The leader's last plan: "stop", or the fault that ended its loop
+        # (a pump, step or admission fault), on which every follower raises.
+        plan = (Plan(kind="stop") if self.fault is None
+                else Plan(kind="fault", value=f"{type(self.fault).__name__}: {self.fault}"))
+        try:
+            self._lockstep.send(plan)
+        except Exception:  # noqa: BLE001 — a follower already gone
+            traceback.print_exc()
+
+    def _serve(self):
         eng = self.engine
         svc = type(self).__name__.lower()
         while not self._stopped:
+            self._run_embeds()
             now = time.monotonic()
             with self._lock:
                 cancels, self._cancels = self._cancels, []
@@ -531,10 +705,12 @@ class _BatchService:
                 self._pump()
             except Exception as e:  # noqa: BLE001 — the loop must keep serving
                 self._fail_step(e)
+                if self.fault is not None:
+                    return
             for p in cancels:
                 rid = next((r for r, q in self._pending.items() if q is p), None)
                 if rid is not None:
-                    eng.cancel_request(rid)
+                    self._cancel_row(rid)
                     del self._pending[rid]
                     p.span_scan.end(outcome="cancelled")
                 else:
@@ -551,7 +727,9 @@ class _BatchService:
                     self._pf_tokens = eng.metrics.get("prefill_tokens", 0)
                     self._wake.wait(0.01)
                     self._wake.clear()
+                self._lead(step=False)
                 continue
+            self._lead(step=True)
             try:
                 events = eng.step()
             except Exception as e:  # noqa: BLE001 — the loop must keep serving
@@ -592,30 +770,25 @@ class _BatchService:
                     self._done_times.append(time.monotonic())
 
 
-def _one_rank(mesh) -> None:
-    """A service's loop admits on its own clock: over several ranks each
-    loop would admit different rows and their collectives would not pair
-    up, so a mesh must hold this process alone."""
-    if mesh is not None and mesh.size() > 1:
-        raise ValueError(f"a serving loop over a mesh of {mesh.size()} ranks "
-                         "(ROADMAP.md queue 1 item 8: a multi-rank EngineService, "
-                         "rank 0's loop feeding the others)")
-
-
 class EngineService(_BatchService):
     def __init__(self, cfg: EngineConfig, params=None, device=None,
                  max_queue: Optional[int] = None, lora=(), mesh=None):
         """``lora``: (name, adapter, alpha) triples loaded into the engine
         (``Engine.load_lora``) before its loop starts. ``mesh``: the
-        engine's, of world size 1 for now (``_one_rank``)."""
-        _one_rank(mesh)
+        engine's (``Engine(mesh=...)``); over several ranks every rank
+        builds this service, rank 0 leads and takes the submissions."""
         self.engine = Engine(cfg, params=params, device=device, mesh=mesh)
         for name, adapter, alpha in lora:
             self.engine.load_lora(name, adapter, alpha=alpha)
         super().__init__(max_queue=max_queue)
 
     def _admit(self, prompt, sampling: SamplingParams) -> int:
-        return self.engine.add_request(prompt, sampling)
+        return lockstep.record(self._ops, "admit", self.engine.add_request, prompt, sampling)
+
+    def _replay(self, op: tuple) -> None:
+        if op[0] != "admit":
+            raise LockstepError(f"EngineService replays no {op[0]!r}")
+        lockstep.replay(op, self.engine.add_request)
 
     def _ingress_prompt(self, item) -> Optional[List[int]]:
         return item if isinstance(item, (list, tuple)) else None
@@ -631,8 +804,20 @@ class EngineService(_BatchService):
         return p.tokens, self.ttft(p)
 
     def embed(self, prompt: List[int]) -> List[float]:
-        """Mean-pooled final-norm hidden state of one prompt."""
-        return embed_prompts(self.engine, [prompt])[0]
+        """Mean-pooled final-norm hidden state of one prompt. Over several
+        ranks the loop thread runs it (``_run_embeds``)."""
+        if self._lockstep is None:
+            return embed_prompts(self.engine, [prompt])[0]
+        self._refuse_follower()
+        done, out = threading.Event(), []
+        with self._lock:
+            self._embeds.append(([prompt], done, out))
+        self._wake.set()
+        if not done.wait(DEFAULT_TIMEOUT_S):
+            raise TimeoutError("embedding timed out")
+        if isinstance(out[0], Exception):
+            raise out[0]
+        return out[0][0]
 
     def stats(self) -> dict:
         eng = self.engine
@@ -657,7 +842,6 @@ class DecodeService(_BatchService):
         from rbg_tpu_torch.engine.pd import DecodeWorker
         from rbg_tpu_torch.kvtransfer.stream import StreamRegistry
 
-        _one_rank(mesh)
         self.worker = DecodeWorker(cfg, params=params, device=device, mesh=mesh)
         self.engine = self.worker.engine
         for name, adapter, alpha in lora:
@@ -666,11 +850,19 @@ class DecodeService(_BatchService):
         # these; decode_stream requests consume them).
         self.kv_streams = StreamRegistry()
         super().__init__(max_queue=max_queue)
+        # Every engine call of a decode role goes through the worker
+        # (allocations, page commits, admissions): it records them into
+        # the leader's plan (no submission reaches the loop before this).
+        self.worker.journal = self._ops
+
+    def _replay(self, op: tuple) -> None:
+        self.worker.replay(op)
 
     def watch_stream(self, receiver) -> None:
         """Ask the loop thread to start committing this stream's chunks
         into the page table AS THEY ARRIVE (before admission) — callable
         from any connection thread."""
+        self._refuse_follower()
         with self._lock:
             self._new_streams.append(receiver)
         self._wake.set()
@@ -720,15 +912,15 @@ class DecodeService(_BatchService):
         from rbg_tpu_torch.engine.pd import KVBundle, wire_dtype
         from rbg_tpu_torch.kvtransfer.chunks import host_dtype
 
-        eng = self.engine
-        n_pages = pages_for_tokens(input_len, eng.cfg.page_size)
-        kshape = tuple(eng.cache.k_pages.shape)
-        vshape = tuple(eng.cache.v_pages.shape)
-        wire = wire_dtype(eng.cache.k_pages.dtype)
+        c = self.engine.cache
+        n_pages = pages_for_tokens(input_len, self.engine.cfg.page_size)
+        wire = wire_dtype(c.k_pages.dtype)
         return KVBundle(
             prompt=warm_prompt(input_len, wave, row), first_token=1,
-            k_data=np.zeros((kshape[0], n_pages) + kshape[2:], host_dtype(wire)),
-            v_data=np.zeros((vshape[0], n_pages) + vshape[2:], host_dtype(wire)),
+            k_data=np.zeros((c.k_pages.shape[0], n_pages) + c.whole_page_shape(c.k_pages),
+                            host_dtype(wire)),
+            v_data=np.zeros((c.v_pages.shape[0], n_pages) + c.whole_page_shape(c.v_pages),
+                            host_dtype(wire)),
             dtype=wire)
 
     def submit_bundle(self, bundle, sampling: SamplingParams,

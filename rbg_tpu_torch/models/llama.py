@@ -94,7 +94,7 @@ def init_params(cfg: ModelConfig, seed: int, device, mesh=None) -> dict:
         out = torch.empty(local, dtype=dt, device=device)
         for part in (out if stacked else [out]):
             w = torch.randn(shape[1:] if stacked else shape, generator=gen,
-                            device=device, dtype=torch.float32) * scale
+                            device=device, dtype=torch.float32).mul_(scale)
             if spec is not None:
                 w = local_shard(w, spec[1:] if stacked else spec, mesh)
             part.copy_(w)

@@ -26,8 +26,9 @@ one of ``AXES`` there either.
 
 from __future__ import annotations
 
+import os
 import socket
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -73,6 +74,35 @@ def _ensure_world(kind: str, want: int) -> None:
                          f"{backend!r}")
     if kind == "cuda":
         torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
+
+
+def contract_world(environ: Mapping[str, str] = os.environ) -> Tuple[str, int, int]:
+    """(coordinator address, number of processes, this process's id) from
+    the control plane's distributed-init contract (the reference's names:
+    ``RBG_JAX_COORDINATOR_ADDRESS``, ``RBG_JAX_NUM_PROCESSES``,
+    ``RBG_JAX_PROCESS_ID``). Local mode (a registry path present): the
+    coordinator's host part resolves to 127.0.0.1, the processes sharing
+    one host, as the reference's does."""
+    coordinator = environ["RBG_JAX_COORDINATOR_ADDRESS"]
+    if environ.get("RBG_REGISTRY_PATH"):
+        coordinator = "127.0.0.1:" + coordinator.rsplit(":", 1)[1]
+    return (coordinator, int(environ["RBG_JAX_NUM_PROCESSES"]),
+            int(environ["RBG_JAX_PROCESS_ID"]))
+
+
+def init_world(coordinator: str, num: int, rank: int, device=None) -> torch.device:
+    """Form the ``torch.distributed`` world of ``num`` processes on a TCP
+    store at ``coordinator``: nccl on the card (this process's device is
+    ``rank`` mod the cards it sees), gloo when ``device`` asks for the CPU.
+    Returns this process's device."""
+    kind = device_type(device)
+    dev = torch.device("cpu")
+    if kind == "cuda":
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    dist.init_process_group(_BACKENDS[kind], init_method=f"tcp://{coordinator}",
+                            world_size=num, rank=rank)
+    return dev
 
 
 def make_mesh(dp: int = 1, tp: int = 1, sp: int = 1, ep: int = 1, device=None):

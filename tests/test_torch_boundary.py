@@ -19,7 +19,7 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke
 sys.path.insert(0, "tests")
-import torch_parallel_worker, torch_tp_serving_worker  # the spawned ranks' scripts
+import torch_parallel_worker, torch_tp_serving_worker, torch_tp_service_worker  # the ranks' scripts
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "rbg_tpu"
              or m.startswith("rbg_tpu."))
@@ -34,7 +34,8 @@ assert {"rbg_tpu_torch.engine.grammar", "rbg_tpu_torch.engine.http_frontend",
         "rbg_tpu_torch.models.training", "rbg_tpu_torch.models.safetensors_io",
         "rbg_tpu_torch.parallel.mesh", "rbg_tpu_torch.parallel.sharding",
         "rbg_tpu_torch.parallel.ring", "rbg_tpu_torch.parallel.pipeline",
-        "rbg_tpu_torch.engine.rendezvous_check"} <= set(names)
+        "rbg_tpu_torch.engine.rendezvous_check",
+        "rbg_tpu_torch.engine.lockstep"} <= set(names)
 assert not bad, bad
 print("ok", len(names))
 """

@@ -269,9 +269,7 @@ def test_embeddings_on_the_mesh_match_reference(world, key, model, inputs, world
 
 
 @pytest.mark.parametrize("world,key,needle,roadmap", [
-    (2, "vocab", "vocab_size=255", True), (2, "host_tier", "host KV tier under tp", True),
-    (2, "service", "multi-rank EngineService", True), (2, "admit_layers", "multi-rank", True),
-    (2, "dense_ep", "a dense model", False),
+    (2, "vocab", "vocab_size=255", True), (2, "dense_ep", "a dense model", False),
     (4, "num_kv_heads", "num_kv_heads=2", True), (4, "num_heads", "num_heads=14", True)])
 def test_refusals_name_the_roadmap_item(world, key, needle, roadmap, worlds):
     """A mesh the engine cannot serve is a ValueError before any launch,

@@ -23,7 +23,7 @@ import rbg_tpu_torch.engine.engine as engine_mod  # noqa: E402
 from rbg_tpu_torch.engine.config import EngineConfig, SamplingParams  # noqa: E402
 from rbg_tpu_torch.engine.engine import Engine  # noqa: E402
 from rbg_tpu_torch.engine.pd import PDPair, PDStreamPair  # noqa: E402
-from rbg_tpu_torch.engine.service import EngineService, embed_prompts  # noqa: E402
+from rbg_tpu_torch.engine.service import embed_prompts  # noqa: E402
 from rbg_tpu_torch.models.config import get_config  # noqa: E402
 from rbg_tpu_torch.models.convert import params_from_numpy  # noqa: E402
 from rbg_tpu_torch.models.llama import init_params  # noqa: E402
@@ -122,14 +122,6 @@ def refusals(world, mesh_tp, tiny):
     if world == 2:
         catch("vocab", lambda: Engine(EngineConfig(model="tiny", vocab_size=255, **BASE),
                                       mesh=mesh_tp))
-        catch("host_tier", lambda: Engine(EngineConfig(
-            model="tiny", **{**BASE, "enable_radix_cache": True}, host_tier_bytes=1 << 20),
-            params=tiny, mesh=mesh_tp))
-        catch("service", lambda: EngineService(EngineConfig(model="tiny", **BASE),
-                                               params=tiny, mesh=mesh_tp))
-        catch("admit_layers", lambda: PDStreamPair(EngineConfig(model="tiny", **BASE),
-                                                   params=tiny, mesh=mesh_tp,
-                                                   admit_layers=1))
         catch("dense_ep", lambda: Engine(EngineConfig(model="tiny", **BASE), params=tiny,
                                          mesh=make_mesh(ep=2, device="cpu")))
     else:
