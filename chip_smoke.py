@@ -27,6 +27,10 @@ Phases, each printing one JSON line:
              also a B=64 decode bucket of short rows (bucket64); A-D and I
              also the llama3-8b case at page size 128 (page128: pages
              larger than their 64-slot KV block).
+   gpucheck — ``python -m rbg_tpu_torch.cli.gpucheck`` as a subprocess
+             (probe; kernels A-I at small shapes against their plain
+             versions; bench_serving at qwen2-0.5b; a qwen2-0.5b engine
+             launching A and B): exit 0 with every stage ok.
 4. tiny    — tiny and tiny-moe (float32, hd 32; kernels A, B), tiny-mla
              (float32 latents; kernels E, F) and tiny at page size 128
              through Engine on the card, greedy tokens equal to the CPU
@@ -50,10 +54,19 @@ Phases, each printing one JSON line:
    checkpoint — the trained llama3-8b saved (save_checkpoint, 16 GB) and
              served by Engine(checkpoint_path=...) with the greedy tokens
              of an engine on the same weights in memory (kernels A, B);
-             write and read GB/s. A qwen2-0.5b HF directory (bf16, q/k/v
-             biases, tied head) served by ``python -m
-             rbg_tpu_torch.engine.server --checkpoint-path`` as a process
-             with the greedy tokens of an in-process engine on it.
+             write and read GB/s. Then, while the file exists, two
+             processes of this script (``ckpt_rank``, a gloo world on the
+             one card) each build Engine(checkpoint_path=...) on a tp 2
+             mesh, reading only its slices from the file: bytes copied
+             (its weight bytes, every weight bit-equal to local_shard of
+             the file's tensor), seconds, RssAnon and device peaks beside
+             the whole path's cost, the first steps within TP_FIRST_BAND of
+             the unsharded engine's, kernels A and B on both ranks; the
+             same ranks read a qwen2-0.5b HF directory (bf16, q/k/v biases,
+             tied head) rank-locally and whole (read to the host, then
+             sliced) in turns, bit-equal. That directory served by
+             ``python -m rbg_tpu_torch.engine.server --checkpoint-path`` as
+             a process with the greedy tokens of an in-process engine on it.
 6. llama3-8b at full width and depth, random weights from a seed:
    engine  — Engine (bf16 pools; kernels A, B): a request steps into
              decode, a second joins so one ragged step holds a decode row
@@ -211,7 +224,7 @@ Phases, each printing one JSON line:
 
 Then a line {"kernels": [...]} (launches counted over the phases that drive
 each kernel's path: the llama3-8b server, tier, router, pd and checkpoint
-phases for A and B, the int8 engine for C and D, the deepseek-v2-lite server for E and F, its int8 engine for G
+phases (the checkpoint's tp ranks too) for A and B, the int8 engine for C and D, the deepseek-v2-lite server for E and F, its int8 engine for G
 and H, the tp phase's ranks for A-H, the probe for I) and, last, {"ok": true, "device": {...}}. Any
 failure exits non-zero before the last line; without a CUDA device nothing
 runs.
@@ -219,8 +232,10 @@ runs.
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
+import math
 import os
 import socket
 import statistics
@@ -266,8 +281,13 @@ MLA_INT8_KERNELS = ("paged_mla_decode_q", "ragged_paged_mla_q")
 PROBE_KERNELS = ("ragged_paged_tokengrid",)
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One phase's JSON line; ``t_s``: seconds since this script started."""
+    print(json.dumps({"phase": phase, **kw, "t_s": round(time.perf_counter() - _T0, 1)}),
+          flush=True)
 
 
 def cuda_ms(torch, fn, flush, iters=20, warm=3):
@@ -3444,13 +3464,15 @@ def checkpoint_dir(nbytes):
     raise AssertionError(f"no directory has room for a {nbytes}-byte checkpoint")
 
 
-def checkpoint_llama(torch, np, card, params, model="llama3-8b", dev="cuda"):
+def checkpoint_llama(torch, np, card, params, hf, model="llama3-8b", hf_model="qwen2-0.5b",
+                     dev="cuda"):
     """save_checkpoint of (b)'s trained params, then Engine(EngineConfig(
     model=..., checkpoint_path=...)): greedy tokens equal to an engine on
     the trained params in memory, through kernels A and B on the card;
     write and read GB/s (the read is the engine's construction, with the
-    file fresh in the host's page cache). Returns the launches of the
-    loaded engine's path."""
+    file fresh in the host's page cache). Then, while the file exists, the
+    rank-local reads at tp 2 (``checkpoint_tp``, with the HF directory
+    ``hf``). Returns the launches of the loaded engines' paths."""
     import shutil
 
     from rbg_tpu_torch.engine.config import EngineConfig, SamplingParams
@@ -3490,19 +3512,276 @@ def checkpoint_llama(torch, np, card, params, model="llama3-8b", dev="cuda"):
         got = eng.generate(prompts, sp)
         sync(torch, dev)
         launches = {k: LAUNCHES[k] for k in LLAMA_KERNELS}
+        emit("checkpoint", case="native", model=model, card=card, dir=where,
+             host_bytes=host, bytes=written, write_s=write_s,
+             write_gb_per_s=written / write_s / 1e9, read_s=read_s,
+             read_gb_per_s=written / read_s / 1e9, tokens=got,
+             equal_to_in_memory=got == want, launches=launches)
+        if torch.device(dev).type == "cuda":
+            check_launches(launches, LLAMA_KERNELS)
+        if got != want:
+            raise AssertionError(f"engine from the checkpoint: {got} vs in memory {want}")
+        # The unsharded engine's first steps, for the tp ranks to hold theirs
+        # against; then the ranks read their slices of the same file.
+        ref = os.path.join(d, "first_step.npz")
+        np.savez(ref, prompts=np.array(json.dumps(prompts)),
+                 **{f"logits{i}": first_step_logits(torch, eng, p).float().cpu().numpy()
+                    for i, p in enumerate(prompts)})
+        del eng
+        free(torch, dev)
+        for k, n in checkpoint_tp(torch, np, card, d, ref, hf, model, hf_model,
+                                  dev).items():
+            launches[k] += n
     finally:
         shutil.rmtree(d, ignore_errors=True)
-    emit("checkpoint", case="native", model=model, card=card, dir=where, host_bytes=host,
-         bytes=written,
-         write_s=write_s, write_gb_per_s=written / write_s / 1e9, read_s=read_s,
-         read_gb_per_s=written / read_s / 1e9, tokens=got, equal_to_in_memory=got == want,
-         launches=launches)
-    if torch.device(dev).type == "cuda":
-        check_launches(launches, LLAMA_KERNELS)
-    if got != want:
-        raise AssertionError(f"engine from the checkpoint: {got} vs in memory {want}")
+    return launches
+
+
+CKPT_TIMEOUT_S = 600
+CKPT_HF_TURNS = ("local", "whole", "local", "whole")
+
+
+def rss_anon():
+    """RssAnon of /proc/self/status (anonymous resident bytes: the heap,
+    not the mapped file's pages, which VmHWM and VmRSS count); None where
+    the kernel does not give it."""
+    with open("/proc/self/status") as f:
+        for ln in f:
+            if ln.startswith("RssAnon:"):
+                return int(ln.split()[1]) * 1024
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def _mallinfo2():
+    """glibc's ``mallinfo2`` with its result type, or None."""
+    import ctypes
+
+    class Info(ctypes.Structure):
+        _fields_ = [(n, ctypes.c_size_t) for n in (
+            "arena", "ordblks", "smblks", "hblks", "hblkhd", "usmblks", "fsmblks",
+            "uordblks", "fordblks", "keepcost")]
+
+    fn = getattr(ctypes.CDLL(None), "mallinfo2", None)
+    if fn is not None:
+        fn.restype = Info
+    return fn
+
+
+def malloc_in_use():
+    """Bytes glibc's malloc holds in use (mallinfo2: uordblks + hblkhd),
+    torch's host tensors among them; None without mallinfo2. Where a
+    kernel's /proc has no RssAnon and counts mapped file pages as resident
+    and unshared (statm), as some sandboxed kernels do, this is the heap
+    reading."""
+    fn = _mallinfo2()
+    if fn is None:
+        return None
+    info = fn()
+    return info.uordblks + info.hblkhd
+
+
+class HostPeak:
+    """RssAnon and malloc's in-use bytes sampled by a thread every
+    ``period`` s inside a with-block: {name: (before, peak)}."""
+
+    READINGS = {"rss_anon": rss_anon, "malloc_in_use": malloc_in_use}
+
+    def __init__(self, period=0.002):
+        import threading
+
+        self.period, self.stop = period, threading.Event()
+        self.thread = threading.Thread(target=self._sample, daemon=True)
+
+    def _read(self):
+        for k, fn in self.READINGS.items():
+            v = fn()
+            if v is not None:
+                self.peak[k] = max(self.peak.get(k, v), v)
+
+    def _sample(self):
+        while not self.stop.wait(self.period):
+            self._read()
+
+    def __enter__(self):
+        self.before = {k: fn() for k, fn in self.READINGS.items()}
+        self.peak = {}
+        self._read()
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join()
+        self._read()
+
+    def record(self):
+        return {k: {"before": self.before[k], "peak": self.peak.get(k),
+                    "added": self.peak[k] - self.before[k] if k in self.peak else None}
+                for k in self.READINGS}
+
+
+def timed_read(torch, dev, build):
+    """``build()`` (an engine that reads a checkpoint), timed to the card's
+    last copy, with what it copied out of the file, its host staging, its
+    host memory (``HostPeak``) and the device's peak. Returns (engine,
+    record)."""
+    from rbg_tpu_torch.models import safetensors_io
+
+    free(torch, dev)
+    sync(torch, dev)
+    peak_reset(torch, dev)
+    safetensors_io.reset_reads()
+    with HostPeak() as host:
+        t0 = time.perf_counter()
+        eng = build()
+        sync(torch, dev)
+        secs = time.perf_counter() - t0
+    return eng, {"seconds": secs, "bytes_copied": safetensors_io.READS["bytes"],
+                 "tensors": safetensors_io.READS["tensors"],
+                 "staging_max": safetensors_io.READS["staging_max"],
+                 "host": host.record(), "device_peak": peak_bytes(torch, dev)}
+
+
+def flat_params(params):
+    out = {k: v for k, v in params.items() if k != "blocks"}
+    out.update({f"blocks.{k}": v for k, v in params["blocks"].items()})
+    return out
+
+
+def bits(t):
+    """A tensor's bytes (bit-for-bit comparisons)."""
+    import torch
+
+    return t.contiguous().reshape(-1).view(torch.uint8)
+
+
+def slices_of_file(torch, eng, path, mesh):
+    """Names of the engine's weights that are not, bit for bit,
+    ``local_shard`` of the native file's tensor: each file tensor read
+    whole onto the engine's device, one at a time, and freed."""
+    from rbg_tpu_torch.models import safetensors_io
+    from rbg_tpu_torch.models.checkpoint import NATIVE_FILE
+    from rbg_tpu_torch.parallel.sharding import leaf_spec, local_shard
+
+    have = flat_params(eng.params)
+    with safetensors_io.SafeFile(os.path.join(path, NATIVE_FILE), eng.device) as f:
+        bad = sorted(set(have) ^ set(f))
+        for name in f:
+            whole = f[name]
+            if name in have and not torch.equal(
+                    bits(local_shard(whole, leaf_spec(name), mesh)), bits(have[name])):
+                bad.append(name)
+            del whole
+    return bad
+
+
+def ckpt_rank(torch, np, world, rank, port, out_path, native, ref_path, hf,
+              model="llama3-8b", hf_model="qwen2-0.5b", dev="cuda"):
+    """One rank of the checkpoint phase's tp world (``checkpoint_tp``):
+    ``Engine(EngineConfig(checkpoint_path=native), mesh=...)`` reads this
+    rank's slices of the native file (every weight held against
+    ``local_shard`` of the file's tensor; the first steps' logits against
+    the unsharded engine's in ``ref_path``; two greedy streams with the
+    launches counted from 0), then the HF directory ``hf`` rank-locally and
+    through the whole path (the tree read to the host, then sliced), in
+    turns, each engine's weights bit-equal to the first's. Writes its
+    results to ``out_path``."""
+    import torch.distributed as dist
+
+    from rbg_tpu_torch.engine.config import EngineConfig, SamplingParams
+    from rbg_tpu_torch.engine.engine import Engine
+    from rbg_tpu_torch.models.checkpoint import load_params
+    from rbg_tpu_torch.models.config import get_config
+    from rbg_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from rbg_tpu_torch.parallel import make_mesh
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank)
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+    mesh = make_mesh(tp=world, device=dev)
+    kw = dict(model=model, num_pages=512, max_seq_len=1024, device=dev)
+    eng, rec = timed_read(torch, dev, lambda: Engine(EngineConfig(**kw, checkpoint_path=native),
+                                                     mesh=mesh))
+    rec["weight_bytes"] = sum(t.numel() * t.element_size()
+                              for t in flat_params(eng.params).values())
+    rec["not_file_slices"] = slices_of_file(torch, eng, native, mesh)
+    ref = np.load(ref_path)
+    prompts = json.loads(str(ref["prompts"]))
+    rec["first_step_max_abs"] = [
+        float(np.abs(first_step_logits(torch, eng, p).float().cpu().numpy()
+                     - ref[f"logits{i}"]).max()) for i, p in enumerate(prompts)]
+    reset_launches()
+    rec["tokens"] = eng.generate(prompts, SamplingParams(max_new_tokens=16))
+    sync(torch, dev)
+    rec["launches"] = {k: LAUNCHES[k] for k in LLAMA_KERNELS}
+    res = {"rank": rank, "native": rec}
     del eng
     free(torch, dev)
+    hkw = dict(model=hf_model, num_pages=256, max_seq_len=1024, device=dev)
+    first, res["hf"] = None, []
+    for path in CKPT_HF_TURNS:
+        if path == "local":
+            build = lambda: Engine(EngineConfig(**hkw, checkpoint_path=hf), mesh=mesh)  # noqa: E731
+        else:
+            build = lambda: Engine(EngineConfig(**hkw), mesh=mesh,  # noqa: E731
+                                   params=load_params(hf, get_config(hf_model), device="cpu"))
+        eng, rec = timed_read(torch, dev, build)
+        got = flat_params(eng.params)
+        if first is None:
+            first = {k: bits(v).clone() for k, v in got.items()}
+        rec["path"] = path
+        rec["equal_to_first"] = sorted(got) == sorted(first) and all(
+            torch.equal(bits(v), first[k]) for k, v in got.items())
+        res["hf"].append(rec)
+        del eng, got
+        free(torch, dev)
+    np.savez(out_path, results=np.array(json.dumps(res)))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def checkpoint_tp(torch, np, card, native, ref, hf, model="llama3-8b",
+                  hf_model="qwen2-0.5b", dev="cuda"):
+    """The native file at tp 2 (``ckpt_rank`` in a gloo world of two
+    processes on the one card): each rank copies out its share (its weight
+    bytes) with every weight bit-equal to the file's slice, its first steps
+    within TP_FIRST_BAND of the unsharded engine's, kernels A and B
+    launched on each rank; the HF directory's rank-local and whole reads
+    bit-equal on both ranks. Emits each rank's bytes, seconds, RssAnon and
+    device peaks beside the whole path's cost (the file's tensors, held in
+    host memory by every rank). Returns the ranks' launches of A and B."""
+    from rbg_tpu_torch.models import safetensors_io
+    from rbg_tpu_torch.models.checkpoint import NATIVE_FILE
+
+    with safetensors_io.SafeFile(os.path.join(native, NATIVE_FILE)) as f:
+        whole = sum(math.prod(f.shape(k)) * f.dtype(k).itemsize for k in f)
+    with tempfile.TemporaryDirectory() as d:
+        ranks, seconds = spawn_ranks(d, "ckpt_rank", (native, ref, hf, model, hf_model, dev),
+                                     timeout=CKPT_TIMEOUT_S)
+    recs = [r["native"] for r, _ in ranks]
+    hf_turns = [r["hf"] for r, _ in ranks]
+    emit("checkpoint", case="native_tp", model=model, card=card, tp=TP_WORLD,
+         seconds_ranks=seconds, whole_path_host_bytes_per_rank=whole, ranks=recs)
+    emit("checkpoint", case="hf_tp", model=hf_model, card=card, tp=TP_WORLD,
+         turns=hf_turns)
+    launches = {k: sum(r["launches"][k] for r in recs) for k in LLAMA_KERNELS}
+    for r, rec in enumerate(recs):
+        if rec["not_file_slices"] or rec["bytes_copied"] != rec["weight_bytes"]:
+            raise AssertionError(f"rank {r}: weights not the file's slices "
+                                 f"{rec['not_file_slices'][:4]}, {rec['bytes_copied']} "
+                                 f"bytes copied for {rec['weight_bytes']}")
+        if max(rec["first_step_max_abs"]) > TP_FIRST_BAND:
+            raise AssertionError(f"rank {r}: first steps {rec['first_step_max_abs']} "
+                                 f"past {TP_FIRST_BAND} of the unsharded engine's")
+        if torch.device(dev).type == "cuda":
+            check_launches(rec["launches"], LLAMA_KERNELS)
+    if recs[0]["tokens"] != recs[1]["tokens"]:
+        raise AssertionError(f"the ranks' streams differ: {recs[0]['tokens']} vs "
+                             f"{recs[1]['tokens']}")
+    if not all(t["equal_to_first"] for turns in hf_turns for t in turns):
+        raise AssertionError(f"{hf_model}: rank-local and whole reads differ: {hf_turns}")
     return launches
 
 
@@ -3540,49 +3819,43 @@ def hf_dir(torch, d, model="qwen2-0.5b", seed=16, dev="cuda"):
     return safetensors_io.save_file(sd, os.path.join(d, "model.safetensors"))
 
 
-def checkpoint_hf_server(torch, np, card, model="qwen2-0.5b", dev="cuda", extra=()):
-    """The HF directory served by ``python -m rbg_tpu_torch.engine.server
-    --model qwen2-0.5b --checkpoint-path DIR`` as a process (on the card):
-    two requests' greedy tokens equal an in-process engine's on the same
-    directory and flags."""
-    import shutil
-
+def checkpoint_hf_server(torch, np, card, d, nbytes, model="qwen2-0.5b", dev="cuda",
+                         extra=()):
+    """The HF directory ``d`` (``hf_dir``, ``nbytes``) served by ``python -m
+    rbg_tpu_torch.engine.server --model qwen2-0.5b --checkpoint-path DIR``
+    as a process (on the card): two requests' greedy tokens equal an
+    in-process engine's on the same directory and flags."""
     from rbg_tpu_torch.engine.config import SamplingParams
     from rbg_tpu_torch.engine.engine import Engine
     from rbg_tpu_torch.engine.protocol import request_obj
     from rbg_tpu_torch.engine.server import build_config, parse_args
 
-    d = tempfile.mkdtemp(prefix="rbg-hf-")
     root = Path(__file__).resolve().parent
     t0 = time.perf_counter()
-    try:
-        nbytes = hf_dir(torch, d, model, dev=dev)
-        args = ["--model", model, "--checkpoint-path", d, *extra]
-        rng = np.random.RandomState(17)
-        V = build_config(parse_args(args)).model_config.vocab_size
-        prompts = [rng.randint(0, V, n).tolist() for n in (40, 129)]
-        with tempfile.TemporaryFile() as log:
-            proc, addr = _spawn_server(args, root, {**os.environ, "PYTHONPATH": str(root)},
-                                       log)
+    args = ["--model", model, "--checkpoint-path", d, *extra]
+    rng = np.random.RandomState(17)
+    V = build_config(parse_args(args)).model_config.vocab_size
+    prompts = [rng.randint(0, V, n).tolist() for n in (40, 129)]
+    with tempfile.TemporaryFile() as log:
+        proc, addr = _spawn_server(args, root, {**os.environ, "PYTHONPATH": str(root)},
+                                   log)
+        try:
+            ready_s = _wait_healthy([proc], [addr], log, timeout=300)
+            replies = [request_obj(addr, {"op": "generate", "prompt": p,
+                                          "max_new_tokens": 16}, timeout=300)
+                       for p in prompts]
+        finally:
+            proc.terminate()
             try:
-                ready_s = _wait_healthy([proc], [addr], log, timeout=300)
-                replies = [request_obj(addr, {"op": "generate", "prompt": p,
-                                              "max_new_tokens": 16}, timeout=300)
-                           for p in prompts]
-            finally:
-                proc.terminate()
-                try:
-                    proc.wait(timeout=30)
-                except subprocess.TimeoutExpired:
-                    proc.kill()
-                    proc.wait()
-        eng = Engine(build_config(parse_args(args)))
-        if "bq" not in eng.params["blocks"]:
-            raise AssertionError("the directory's q/k/v biases were not loaded")
-        sp = SamplingParams(max_new_tokens=16)
-        want = [eng.generate([p], sp)[0] for p in prompts]
-    finally:
-        shutil.rmtree(d, ignore_errors=True)
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    eng = Engine(build_config(parse_args(args)))
+    if "bq" not in eng.params["blocks"]:
+        raise AssertionError("the directory's q/k/v biases were not loaded")
+    sp = SamplingParams(max_new_tokens=16)
+    want = [eng.generate([p], sp)[0] for p in prompts]
     got = [r.get("tokens") for r in replies]
     emit("checkpoint", case="hf_server", model=model, card=card, bytes=nbytes,
          ready_s=ready_s, seconds=time.perf_counter() - t0, tokens=got,
@@ -3602,18 +3875,25 @@ def train_checkpoint_phases(torch, np, card, model="llama3-8b", hf_model="qwen2-
     launches of kernels A and B on the checkpoint's serving path.
     ``model="tiny", hf_model="tiny", dev="cpu"`` rehearses them on the
     CPU."""
+    import shutil
+
     t0 = time.perf_counter()
     train_tiny(torch, np, dev)
     train_remat_check(torch, np, model, dev)
     free(torch, dev)
     train_layout(torch, np, model, dev)
     params, first_loss, tokens = train_llama(torch, np, card, model, dev)
-    launches = checkpoint_llama(torch, np, card, params, model, dev)
-    del params
-    free(torch, dev)
-    train_mesh(torch, np, first_loss, tokens, model, dev)
-    checkpoint_hf_server(torch, np, card, hf_model, dev,
-                         extra=("--device", "cpu") if dev == "cpu" else ())
+    hf = tempfile.mkdtemp(prefix="rbg-hf-")
+    try:
+        hf_bytes = hf_dir(torch, hf, hf_model, dev=dev)
+        launches = checkpoint_llama(torch, np, card, params, hf, model, hf_model, dev)
+        del params
+        free(torch, dev)
+        train_mesh(torch, np, first_loss, tokens, model, dev)
+        checkpoint_hf_server(torch, np, card, hf, hf_bytes, hf_model, dev,
+                             extra=("--device", "cpu") if dev == "cpu" else ())
+    finally:
+        shutil.rmtree(hf, ignore_errors=True)
     emit("train_checkpoint", seconds=time.perf_counter() - t0)
     return launches
 
@@ -3643,6 +3923,33 @@ def bench_slo_phase(card):
     for setup, rows in res.items():
         if [r["completed"] for r in rows] != [n]:
             raise AssertionError(f"bench_slo {setup}: {rows}")
+
+
+GPUCHECK_TIMEOUT_S = 600
+
+
+def gpucheck_phase(card):
+    """``python -m rbg_tpu_torch.cli.gpucheck`` as a subprocess: exit 0 and
+    every stage ok (all nine kernels within tolerance of their plain
+    versions, the bench's requests complete, kernels A and B launched by the
+    engine stage). Emits the verdict."""
+    from rbg_tpu_torch.cli.gpucheck import STAGES
+
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "rbg_tpu_torch.cli.gpucheck"], cwd=root,
+                         env={**os.environ, "PYTHONPATH": str(root)}, capture_output=True,
+                         text=True, timeout=GPUCHECK_TIMEOUT_S)
+    lines = out.stdout.strip().splitlines()
+    doc = json.loads(lines[-1]) if lines else {}
+    emit("gpucheck", card=card, rc=out.returncode, seconds=time.perf_counter() - t0,
+         verdict=doc)
+    stages = doc.get("stages", {})
+    kernels = stages.get("kernels", {}).get("kernels", {})
+    if (out.returncode != 0 or list(stages) != list(STAGES)
+            or not all(st.get("ok") for st in stages.values()) or len(kernels) != 9
+            or not all(k["ok"] for k in kernels.values())):
+        raise AssertionError(f"gpucheck: rc {out.returncode}, {doc or out.stderr[-2000:]}")
 
 
 def probe_phase(torch):
@@ -4235,7 +4542,7 @@ def llama_service_config(model, dev):
                         max_batch=8, multi_step=4, device=dev)
 
 def tp_rank(torch, np, world, rank, port, out_path, dev="cuda", models=TP_MODELS):
-    """One rank of the tp phase (``spawn_tp_ranks``): every rank makes the
+    """One rank of the tp phase (``spawn_ranks``): every rank makes the
     same calls. The tiny models from weights drawn on the CPU
     (kernels A, B; E, F for tiny-mla), then llama3-8b and deepseek-v2-lite
     at tp 2 from the rank-local init (seed 0), each over model-dtype and
@@ -4312,21 +4619,22 @@ def tp_rank(torch, np, world, rank, port, out_path, dev="cuda", models=TP_MODELS
     dist.destroy_process_group()
 
 
-def spawn_tp_ranks(out_dir, dev="cuda", models=TP_MODELS):
-    """The tp phase's ranks (``tp_rank``), each a process on the one card.
-    Raises when a rank fails (the others are killed) or the phase outlasts
-    TP_TIMEOUT_S; returns each rank's (results, first-step logits) and the
+def spawn_ranks(out_dir, fn, args=(), world=TP_WORLD, timeout=TP_TIMEOUT_S):
+    """A gloo world of ``world`` processes of this script on the one card,
+    rank r running ``fn(torch, numpy, world, r, port, out_dir/rank<r>.npz,
+    *args)``. Raises when a rank fails (the others are killed) or they
+    outlast ``timeout``; returns each rank's (results, arrays) and the
     seconds they took."""
     import numpy as np
 
     root = Path(__file__).resolve().parent
     port, procs, logs = free_port(), [], []
-    for r in range(TP_WORLD):
+    for r in range(world):
         log = tempfile.TemporaryFile()
         logs.append(log)
         code = ("import numpy, torch, chip_smoke as cs; "
-                f"cs.tp_rank(torch, numpy, {TP_WORLD}, {r}, {port}, "
-                f"{str(Path(out_dir) / f'rank{r}.npz')!r}, {dev!r}, {tuple(models)!r})")
+                f"cs.{fn}(torch, numpy, {world}, {r}, {port}, "
+                f"{str(Path(out_dir) / f'rank{r}.npz')!r}, *{tuple(args)!r})")
         procs.append(subprocess.Popen(
             [sys.executable, "-c", code], cwd=root,
             env={**os.environ, "PYTHONPATH": str(root)},
@@ -4335,17 +4643,17 @@ def spawn_tp_ranks(out_dir, dev="cuda", models=TP_MODELS):
     try:
         while any(p.poll() is None for p in procs):
             bad = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
-            if bad or time.perf_counter() - t0 > TP_TIMEOUT_S:
+            if bad or time.perf_counter() - t0 > timeout:
                 logs[bad[0] if bad else 0].seek(0)
                 raise AssertionError(
-                    f"tp rank {bad[0] if bad else 'all'} "
+                    f"{fn} rank {bad[0] if bad else 'all'} "
                     f"{'failed' if bad else 'timed out'}: "
                     + logs[bad[0] if bad else 0].read().decode()[-4000:])
             time.sleep(0.5)
         if any(p.returncode for p in procs):
             r = next(r for r, p in enumerate(procs) if p.returncode)
             logs[r].seek(0)
-            raise AssertionError(f"tp rank {r} failed: " + logs[r].read().decode()[-4000:])
+            raise AssertionError(f"{fn} rank {r} failed: " + logs[r].read().decode()[-4000:])
     finally:
         for p in procs:
             if p.poll() is None:
@@ -4354,7 +4662,7 @@ def spawn_tp_ranks(out_dir, dev="cuda", models=TP_MODELS):
         for log in logs:
             log.close()
     out = []
-    for r in range(TP_WORLD):
+    for r in range(world):
         got = np.load(Path(out_dir) / f"rank{r}.npz")
         out.append((json.loads(str(got["results"])),
                     {k: got[k] for k in got.files if k != "results"}))
@@ -4568,7 +4876,7 @@ def tp_phase(torch, np, card, dev="cuda", models=TP_MODELS):
 
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
-        ranks, seconds = spawn_tp_ranks(d, dev, models)
+        ranks, seconds = spawn_ranks(d, "tp_rank", (dev, tuple(models)))
     launches = {k: 0 for k in LLAMA_KERNELS + INT8_KERNELS + MLA_KERNELS + MLA_INT8_KERNELS}
     for res, _ in ranks:
         for case in list(res["tiny"].values()) + list(res["big"].values()):
@@ -4742,6 +5050,7 @@ def main():
          ptxas={k: ptxas_summary(v) for k, v in reports.items()})
 
     kern = kernels_phase(torch, np)
+    gpucheck_phase(card)
     tiny_phase(torch, np)
     checkpoint_launches = train_checkpoint_phases(torch, np, card)
     gc.collect()

@@ -143,15 +143,15 @@ class Engine:
             self.tp = self.par.tp if self.par is not None else 1
         if params is None and cfg.checkpoint_path:
             from rbg_tpu_torch.models.checkpoint import load_params
-            # Under a mesh that splits weights the whole tree is read to
-            # the host and only this rank's slices reach the card.
-            params = load_params(cfg.checkpoint_path, self.mcfg,
-                                 device="cpu" if self.par else self.device)
+            # Under a mesh that splits weights each rank reads only its
+            # slices, from the mapped file straight to its device.
+            params = load_params(cfg.checkpoint_path, self.mcfg, device=self.device,
+                                 mesh=mesh if self.par else None)
             if params["embed"].dtype != self.mcfg.torch_dtype:
                 raise TypeError(f"checkpoint {cfg.checkpoint_path} holds "
                                 f"{params['embed'].dtype} weights; {self.mcfg.name} "
                                 f"serves {self.mcfg.torch_dtype}")
-            params = self._shard_state(params)
+            params = self._shard_state(params, sliced=self.par is not None)
         elif params is None:
             params = init_params(self.mcfg, cfg.seed, self.device,
                                  mesh=mesh if self.par else None)

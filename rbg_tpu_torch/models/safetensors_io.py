@@ -13,6 +13,15 @@ BF16 comes back as a ``torch.bfloat16`` view of the stored bits, never
 through numpy floats. A sharded checkpoint's ``model.safetensors.index.json``
 (``{"weight_map": {name: file}}``) is read by ``open_index``.
 
+``read_slice`` copies out only part of a tensor (a rank's slice under a
+mesh): per-dim ``(start, length)`` narrowings of the mapped bytes. A slice
+that is contiguous in the file goes straight from the map to the target;
+a strided one (a split of an inner dim) is gathered into one host staging
+buffer a few leading indices at a time (one layer of a stacked ``[L, ...]``
+tensor) and copied on from there, so the host stages at most that much.
+Every read adds to ``READS``: the bytes copied out and the largest staging
+buffer.
+
 Writing takes a tensor, or a list of equal-shaped tensors that is written
 as their stack (``[len, ...]``) one tensor at a time without building it.
 """
@@ -23,7 +32,7 @@ import json
 import mmap
 import os
 import struct
-from typing import Dict, Iterator, Mapping, Optional, Sequence, Union
+from typing import Dict, Iterator, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -33,6 +42,17 @@ DTYPES = {
     "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8, "BOOL": torch.bool,
 }
 NAMES = {v: k for k, v in DTYPES.items()}
+
+# What the reads copied out of their maps (``bytes``), the tensors read and
+# the largest host staging buffer a strided slice took (``staging_max``).
+READS: Dict[str, int] = {"bytes": 0, "tensors": 0, "staging_max": 0}
+
+Narrowing = Sequence[Optional[Tuple[int, int]]]
+
+
+def reset_reads() -> None:
+    for k in READS:
+        READS[k] = 0
 
 Writable = Union[torch.Tensor, Sequence[torch.Tensor]]
 
@@ -54,21 +74,64 @@ class SafeFile(Mapping):
                      if size > self._start else None)
 
     def __getitem__(self, name: str) -> torch.Tensor:
+        return self.read_slice(name)
+
+    def shape(self, name: str) -> Tuple[int, ...]:
+        return tuple(self.header[name]["shape"])
+
+    def dtype(self, name: str) -> Optional[torch.dtype]:
+        return DTYPES.get(self.header[name]["dtype"])
+
+    def read_slice(self, name: str, narrow: Optional[Narrowing] = None, device=None,
+                   stage_bytes: Optional[int] = None) -> torch.Tensor:
+        """Tensor ``name`` narrowed by ``narrow`` (per dim, None or
+        ``(start, length)``; None: the whole tensor), copied out of the map
+        into a tensor of its own on ``device`` (default: the file's). A
+        strided slice is staged on the host in chunks of whole leading
+        indices, each at most ``stage_bytes`` (at least one index; default
+        one), on every device alike."""
         info = self.header[name]
-        dtype = DTYPES.get(info["dtype"])
+        dtype = self.dtype(name)
         if dtype is None:
             raise TypeError(f"{self.path}: tensor {name!r} has dtype "
                             f"{info['dtype']}, which this reader does not take")
-        begin, end = info["data_offsets"]
+        device = torch.device(device if device is not None else self.device or "cpu")
         shape = tuple(info["shape"])
-        if end == begin:
-            return torch.empty(shape, dtype=dtype, device=self.device)
-        raw = torch.frombuffer(self._map, dtype=torch.uint8, count=end - begin,
-                               offset=self._start + begin)
-        if (self._start + begin) % dtype.itemsize:     # a misaligned writer's
-            raw = raw.clone()
-        t = raw.view(dtype).reshape(shape)
-        return t.to(self.device, copy=True) if self.device is not None else t.clone()
+        begin, end = info["data_offsets"]
+        # The bytes as [*shape, itemsize] uint8: any data offset views, so a
+        # misaligned writer's tensor costs no whole-tensor copy.
+        src = torch.frombuffer(self._map, dtype=torch.uint8, count=end - begin,
+                               offset=self._start + begin) if end > begin else \
+            torch.empty(0, dtype=torch.uint8)
+        src = src.view(*shape, dtype.itemsize)
+        for dim, cut in enumerate(narrow or ()):
+            if cut is not None:
+                src = src.narrow(dim, *cut)
+        out = torch.empty(src.shape[:-1], dtype=dtype, device=device)
+        dst = out.reshape(-1).view(torch.uint8).view(src.shape)
+        READS["bytes"] += dst.numel()
+        READS["tensors"] += 1
+        if src.is_contiguous():
+            dst.copy_(src)
+            return out
+        row = max(1, dst[0].numel())
+        step = max(1, (stage_bytes or row) // row)
+        stage = None
+        for i in range(0, len(dst), step):
+            part = src[i:i + step]
+            if part.is_contiguous():
+                dst[i:i + step].copy_(part)
+                continue
+            if stage is None:
+                stage = torch.empty((min(step, len(dst)), *dst.shape[1:]), dtype=torch.uint8)
+                READS["staging_max"] = max(READS["staging_max"], stage.numel())
+            n = len(part)
+            stage[:n].copy_(part)
+            dst[i:i + n].copy_(stage[:n])
+        return out
+
+    def __contains__(self, name) -> bool:      # the header's, not a read
+        return name in self.header
 
     def __iter__(self) -> Iterator[str]:
         return iter(self.header)
@@ -99,6 +162,19 @@ class ShardedFiles(Mapping):
 
     def __getitem__(self, name: str) -> torch.Tensor:
         return self._where[name][name]
+
+    def shape(self, name: str) -> Tuple[int, ...]:
+        return self._where[name].shape(name)
+
+    def dtype(self, name: str) -> Optional[torch.dtype]:
+        return self._where[name].dtype(name)
+
+    def read_slice(self, name: str, narrow: Optional[Narrowing] = None, device=None,
+                   stage_bytes: Optional[int] = None) -> torch.Tensor:
+        return self._where[name].read_slice(name, narrow, device, stage_bytes)
+
+    def __contains__(self, name) -> bool:
+        return name in self._where
 
     def __iter__(self):
         return iter(self._where)

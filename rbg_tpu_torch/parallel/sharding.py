@@ -45,49 +45,61 @@ from rbg_tpu_torch.models.config import ModelConfig
 from rbg_tpu_torch.parallel.mesh import axis_group, axis_rank, axis_size
 
 
-def param_specs(cfg: ModelConfig, params: Optional[dict] = None) -> dict:
+# Each leaf's spec by name: column-parallel projections (and their biases)
+# split their output dim, row-parallel ones their input dim, experts split
+# on ep with tp inside; MLA's latent down-projection and its norm, the
+# norms and the router replicate. The leading dim of a block leaf is the
+# layer axis (unsharded).
+BLOCK_SPECS = {
+    "attn_norm": (None, None), "mlp_norm": (None, None), "kv_norm": (None, None),
+    "wq": (None, None, "tp"), "wk": (None, None, "tp"), "wv": (None, None, "tp"),
+    "w_uk": (None, None, "tp"), "w_uv": (None, None, "tp"),
+    "w_gate": (None, None, "tp"), "w_up": (None, None, "tp"),
+    "wo": (None, "tp", None), "w_down": (None, "tp", None),
+    "w_dkv": (None, None, None), "router": (None, None, None),
+    "moe_gate": (None, "ep", None, "tp"), "moe_up": (None, "ep", None, "tp"),
+    "moe_down": (None, "ep", "tp", None),
+    "bq": (None, "tp"), "bk": (None, "tp"), "bv": (None, "tp"),
+}
+TOP_SPECS = {"embed": ("tp", None), "final_norm": (None,), "lm_head": (None, "tp")}
+
+
+def param_specs(cfg: ModelConfig, params=None) -> dict:
     """The spec tree matching ``models.llama.init_params``. The leading
     axis of every block param is the layer axis (unsharded). Pass
-    ``params`` to cover the optional checkpoint keys the config alone
-    cannot predict (the Qwen2 attention biases)."""
-    blocks = {
-        "attn_norm": (None, None),
-        "wq": (None, None, "tp"),
-        "wo": (None, "tp", None),
-        "mlp_norm": (None, None),
-    }
-    if cfg.mla:
-        # Query-side weights split by heads; the latent down-projection
-        # and its norm replicate (the latent is shared by every head).
-        blocks.update({
-            "w_dkv": (None, None, None),
-            "kv_norm": (None, None),
-            "w_uk": (None, None, "tp"),
-            "w_uv": (None, None, "tp"),
-        })
-    else:
-        blocks.update({"wk": (None, None, "tp"), "wv": (None, None, "tp")})
+    ``params`` (a tree, or the names of its block leaves) to cover the
+    optional checkpoint keys the config alone cannot predict (the Qwen2
+    attention biases)."""
+    keys = ["attn_norm", "wq", "wo", "mlp_norm"]
+    # MLA: query-side weights split by heads; the latent down-projection
+    # and its norm replicate (the latent is shared by every head).
+    keys += ["w_dkv", "kv_norm", "w_uk", "w_uv"] if cfg.mla else ["wk", "wv"]
     if cfg.num_experts == 0 or cfg.moe_shared_expert:
-        blocks["w_gate"] = (None, None, "tp")
-        blocks["w_up"] = (None, None, "tp")
-        blocks["w_down"] = (None, "tp", None)
+        keys += ["w_gate", "w_up", "w_down"]
     if cfg.num_experts:
-        blocks["router"] = (None, None, None)
-        blocks["moe_gate"] = (None, "ep", None, "tp")
-        blocks["moe_up"] = (None, "ep", None, "tp")
-        blocks["moe_down"] = (None, "ep", "tp", None)
+        keys += ["router", "moe_gate", "moe_up", "moe_down"]
     if params is not None and "bq" in _block_keys(params):
-        # Bias columns follow their projection's output split.
-        blocks["bq"] = (None, "tp")
-        blocks["bk"] = (None, "tp")
-        blocks["bv"] = (None, "tp")
-    specs = {"embed": ("tp", None), "blocks": blocks, "final_norm": (None,)}
+        keys += ["bq", "bk", "bv"]
+    specs = {"embed": TOP_SPECS["embed"], "blocks": {k: BLOCK_SPECS[k] for k in keys},
+             "final_norm": TOP_SPECS["final_norm"]}
     if not cfg.tie_word_embeddings:
-        specs["lm_head"] = (None, "tp")
+        specs["lm_head"] = TOP_SPECS["lm_head"]
     return specs
 
 
-def _block_keys(params: dict):
+def leaf_spec(name: str) -> tuple:
+    """The spec of a flattened leaf name (``embed``, ``blocks.wq``, ...),
+    as ``param_specs`` gives it."""
+    block = name[len("blocks."):] if name.startswith("blocks.") else None
+    spec = BLOCK_SPECS.get(block) if block is not None else TOP_SPECS.get(name)
+    if spec is None:
+        raise ValueError(f"no sharding rule for parameter {name!r}")
+    return spec
+
+
+def _block_keys(params):
+    if not isinstance(params, dict):
+        return set(params)
     blocks = params.get("blocks", {})
     return blocks[0] if isinstance(blocks, (list, tuple)) else blocks
 
@@ -134,16 +146,29 @@ def logits_spec() -> tuple:
     return ("dp", None, "tp")
 
 
-def local_shard(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
-    """This rank's slice of ``t`` under ``spec`` (a view)."""
+def shard_bounds(shape, spec: tuple, mesh) -> list:
+    """This rank's ``(start, length)`` along each dim of a tensor of
+    ``shape`` under ``spec`` (None for a dim it keeps whole); raises
+    ``ValueError`` for a dim that does not split evenly."""
+    out = []
     for dim, axis in enumerate(spec):
         n = axis_size(mesh, axis) if axis else 1
-        if n > 1:
-            if t.shape[dim] % n:
-                raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
-                                 f"over {axis}={n}")
-            size = t.shape[dim] // n
-            t = t.narrow(dim, axis_rank(mesh, axis) * size, size)
+        if n == 1:
+            out.append(None)
+            continue
+        if shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(shape)} does not split "
+                             f"over {axis}={n}")
+        size = shape[dim] // n
+        out.append((axis_rank(mesh, axis) * size, size))
+    return out
+
+
+def local_shard(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """This rank's slice of ``t`` under ``spec`` (a view)."""
+    for dim, cut in enumerate(shard_bounds(t.shape, spec, mesh)):
+        if cut is not None:
+            t = t.narrow(dim, *cut)
     return t
 
 

@@ -1,7 +1,8 @@
 """The port's package boundary, checked in fresh interpreters (this test
 process has JAX loaded by tests/conftest.py): importing every
-rbg_tpu_torch module, chip_smoke.py and the scripts the gloo tests spawn
-as ranks loads neither JAX nor any rbg_tpu module, and the entry points (the engine, the PD pairs, the train step
+rbg_tpu_torch module, chip_smoke.py, the scripts the gloo tests spawn
+as ranks and every module the GPU check's stage payloads import loads
+neither JAX nor any rbg_tpu module, and the entry points (the engine, the PD pairs, the train step
 and the mesh) refuse to run without a card unless asked for the CPU (the
 router and the kv pool server, which run no model, start without one)."""
 
@@ -20,6 +21,7 @@ for n in names:
 import chip_smoke
 sys.path.insert(0, "tests")
 import torch_parallel_worker, torch_tp_serving_worker, torch_tp_service_worker  # the ranks' scripts
+import torch_checkpoint_tp_worker
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "rbg_tpu"
              or m.startswith("rbg_tpu."))
@@ -35,7 +37,7 @@ assert {"rbg_tpu_torch.engine.grammar", "rbg_tpu_torch.engine.http_frontend",
         "rbg_tpu_torch.parallel.mesh", "rbg_tpu_torch.parallel.sharding",
         "rbg_tpu_torch.parallel.ring", "rbg_tpu_torch.parallel.pipeline",
         "rbg_tpu_torch.engine.rendezvous_check",
-        "rbg_tpu_torch.engine.lockstep"} <= set(names)
+        "rbg_tpu_torch.engine.lockstep", "rbg_tpu_torch.cli.gpucheck"} <= set(names)
 assert not bad, bad
 print("ok", len(names))
 """
@@ -88,6 +90,31 @@ def _run(code, *args):
 def test_port_imports_no_jax_and_no_rbg_tpu():
     r = _run(IMPORT_ALL)
     assert r.returncode == 0 and r.stdout.startswith("ok"), r.stderr[-3000:]
+
+
+def test_gpucheck_payloads_import_no_jax_and_no_rbg_tpu():
+    """Every import statement of every stage payload, run in a fresh
+    interpreter (the payloads themselves stop at their card check here)."""
+    import ast
+    import re
+
+    from rbg_tpu_torch.cli import gpucheck
+
+    imports = []
+    for name, code in gpucheck.PAYLOADS.items():
+        src = gpucheck._PRELUDE + code
+        assert "jax" not in src and not re.search(r"\brbg_tpu\b(?!_torch)", src), name
+        imports += [ast.unparse(n) for n in ast.walk(ast.parse(src))
+                    if isinstance(n, (ast.Import, ast.ImportFrom))]
+    assert any("rbg_tpu_torch.ops.kernels.build" in i for i in imports)
+    r = _run("\n".join(imports) + r"""
+import sys
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+             or m == "rbg_tpu" or m.startswith("rbg_tpu."))
+assert not bad, bad
+print("ok")
+""")
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-3000:]
 
 
 def test_entry_points_need_a_card_unless_asked_for_cpu():
