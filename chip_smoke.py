@@ -150,6 +150,21 @@ Phases, each printing one JSON line:
              against unified, export and commit GB/s by the workers' own
              clocks beside one pinned copy_, and the first decode token
              with and without layer slicing beside the layer-admit lead.
+   stress  — the reference's serving-plane stress drills on the same
+             weights (``rbg_tpu_torch.stress.harness``; bf16 pools):
+             overload, kvstream, prefixcache and partition at their
+             defaults (kvstream at the command line's 0.02 s a frame),
+             but kvstream's link rate and pool budget and
+             prefixcache's host tier scaled by llama3-8b's KV bytes per
+             token over tiny's (x128), and prefixcache's TTFT target
+             its gate's predicted TTFT with one request ahead. Every invariant
+             true (zero dropped streams: bit-equal greedy tokens across
+             batches, PD and tier hits; kvstream, prefixcache and
+             partition serve batch-invariant, overload the default
+             forwards) and kernels A and B launched in each drill;
+             then ``python -m rbg_tpu_torch.stress.harness
+             --scenario overload --json`` at tiny as a subprocess: exit 0,
+             every invariant true. One line per drill.
    int8    — the same engine script with kv_dtype="int8" (kernels C, D),
              multi_step 4, its three witnesses on int8 pools and the server
              over int8 pools.
@@ -223,8 +238,8 @@ Phases, each printing one JSON line:
    the probe's pack (the probe's calls/s read host time at its size).
 
 Then a line {"kernels": [...]} (launches counted over the phases that drive
-each kernel's path: the llama3-8b server, tier, router, pd and checkpoint
-phases (the checkpoint's tp ranks too) for A and B, the int8 engine for C and D, the deepseek-v2-lite server for E and F, its int8 engine for G
+each kernel's path: the llama3-8b server, tier, router, pd, stress and
+checkpoint phases (the checkpoint's tp ranks too) for A and B, the int8 engine for C and D, the deepseek-v2-lite server for E and F, its int8 engine for G
 and H, the tp phase's ranks for A-H, the probe for I) and, last, {"ok": true, "device": {...}}. Any
 failure exits non-zero before the last line; without a CUDA device nothing
 runs.
@@ -2472,6 +2487,137 @@ def pd_phase(torch, np, params, card, model="llama3-8b", dev="cuda"):
     return {k: launches.get(k, 0) for k in LLAMA_KERNELS}, (prompts, want)
 
 
+STRESS_CLI_TIMEOUT_S = 300
+
+
+def kv_bytes_per_token(cfg):
+    """Bytes of K and V one token holds in a model-dtype pool, all layers."""
+    import torch
+    item = torch.empty((), dtype=cfg.torch_dtype).element_size()
+    return cfg.num_layers * 2 * cfg.num_kv_heads * cfg.head_dim_ * item
+
+
+def stress_phase(torch, np, params, card, model="llama3-8b", dev="cuda"):
+    """The serving-plane stress drills (``rbg_tpu_torch.stress.harness``:
+    overload, kvstream, prefixcache, partition) at ``model`` on one weights
+    dict, bf16 pools, every parameter at the drills' defaults (kvstream's
+    delay at the command line's, 0.02 s a frame) but these:
+    kvstream's ``link_bytes_per_s`` and ``pool_bytes`` and prefixcache's
+    ``host_tier_bytes`` scaled by the model's KV bytes per token over
+    tiny's (a stream spans the same time on the slow link, the store and
+    the tier hold as many pages), and
+    prefixcache's ``slo_ttft_s`` (None: the drill reads its gate's own
+    prediction with one request ahead on its burst's service, the rule of
+    the reference's constant; its line prints the value). Every invariant
+    must hold and kernels A and B must launch in every drill. Then the
+    command line once as a subprocess at tiny: ``--scenario overload
+    --json`` exits 0 with every invariant true. One line per drill. Returns
+    the drills' launches of A and B. On the CPU (``dev="cpu"``, a rehearsal
+    at tiny) no kernel launches."""
+    from rbg_tpu_torch.models.config import get_config
+    from rbg_tpu_torch.obs import names as obs_names
+    from rbg_tpu_torch.obs.metrics import REGISTRY
+    from rbg_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from rbg_tpu_torch.stress import harness as H
+
+    scale = kv_bytes_per_token(get_config(model)) / kv_bytes_per_token(get_config("tiny"))
+    # The command line's default delay (``--scenario kvstream``; the
+    # config field's default is 0.05 s).
+    kv_cfg = H.KVStreamConfig(model=model, slow_link_delay_s=0.02)
+    kv_cfg.link_bytes_per_s *= scale
+    kv_cfg.pool_bytes = int(kv_cfg.pool_bytes * scale)
+    pc_cfg = H.PrefixCacheConfig(model=model)
+    pc_cfg.host_tier_bytes = int(pc_cfg.host_tier_bytes * scale)
+    pc_cfg.slo_ttft_s = None
+    exceptions = {
+        "link_bytes_per_s": [kv_cfg.link_bytes_per_s, f"2e5 x {scale:g} (KV bytes/token "
+                             f"of {model} over tiny's)"],
+        "slow_link_delay_s": [kv_cfg.slow_link_delay_s, "the command line's default for "
+                              "--scenario kvstream"],
+        "pool_bytes": [kv_cfg.pool_bytes, f"2**18 x {scale:g} (same rule)"],
+        "host_tier_bytes": [pc_cfg.host_tier_bytes, f"2**26 x {scale:g} (same rule)"],
+        "slo_ttft_s": [None, "the gate's own prediction with one request ahead, "
+                       "read on the burst's service (burst.slo_ttft_s)"],
+        "device": [dev, "the card"]}
+    drills = [("overload", lambda: H.run_serving_overload(
+                   H.OverloadConfig(model=model), params=params, device=dev)),
+              ("kvstream", lambda: H.run_kv_stream(kv_cfg, params=params, device=dev)),
+              ("prefixcache", lambda: H.run_prefix_cache(pc_cfg, params=params, device=dev)),
+              ("partition", lambda: H.run_partition(H.PartitionConfig(model=model),
+                                                    params=params, device=dev))]
+    sent = (obs_names.KVT_CHUNKS_TOTAL, (("direction", "sent"),))
+    streams = [(obs_names.KVT_STREAMS_TOTAL, (("outcome", o),)) for o in ("ok", "error")]
+    total = {k: 0 for k in LLAMA_KERNELS}
+    failed = []
+    for name, run in drills:
+        c0 = REGISTRY.snapshot_values()[0]
+        reset_launches()
+        t0 = time.perf_counter()
+        r = run()
+        wall = time.perf_counter() - t0
+        launches = {k: LAUNCHES.get(k, 0) for k in LLAMA_KERNELS}
+        c1 = REGISTRY.snapshot_values()[0]
+        for k in LLAMA_KERNELS:
+            total[k] += launches[k]
+        line = dict(card=card, model=model, drill=name, seconds=wall,
+                    elapsed_s=r["elapsed_s"], invariants=r["invariants"], launches=launches)
+        if name == "overload":
+            cb = r["continuous_batching"]
+            line.update(outcomes=r["outcomes"], admitted_latency_ms=r["admitted_latency_ms"],
+                        max_queue_depth_observed=r["max_queue_depth_observed"],
+                        joins=cb["joins"], join_excess_steps_max=cb["join_excess_steps_max"],
+                        join_wait_steps_max=cb["join_wait_steps_max"],
+                        goodput_vs_throughput=r["goodput_vs_throughput"])
+        elif name == "kvstream":
+            n_streams = sum(c1.get(k, 0.0) - c0.get(k, 0.0) for k in streams)
+            tr = r["transfer"]
+            line.update(outcomes=r["requests"], t_first_decode_ms=tr["t_first_decode_ms"],
+                        admit_lead_ms=tr["admit_lead_ms"], overlap_requests=tr["overlap_requests"],
+                        coverage_at_admit=tr["layer_admit"]["coverage_at_admit"],
+                        bytes_per_request=tr["bytes_per_request"],
+                        chunks_sent=c1.get(sent, 0.0) - c0.get(sent, 0.0), streams=n_streams,
+                        bit_identical=r["bit_identical"], config=r["config"])
+        elif name == "prefixcache":
+            line.update(outcomes=r["burst"], hierarchy=r["hierarchy"],
+                        early_rejects=r["burst"]["early_rejects"],
+                        bit_identical=r["bit_identical"], config=r["config"])
+        else:
+            line.update(outcomes={k: r["corruption"][k] for k in ("completed", "failures")},
+                        faults_injected=r["faults_injected"],
+                        integrity_failures_detected=r["corruption"]["integrity_failures_detected"],
+                        stream_retries=r["corruption"]["stream_retries"],
+                        bit_identical=r["corruption"]["bit_identical"],
+                        directory=r["directory"], peer_staleness=r["peer_staleness"])
+        if name in ("kvstream", "prefixcache"):
+            line["exceptions"] = exceptions
+        emit("stress", **line)
+        if not all(r["invariants"].values()):
+            failed.append((name, {k: v for k, v in r["invariants"].items() if not v}))
+        if dev == "cuda" and min(launches.values()) == 0:
+            failed.append((name, f"a kernel never launched: {launches}"))
+        gc.collect()
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m", "rbg_tpu_torch.stress.harness", "--scenario", "overload",
+           "--json"] + (["--device", "cpu"] if dev == "cpu" else [])
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=root, env={**os.environ, "PYTHONPATH": str(root)},
+                         capture_output=True, text=True, timeout=STRESS_CLI_TIMEOUT_S)
+    lines = out.stdout.strip().splitlines()
+    doc = json.loads(lines[-1]) if lines else {}
+    inv = doc.get("invariants", {})
+    emit("stress_cli", card=card, model="tiny", rc=out.returncode,
+         seconds=time.perf_counter() - t0, invariants=inv, outcomes=doc.get("outcomes"),
+         elapsed_s=doc.get("elapsed_s"))
+    if out.returncode != 0 or not inv or not all(inv.values()):
+        failed.append(("cli", f"rc {out.returncode}, {inv or out.stderr[-2000:]}"))
+    if failed:
+        raise AssertionError(f"stress: {failed}")
+    return total
+
+
 def _spawn_server(args, root, env, log):
     port = free_port()
     proc = subprocess.Popen([sys.executable, "-m", "rbg_tpu_torch.engine.server",
@@ -2902,8 +3048,8 @@ def init_phase(torch, model):
 
 
 def llama_phases(torch, np, card):
-    """llama3-8b: bf16 engine, witness and server (A, B), the tier, router
-    and in-process PD phases (A, B), then the int8 engine, witness and
+    """llama3-8b: bf16 engine, witness and server (A, B), the tier, router,
+    in-process PD and stress phases (A, B), then the int8 engine, witness and
     server (C, D). Returns ({kernel: launches on its path}, the PD
     phase's prompts and unified tokens)."""
     params = init_phase(torch, "llama3-8b")
@@ -2927,6 +3073,9 @@ def llama_phases(torch, np, card):
     torch.cuda.empty_cache()
     pd_launches, pd_ref = pd_phase(torch, np, params, card)
     paths.append(pd_launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths.append(stress_phase(torch, np, params, card))
     for k in LLAMA_KERNELS:
         launches[k] += sum(p[k] for p in paths)
     gc.collect()

@@ -19,15 +19,17 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, pools and output alike). part / done:
 // the split partials and the counts (ops/kernels/ragged_paged.py::scratch).
+// invariant: 1 = a group's KV block always splits between two warps
+// (batch-invariant serving), 0 = by the tile's fill.
 int ragged_paged(const void* q, const void* k_pages, const void* v_pages,
                  const void* table, const void* kv_lens, const void* row_ids,
                  const void* q_pos, void* out, void* part, void* done, int n_tokens,
                  int R, int KV, int G, int hd, int page, int P, float scale, int dtype,
-                 void* stream) {
+                 int invariant, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch_ragged<float, float>(q, k_pages, v_pages, nullptr, nullptr, table, kv_lens, row_ids, q_pos, out, part, done, n_tokens, R, KV, G, hd, page, P, scale, s);
-    case 1: return launch_ragged<__nv_bfloat16, __nv_bfloat16>(q, k_pages, v_pages, nullptr, nullptr, table, kv_lens, row_ids, q_pos, out, part, done, n_tokens, R, KV, G, hd, page, P, scale, s);
+    case 0: return launch_ragged<float, float>(q, k_pages, v_pages, nullptr, nullptr, table, kv_lens, row_ids, q_pos, out, part, done, n_tokens, R, KV, G, hd, page, P, scale, invariant, s);
+    case 1: return launch_ragged<__nv_bfloat16, __nv_bfloat16>(q, k_pages, v_pages, nullptr, nullptr, table, kv_lens, row_ids, q_pos, out, part, done, n_tokens, R, KV, G, hd, page, P, scale, invariant, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

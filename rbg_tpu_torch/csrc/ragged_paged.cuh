@@ -57,7 +57,9 @@
 // is free of bank conflicts; with model-dtype pools in the last stage's
 // room, which loads once Q is in registers) and held as mma A fragments.
 // The tile's rows form groups of 16; each group's KV block is split among
-// four or two warps (the in-block merge follows the walk). S = Q·Kᵀ is
+// four or two warps (the in-block merge follows the walk; always two with
+// `invariant`, so a token's bits never depend on the tokens beside it, for
+// batch-invariant serving). S = Q·Kᵀ is
 // mma.sync m16n8k16 (bf16 -> f32); the online softmax runs on the S
 // fragments in registers (quad shuffles for row max and sum); P is split
 // into bf16 hi + lo parts reused in registers as the A operand of P·V
@@ -533,7 +535,11 @@ __device__ __forceinline__ void convert_block(unsigned char* sm, int st) {
 // SW = 64 / wpg slots each, so that every SM sub-partition runs two warps
 // and a decode tile (one group) still spreads its block over four. Each
 // warp keeps its own online softmax over its slots; the warps of a group
-// are merged once at the end.
+// are merged once at the end. With `invariant` every group takes two warps
+// whatever ng (a tile of ng <= 2 groups leaves warps idle), so a query
+// row's arithmetic is the same in a full tile and in a short one: a
+// prefill chunk cut at another token, or a row packed beside others, gives
+// the same bits.
 template <int HD>
 struct MmaState {
   uint32_t qa[HD / 16][4];  // the group's 16 Q rows as A fragments
@@ -780,7 +786,8 @@ ragged_paged_kernel(const T* __restrict__ q, const KVT* __restrict__ k_pages,
                     const int* __restrict__ kv_lens, const int* __restrict__ row_ids,
                     const int* __restrict__ q_pos, T* __restrict__ out,
                     float* __restrict__ part, int* __restrict__ done, int n_tokens, int R,
-                    int KV, int G, int page, int pshift, int P, float scale) {
+                    int KV, int G, int page, int pshift, int P, float scale,
+                    int invariant) {
   using L = Layout<T, KVT, HD>;
   constexpr int S = L::kStages, NT = L::kThreads, CLD = HD + 4;  // o, then m, l
   extern __shared__ __align__(16) unsigned char sm[];
@@ -934,7 +941,7 @@ ragged_paged_kernel(const T* __restrict__ q, const KVT* __restrict__ k_pages,
     if constexpr (L::kMma) {
       MmaState<HD> st;
       const int warp = tid >> 5, lane = tid & 31;
-      const int ng = (nrows + 15) / 16, wpg = ng <= 2 ? 4 : 2;
+      const int ng = (nrows + 15) / 16, wpg = ng <= 2 && !invariant ? 4 : 2;
       const int grp = warp / wpg, slot0 = (warp % wpg) * (kBN / wpg);
       const bool active = grp < ng;  // a warp past the tile's groups idles
 #pragma unroll
@@ -1126,7 +1133,7 @@ int launch_hd(const void* q, const void* k_pages, const void* v_pages, const voi
               const void* v_scales, const void* table, const void* kv_lens,
               const void* row_ids, const void* q_pos, void* out, void* part, void* done,
               int n_tokens, int R, int KV, int G, int page, int P, float scale,
-              cudaStream_t stream) {
+              int invariant, cudaStream_t stream) {
   constexpr size_t smem = Layout<T, KVT, HD>::kBytes;
   // As many blocks as fit on the card at once (they take items from the
   // queue), or as many as there can be items. Found at a device's first
@@ -1157,7 +1164,8 @@ int launch_hd(const void* q, const void* k_pages, const void* v_pages, const voi
       static_cast<const float*>(v_scales), static_cast<const int*>(table),
       static_cast<const int*>(kv_lens), static_cast<const int*>(row_ids),
       static_cast<const int*>(q_pos), static_cast<T*>(out), static_cast<float*>(part),
-      static_cast<int*>(done), n_tokens, R, KV, G, page, rbg::page_shift(page), P, scale);
+      static_cast<int*>(done), n_tokens, R, KV, G, page, rbg::page_shift(page), P, scale,
+      invariant);
   return (int)cudaGetLastError();
 }
 
@@ -1173,7 +1181,8 @@ int launch_ragged(const void* q, const void* k_pages, const void* v_pages,
                   const void* k_scales, const void* v_scales, const void* table,
                   const void* kv_lens, const void* row_ids, const void* q_pos,
                   void* out, void* part, void* done, int n_tokens, int R, int KV, int G,
-                  int hd, int page, int P, float scale, cudaStream_t stream) {
+                  int hd, int page, int P, float scale, int invariant,
+                  cudaStream_t stream) {
   if (n_tokens == 0) return 0;
   if (G < 1 || G > 16 || page < 1 || R < 0 || R > rk::kMaxRows)
     return (int)cudaErrorInvalidValue;
@@ -1181,15 +1190,15 @@ int launch_ragged(const void* q, const void* k_pages, const void* v_pages,
     case 32:
       return rk::launch_hd<T, KVT, 32>(q, k_pages, v_pages, k_scales, v_scales, table,
                                        kv_lens, row_ids, q_pos, out, part, done, n_tokens, R,
-                                       KV, G, page, P, scale, stream);
+                                       KV, G, page, P, scale, invariant, stream);
     case 64:
       return rk::launch_hd<T, KVT, 64>(q, k_pages, v_pages, k_scales, v_scales, table,
                                        kv_lens, row_ids, q_pos, out, part, done, n_tokens, R,
-                                       KV, G, page, P, scale, stream);
+                                       KV, G, page, P, scale, invariant, stream);
     case 128:
       return rk::launch_hd<T, KVT, 128>(q, k_pages, v_pages, k_scales, v_scales, table,
                                         kv_lens, row_ids, q_pos, out, part, done, n_tokens,
-                                        R, KV, G, page, P, scale, stream);
+                                        R, KV, G, page, P, scale, invariant, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -20,16 +20,17 @@ extern "C" {
 
 // dtype: q and output, 0 = float32, 1 = bfloat16; pools int8, scales f32.
 // part / done: the split partials and the counts
-// (ops/kernels/ragged_paged.py::scratch).
+// (ops/kernels/ragged_paged.py::scratch). invariant: as ragged_paged's.
 int ragged_paged_q(const void* q, const void* k_pages, const void* v_pages,
                    const void* k_scales, const void* v_scales, const void* table,
                    const void* kv_lens, const void* row_ids, const void* q_pos,
                    void* out, void* part, void* done, int n_tokens, int R, int KV, int G,
-                   int hd, int page, int P, float scale, int dtype, void* stream) {
+                   int hd, int page, int P, float scale, int dtype, int invariant,
+                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch_ragged<float, int8_t>(q, k_pages, v_pages, k_scales, v_scales, table, kv_lens, row_ids, q_pos, out, part, done, n_tokens, R, KV, G, hd, page, P, scale, s);
-    case 1: return launch_ragged<__nv_bfloat16, int8_t>(q, k_pages, v_pages, k_scales, v_scales, table, kv_lens, row_ids, q_pos, out, part, done, n_tokens, R, KV, G, hd, page, P, scale, s);
+    case 0: return launch_ragged<float, int8_t>(q, k_pages, v_pages, k_scales, v_scales, table, kv_lens, row_ids, q_pos, out, part, done, n_tokens, R, KV, G, hd, page, P, scale, invariant, s);
+    case 1: return launch_ragged<__nv_bfloat16, int8_t>(q, k_pages, v_pages, k_scales, v_scales, table, kv_lens, row_ids, q_pos, out, part, done, n_tokens, R, KV, G, hd, page, P, scale, invariant, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -77,7 +77,8 @@ def build_service(args):
         max_seq_len=args.max_seq_len, max_batch=args.max_batch,
         prefill_chunk=args.prefill_chunk, multi_step=args.multi_step,
         kv_dtype=args.kv_dtype, speculative=args.speculative,
-        ragged=args.ragged, enable_radix_cache=False, device=args.device))
+        ragged=args.ragged, enable_radix_cache=False, device=args.device,
+        batch_invariant=args.batch_invariant))
 
 
 def _drive_inprocess(args, prompts, arrivals):
@@ -250,6 +251,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--ragged", default="auto", choices=("auto", "off"),
                     help="'off' serves through the split prefill and decode "
                          "paths")
+    ap.add_argument("--batch-invariant", action="store_true",
+                    help="serve batch-invariant (EngineConfig.batch_invariant: "
+                         "a request's tokens do not depend on its batch)")
     ap.add_argument("--addr", default="",
                     help="benchmark a running server instead of in-process "
                          "(host:port)")

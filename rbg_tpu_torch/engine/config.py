@@ -61,6 +61,12 @@ class EngineConfig:
     # Engine(mesh=...) (parallel.mesh_from_spec builds one from this).
     mesh_spec: Optional[dict] = None
     kv_dtype: str = "model"                 # model | int8 (quantized KV pool)
+    # Batch-invariant serving (ops/rows.py): a request's logits, and so its
+    # greedy tokens, do not depend on the requests beside it, its prefill
+    # chunk boundaries or its decode bucket; every forward pads its rows to
+    # whole ROWS-row blocks, at a cost in device time (PERF.md). A dense GQA
+    # model without a mesh or LoRA adapters.
+    batch_invariant: bool = False
     # Per-request SLO targets every finished request is judged against
     # (obs/slo.py): seconds to first token, seconds per output token after
     # the first. 0 disables a dimension.

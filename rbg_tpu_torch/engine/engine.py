@@ -68,6 +68,7 @@ from rbg_tpu_torch.engine.radix_cache import RadixCache
 from rbg_tpu_torch.engine.sampler import NEG_INF, row_keys, sample
 from rbg_tpu_torch.engine.spec import NGramIndex
 from rbg_tpu_torch.models.llama import forward_paged, forward_ragged, init_params
+from rbg_tpu_torch.ops.ragged_paged_attention import one_token_rows
 from rbg_tpu_torch.obs import names as obs_names
 from rbg_tpu_torch.obs.metrics import REGISTRY
 
@@ -141,6 +142,12 @@ class Engine:
             from rbg_tpu_torch.parallel.sharding import ModelParallel
             self.par = ModelParallel.of(mesh)
             self.tp = self.par.tp if self.par is not None else 1
+        # Batch-invariant forwards (ops/rows.py): rows=True on every call.
+        self.rows = cfg.batch_invariant
+        if self.rows and (self.mcfg.mla or self.mcfg.num_experts or self.par is not None):
+            raise ValueError(f"batch_invariant serves a dense GQA model without a "
+                             f"mesh, not {self.mcfg.name}"
+                             + (" under tensor parallelism" if self.par else ""))
         if params is None and cfg.checkpoint_path:
             from rbg_tpu_torch.models.checkpoint import load_params
             # Under a mesh that splits weights each rank reads only its
@@ -411,6 +418,8 @@ class Engine:
         batch may mix adapters row by row."""
         if not adapter:
             raise ValueError("empty adapter")
+        if self.rows:
+            raise ValueError("a batch_invariant engine takes no LoRA adapter")
         if name in self._lora_slots:
             raise ValueError(f"adapter {name!r} already loaded")
         allowed = set(self._LORA_MLA_TARGETS if self.mcfg.mla
@@ -933,6 +942,12 @@ class Engine:
             off += n
 
         dev = self.device
+        one_token = None
+        if self.rows and dev.type == "cuda":
+            # Rows of one token (decode steps, a one-token prompt tail)
+            # attend through the decode kernel, as in a decode step.
+            one = [i for i, (_, s, e) in enumerate(entries) if e - s <= 1]
+            one_token = one_token_rows(pos, row_ids, one, dev) if one else None
         logits = forward_ragged(
             self.params, self.mcfg, torch.from_numpy(tok).to(dev),
             torch.from_numpy(pos).to(dev), torch.from_numpy(tmask).to(dev),
@@ -940,7 +955,7 @@ class Engine:
             torch.from_numpy(table).to(dev), self.cache.k_pages,
             self.cache.v_pages, max_q_len=self.cfg.prefill_chunk,
             k_scales=self.cache.k_scales, v_scales=self.cache.v_scales,
-            par=self.par)
+            par=self.par, rows=self.rows, one_token=one_token)
 
         for req, start, end in entries:
             if end > start:
@@ -1057,7 +1072,8 @@ class Engine:
             torch.from_numpy(pos).to(dev), torch.from_numpy(mask).to(dev),
             torch.from_numpy(kvl).to(dev), torch.from_numpy(table).to(dev),
             self.cache.k_pages, self.cache.v_pages, k_scales=self.cache.k_scales,
-            v_scales=self.cache.v_scales, par=self.par, **self._lora_kw(lids))
+            v_scales=self.cache.v_scales, par=self.par, rows=self.rows,
+            **self._lora_kw(lids))
 
     # ---- sampling rows ----
 
@@ -1252,7 +1268,7 @@ class Engine:
                 self.params, self.mcfg, tok[:, None], pos[:, None], write_ok,
                 kvl, st["table"], self.cache.k_pages, self.cache.v_pages,
                 k_scales=self.cache.k_scales, v_scales=self.cache.v_scales,
-                par=self.par, **self._lora_kw(st["lids"]))
+                par=self.par, rows=self.rows, **self._lora_kw(st["lids"]))
             lg = logits[:, 0]
             if gs is not None:
                 lg = torch.where(st["glegal"][gs] | ~st["gactive"][:, None],

@@ -278,14 +278,17 @@ class KVPoolStore:
     # ---- insert ----
 
     def put(self, tokens: List[int], k: np.ndarray, v: np.ndarray,
-            data_from_page: int = 0) -> int:
+            data_from_page: int = 0, dtype: Optional[str] = None) -> int:
         """Store the page-aligned prefix of ``tokens``; ``k``/``v`` are
         ``[L, n_pages, page, KV, hd]`` covering the pages from
         ``data_from_page`` on (pages before it — held by a faster tier —
         become path-only placeholder nodes so later spills of deeper
         suffixes stay reachable). Existing pages are refreshed (LRU), not
         duplicated; a placeholder reached with payload is filled in.
-        Returns pages newly stored."""
+        Returns pages newly stored. ``dtype`` (``KVPoolClient.put``'s wire
+        dtype name) is accepted so a prefill worker can publish to a store
+        in its own process; the store keeps the host arrays as given and
+        ``match`` returns them so."""
         ps = self.page_size
         n = min((len(tokens) // ps) * ps,
                 (data_from_page + k.shape[1]) * ps if k is not None

@@ -818,7 +818,7 @@ class DecodeWorker:
             return forward_paged_window(
                 eng.params, eng.mcfg, lo, hi, x, pos, mask, kvl, table,
                 cache.k_pages, cache.v_pages, k_scales=cache.k_scales,
-                v_scales=cache.v_scales, par=eng.par)
+                v_scales=cache.v_scales, par=eng.par, rows=eng.rows)
 
     def _embed(self, tok):
         from rbg_tpu_torch.models.llama import _embed
@@ -826,7 +826,8 @@ class DecodeWorker:
 
     def _head(self, x):
         from rbg_tpu_torch.models.llama import _head
-        return _head(self.engine.params, self.engine.mcfg, x, self.engine.par)
+        return _head(self.engine.params, self.engine.mcfg, x, self.engine.par,
+                     self.engine.rows)
 
     def _wait_layer_watermark(self, sc: _StreamCommit, hi: int,
                               deadline: Optional[float]) -> None:

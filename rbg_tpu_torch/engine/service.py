@@ -396,6 +396,13 @@ class _BatchService:
         prefill_s = max(0, len(prompt) - hit) / rate
         return prefill_s if est is None else est + prefill_s
 
+    def set_early_reject_target(self, slo_ttft_s: float) -> None:
+        """Move the early-reject gate to ``slo_ttft_s`` x the config's
+        early_reject_factor (the stress drill's prefixcache calibrates it
+        on a warmed service). The SLO judgment keeps the config's targets."""
+        with self._lock:
+            self._er_gate_s = slo_ttft_s * self.engine.cfg.early_reject_factor
+
     def _shed(self, msg: str, depth: int) -> None:
         self.counters["shed_total"] += 1
         REGISTRY.inc(names.SERVING_SHED_TOTAL,

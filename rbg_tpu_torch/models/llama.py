@@ -13,6 +13,14 @@ latent: the latent ``c`` goes to the "k" pool as one head, the RoPE key to
 the "v" pool. ``encode_hidden`` is the cache-free causal forward of the
 embeddings path, and ``forward_train`` the same body with autograd (no
 ``torch.no_grad``), remat and the parallel plane of ``parallel/``.
+
+A serving forward called with ``rows=True`` (a batch-invariant engine,
+``EngineConfig.batch_invariant``; a dense GQA model without LoRA rows or a
+mesh) keeps the residual rows padded to a multiple of ``ops/rows.ROWS``
+and runs every product and norm in calls of exactly that many rows, and
+its attention kernels with their ``invariant`` switch, so a row's logits
+do not depend on the rows beside it. The layer body is the same: only the
+attention sees the first B·T rows as [B, T, ...].
 """
 
 from __future__ import annotations
@@ -34,6 +42,8 @@ from rbg_tpu_torch.ops.paged_attention import paged_attention, write_kv_pages
 from rbg_tpu_torch.ops.ragged_paged_attention import (ragged_paged_attention,
                                                       write_kv_pages_ragged)
 from rbg_tpu_torch.ops.rope import apply_rope
+from rbg_tpu_torch.ops.rows import mm as mm_rows
+from rbg_tpu_torch.ops.rows import pad_rows, unpad_rows
 
 
 @dataclasses.dataclass
@@ -166,8 +176,9 @@ def lora_delta(x: torch.Tensor, A: torch.Tensor, B_: torch.Tensor,
 
 
 def _lora_proj(xa: torch.Tensor, w: torch.Tensor, name: str,
-               lora: Optional[dict], lora_ids: Optional[torch.Tensor]):
-    y = xa @ w
+               lora: Optional[dict], lora_ids: Optional[torch.Tensor],
+               rows: bool = False):
+    y = mm_rows(xa, w) if rows else xa @ w
     if lora is not None and name in lora:
         A, B_ = lora[name]
         y = y + lora_delta(xa, A, B_, lora_ids)
@@ -176,23 +187,26 @@ def _lora_proj(xa: torch.Tensor, w: torch.Tensor, name: str,
 
 def _qkv(cfg: ModelConfig, blk: dict, x: torch.Tensor, positions: torch.Tensor,
          lora: Optional[dict] = None, lora_ids: Optional[torch.Tensor] = None,
-         par=None):
+         par=None, rows: bool = False):
     """norm → projections (+ LoRA, + the Qwen2 attention biases when the
     tree has them) → RoPE. x [B, T, D] → q [B,T,H,hd], k/v [B,T,KV,hd];
     under tensor parallelism (``par``, ``parallel/sharding.py``) the
-    rank's own heads, read off the weights' widths."""
-    B, T, _ = x.shape
+    rank's own heads, read off the weights' widths. With ``rows`` x is
+    padded rows [Mp, D] (``ops/rows.py``) and (B, T) = positions' shape."""
+    B, T = positions.shape if rows else x.shape[:2]
     hd = cfg.head_dim_
-    xa = rms_norm(x, blk["attn_norm"], cfg.rms_norm_eps)
+    xa = rms_norm(x, blk["attn_norm"], cfg.rms_norm_eps, rows)
     if par is not None:
         xa = par.copy_tp(xa)
-    q = _lora_proj(xa, blk["wq"], "wq", lora, lora_ids)
-    k = _lora_proj(xa, blk["wk"], "wk", lora, lora_ids)
-    v = _lora_proj(xa, blk["wv"], "wv", lora, lora_ids)
+    q = _lora_proj(xa, blk["wq"], "wq", lora, lora_ids, rows)
+    k = _lora_proj(xa, blk["wk"], "wk", lora, lora_ids, rows)
+    v = _lora_proj(xa, blk["wv"], "wv", lora, lora_ids, rows)
     if "bq" in blk:
         q = q + blk["bq"]
         k = k + blk["bk"]
         v = v + blk["bv"]
+    if rows:
+        q, k, v = (unpad_rows(t, (B, T)) for t in (q, k, v))
     q, k, v = (t.reshape(B, T, -1, hd) for t in (q, k, v))
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta), v)
@@ -238,24 +252,25 @@ def _mla_scale(cfg: ModelConfig) -> float:
 
 
 def _swiglu(blk: dict, xm: torch.Tensor, lora: Optional[dict],
-            lora_ids: Optional[torch.Tensor], par) -> torch.Tensor:
+            lora_ids: Optional[torch.Tensor], par, rows: bool = False) -> torch.Tensor:
     """The dense SwiGLU MLP (a MoE model's shared expert too); under tensor
     parallelism the rank's columns of w_gate / w_up and rows of w_down,
     summed over tp."""
     if par is not None:
         xm = par.copy_tp(xm)
-    gate = F.silu(_lora_proj(xm, blk["w_gate"], "w_gate", lora, lora_ids))
-    up = _lora_proj(xm, blk["w_up"], "w_up", lora, lora_ids)
-    out = _lora_proj(gate * up, blk["w_down"], "w_down", lora, lora_ids)
+    gate = F.silu(_lora_proj(xm, blk["w_gate"], "w_gate", lora, lora_ids, rows))
+    up = _lora_proj(xm, blk["w_up"], "w_up", lora, lora_ids, rows)
+    out = _lora_proj(gate * up, blk["w_down"], "w_down", lora, lora_ids, rows)
     return out if par is None else par.reduce_tp(out)
 
 
 def _mlp(cfg: ModelConfig, blk: dict, xm: torch.Tensor,
          lora: Optional[dict] = None,
-         lora_ids: Optional[torch.Tensor] = None, par=None) -> torch.Tensor:
+         lora_ids: Optional[torch.Tensor] = None, par=None,
+         rows: bool = False) -> torch.Tensor:
     if cfg.num_experts:
         return _moe_mlp(cfg, blk, xm, par)  # LoRA targets dense layers only
-    return _swiglu(blk, xm, lora, lora_ids, par)
+    return _swiglu(blk, xm, lora, lora_ids, par, rows)
 
 
 def _moe_mlp(cfg: ModelConfig, blk: dict, xm: torch.Tensor,
@@ -291,16 +306,26 @@ def _moe_mlp(cfg: ModelConfig, blk: dict, xm: torch.Tensor,
     return out
 
 
+def _check_rows(cfg: ModelConfig, rows: bool, lora=None, par=None) -> None:
+    """Refuse ``rows`` where the forward has no batch-invariant body: an
+    MLA or MoE model, LoRA rows, a mesh."""
+    if rows and (cfg.mla or cfg.num_experts or lora is not None or par is not None):
+        raise ValueError("rows=True serves a dense GQA model without LoRA rows "
+                         "or a mesh")
+
+
 def _post_attention(cfg: ModelConfig, blk: dict, x: torch.Tensor,
                     attn: torch.Tensor, lora: Optional[dict] = None,
                     lora_ids: Optional[torch.Tensor] = None,
-                    par=None) -> torch.Tensor:
-    """residual → norm → MLP (or MoE) → residual."""
-    B, T, _ = x.shape
-    o = _lora_proj(attn.reshape(B, T, -1), blk["wo"], "wo", lora, lora_ids)
+                    par=None, rows: bool = False) -> torch.Tensor:
+    """residual → norm → MLP (or MoE) → residual. With ``rows`` x is
+    padded rows [Mp, D] and attn [B, T, H, hd] their first B·T."""
+    a = (pad_rows(attn.reshape(attn.shape[0] * attn.shape[1], -1)) if rows
+         else attn.reshape(*x.shape[:2], -1))
+    o = _lora_proj(a, blk["wo"], "wo", lora, lora_ids, rows)
     x = x + (o if par is None else par.reduce_tp(o))
-    return x + _mlp(cfg, blk, rms_norm(x, blk["mlp_norm"], cfg.rms_norm_eps),
-                    lora, lora_ids, par)
+    return x + _mlp(cfg, blk, rms_norm(x, blk["mlp_norm"], cfg.rms_norm_eps, rows),
+                    lora, lora_ids, par, rows)
 
 
 def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -313,16 +338,22 @@ def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def _head(params: dict, cfg: ModelConfig, x: torch.Tensor,
-          par=None) -> torch.Tensor:
+          par=None, rows: bool = False) -> torch.Tensor:
     """final norm + (tied) LM head, float32 logits; under tensor
-    parallelism the rank's vocab columns, gathered over tp."""
-    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    parallelism the rank's vocab columns, gathered over tp. With ``rows``
+    the norm and the product run over x [B, T, D]'s rows padded to whole
+    ROWS blocks (``ops/rows.py``)."""
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T
+    head = head.to(cfg.torch_dtype)
+    if rows:
+        xn = rms_norm(pad_rows(x), params["final_norm"], cfg.rms_norm_eps, rows)
+        return unpad_rows(mm_rows(xn, head), x.shape[:2]).float()
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     if par is None:
-        return (x @ head.to(cfg.torch_dtype)).float()
-    return par.gather_vocab((par.copy_tp(x) @ head.to(cfg.torch_dtype)).float())
+        return (x @ head).float()
+    return par.gather_vocab((par.copy_tp(x) @ head).float())
 
 
 def _layer_view(pool: Optional[torch.Tensor], l: int) -> Optional[torch.Tensor]:
@@ -340,13 +371,14 @@ def _paged_layer(params: dict, cfg: ModelConfig, l: int, x: torch.Tensor,
                  v_pages: torch.Tensor, use_kernels: str,
                  k_scales: Optional[torch.Tensor], v_scales: Optional[torch.Tensor],
                  lora: Optional[dict], lora_ids: Optional[torch.Tensor],
-                 par=None) -> torch.Tensor:
+                 par=None, rows: bool = False) -> torch.Tensor:
     """Layer ``l`` of the paged forward: write this step's K/V into layer
     l's pages in place, attend over them (``apos``: the attention's
     positions, -1 for a T > 1 block's pads), then the MLP. ``forward_paged``
     and ``forward_paged_window`` are chains of this one body. Under tensor
     parallelism (``par``) the pools hold this rank's KV heads (an MLA
-    model's latent pool is whole) and the attention runs its own heads."""
+    model's latent pool is whole) and the attention runs its own heads.
+    With ``rows`` x is padded rows [Mp, D] (``ops/rows.py``)."""
     blk = layer_params(params, l)
     lr = _layer_lora(lora, l)
     ks, vs = _layer_view(k_scales, l), _layer_view(v_scales, l)
@@ -359,13 +391,13 @@ def _paged_layer(params: dict, cfg: ModelConfig, l: int, x: torch.Tensor,
             kv_lens, _mla_scale(cfg), use_kernels=use_kernels, c_scales=ks,
             pe_scales=vs))
     else:
-        q, k, v = _qkv(cfg, blk, x, positions, lr, lora_ids, par)
+        q, k, v = _qkv(cfg, blk, x, positions, lr, lora_ids, par, rows)
         write_kv_pages(k_pages[l], v_pages[l], k, v, page_table, positions,
                        token_mask, ks, vs)
         attn = paged_attention(q, k_pages[l], v_pages[l], page_table,
                                apos, kv_lens, use_kernels=use_kernels,
-                               k_scales=ks, v_scales=vs)
-    return _post_attention(cfg, blk, x, attn, lr, lora_ids, par)
+                               k_scales=ks, v_scales=vs, invariant=rows)
+    return _post_attention(cfg, blk, x, attn, lr, lora_ids, par, rows)
 
 
 def _attention_positions(tokens_or_x: torch.Tensor, positions: torch.Tensor,
@@ -395,6 +427,7 @@ def forward_paged(
                                     # alpha/r folded into B; slot 0 is zeros
     lora_ids: Optional[torch.Tensor] = None,  # [B] adapter slot per row
     par=None,                   # ModelParallel: this rank's heads (tp / ep)
+    rows: bool = False,         # batch-invariant (ops/rows.py)
 ) -> torch.Tensor:
     """Serving forward over the paged pool: decode steps (T == 1) and
     [B, T] blocks of prefill chunks or speculative verifies (T > 1). On
@@ -405,13 +438,18 @@ def forward_paged(
     keep the given positions. Writes this step's K/V into the pools in
     place; returns logits [B, T, V] f32 (under ``par``, the whole vocab on
     every rank)."""
+    _check_rows(cfg, rows, lora, par)
     x = _embed(params, cfg, tokens, par)
     apos = _attention_positions(tokens, positions, token_mask)
+    if rows:
+        x = pad_rows(x)
     for l in range(cfg.num_layers):
         x = _paged_layer(params, cfg, l, x, positions, apos, token_mask,
                          kv_lens, page_table, k_pages, v_pages, use_kernels,
-                         k_scales, v_scales, lora, lora_ids, par)
-    return _head(params, cfg, x, par)
+                         k_scales, v_scales, lora, lora_ids, par, rows)
+    if rows:
+        x = unpad_rows(x, tokens.shape)
+    return _head(params, cfg, x, par, rows)
 
 
 @torch.no_grad()
@@ -431,6 +469,7 @@ def forward_paged_window(
     k_scales: Optional[torch.Tensor] = None,
     v_scales: Optional[torch.Tensor] = None,
     par=None,
+    rows: bool = False,
 ) -> torch.Tensor:
     """One LAYER WINDOW of ``forward_paged``: layers ``[layer_lo,
     layer_hi)`` over hidden states, writing and attending only those
@@ -439,16 +478,19 @@ def forward_paged_window(
     starts as soon as its leading layers' KV has landed; the caller embeds
     the tokens before window 0 and applies ``_head`` after the last.
 
-    Each layer is ``forward_paged``'s own body (``_paged_layer``), so a
-    chain over every layer is ``forward_paged``'s arithmetic. On CUDA the
+    Each layer is ``forward_paged``'s own body (``_paged_layer``; with
+    ``rows`` over the window's rows padded, ``ops/rows.py``), so a chain
+    over every layer is ``forward_paged``'s arithmetic. On CUDA the
     attention at T == 1 is kernel A (C, E or G by pool and model). Returns
     the hidden states leaving layer ``layer_hi - 1``."""
+    _check_rows(cfg, rows, None, par)
     apos = _attention_positions(x, positions, token_mask)
+    h = pad_rows(x) if rows else x
     for l in range(layer_lo, layer_hi):
-        x = _paged_layer(params, cfg, l, x, positions, apos, token_mask,
+        h = _paged_layer(params, cfg, l, h, positions, apos, token_mask,
                          kv_lens, page_table, k_pages, v_pages, use_kernels,
-                         k_scales, v_scales, None, None, par)
-    return x
+                         k_scales, v_scales, None, None, par, rows)
+    return unpad_rows(h, x.shape[:2]) if rows else h
 
 
 @torch.no_grad()
@@ -469,12 +511,18 @@ def forward_ragged(
     k_scales: Optional[torch.Tensor] = None,  # [L, NP, page, KV, 1] (int8 pools)
     v_scales: Optional[torch.Tensor] = None,
     par=None,                   # ModelParallel: this rank's heads (tp / ep)
+    rows: bool = False,         # batch-invariant (ops/rows.py)
+    one_token=None,             # with rows: ops.ragged_paged_attention.one_token_rows
 ) -> torch.Tensor:
     """Serving forward over a ragged pack of prefill chunks and decode
     steps in one dispatch (on CUDA: kernel B, D for int8 pools, F for
-    MLA). Writes K/V into the pools in place; returns logits [1, T, V]
-    f32."""
+    MLA; with ``rows``, the ``one_token`` rows through kernel A, or C, as
+    in a decode step). Writes K/V into the pools in place; returns logits
+    [1, T, V] f32."""
+    _check_rows(cfg, rows, None, par)
     x = _embed(params, cfg, tokens, par)
+    if rows:
+        x = pad_rows(x)
     for l in range(cfg.num_layers):
         blk = layer_params(params, l)
         ks, vs = _layer_view(k_scales, l), _layer_view(v_scales, l)
@@ -488,16 +536,19 @@ def forward_ragged(
                 kv_lens, row_ids, _mla_scale(cfg), use_kernels=use_kernels,
                 c_scales=ks, pe_scales=vs, max_q_len=max_q_len))
         else:
-            q, k, v = _qkv(cfg, blk, x, positions, par=par)
+            q, k, v = _qkv(cfg, blk, x, positions, par=par, rows=rows)
             write_kv_pages_ragged(k_pages[l], v_pages[l], k, v, page_table,
                                   row_ids, positions, token_mask, ks, vs)
             attn = ragged_paged_attention(q, k_pages[l], v_pages[l], page_table,
                                           positions, kv_lens, row_ids,
                                           use_kernels=use_kernels,
                                           max_q_len=max_q_len, k_scales=ks,
-                                          v_scales=vs)
-        x = _post_attention(cfg, blk, x, attn, par=par)
-    return _head(params, cfg, x, par)
+                                          v_scales=vs, invariant=rows,
+                                          one_token=one_token)
+        x = _post_attention(cfg, blk, x, attn, par=par, rows=rows)
+    if rows:
+        x = unpad_rows(x, tokens.shape)
+    return _head(params, cfg, x, par, rows)
 
 
 def seq_range(mesh, T: int) -> Tuple[int, int]:

@@ -101,6 +101,23 @@ class Registry:
                 if ex is None or value >= ex[0]:
                     h[4][i] = (value, exemplar)
 
+    def quantile(self, name: str, q: float, **labels) -> Optional[float]:
+        """Approximate quantile from the histogram buckets (the bucket's
+        upper bound). A quantile that lands in the overflow bucket reads
+        as the observed max, not +Inf."""
+        key = _key(name, labels)
+        with self._lock:
+            h = self._hist.get(key)
+            if h is None or h[2] == 0:
+                return None
+            target = q * h[2]
+            seen = 0
+            for i, count in enumerate(h[0]):
+                seen += count
+                if seen >= target:
+                    return _BUCKETS[i] if i < len(_BUCKETS) else h[3]
+            return h[3]
+
     def exemplars_snapshot(self) -> list:
         """Every bucket exemplar of every histogram series, flat."""
         with self._lock:

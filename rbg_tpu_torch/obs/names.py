@@ -40,6 +40,7 @@ KVT_DIR_INVALIDATIONS_TOTAL = "rbg_kvtransfer_dir_invalidations_total"
 KVT_DIR_BREAKER_OPEN_TOTAL = "rbg_kvtransfer_dir_breaker_open_total"
 KVT_CHUNKS_DUPLICATE_TOTAL = "rbg_kvtransfer_chunks_duplicate_total"
 KVT_CHUNKS_REORDERED_TOTAL = "rbg_kvtransfer_chunks_reordered_total"
+CHAOS_FAULTS_INJECTED_TOTAL = "rbg_chaos_faults_injected_total"
 
 # ---- gauges ----
 
@@ -88,7 +89,7 @@ COUNTERS = frozenset({
     KVT_BYTES_TOTAL, KVT_STREAMS_TOTAL, KVT_LAYER_ADMIT_TOTAL,
     KVT_DIR_LOOKUPS_TOTAL, KVT_DIR_INVALIDATIONS_TOTAL,
     KVT_DIR_BREAKER_OPEN_TOTAL, KVT_CHUNKS_DUPLICATE_TOTAL,
-    KVT_CHUNKS_REORDERED_TOTAL,
+    KVT_CHUNKS_REORDERED_TOTAL, CHAOS_FAULTS_INJECTED_TOTAL,
 })
 GAUGES = frozenset({
     SERVING_DRAINING, SLO_TTFT_ATTAINMENT, SLO_TPOT_ATTAINMENT, SLO_GOODPUT_RPS,
@@ -120,8 +121,10 @@ SPAN_PD_KV_HANDOFF = "pd.kv_handoff"
 SPAN_KVT_PUSH = "kvtransfer.push"
 SPAN_KVT_COMMIT = "kvtransfer.commit"
 SPAN_PD_LAYER_SLICED_STEP = "pd.layer_sliced_step"
+SPAN_STRESS_REQUEST = "stress.request"
 
 SPANS = frozenset({SPAN_HTTP_REQUEST, SPAN_ENGINE_OP, SPAN_SERVICE_QUEUE_WAIT,
                    SPAN_SERVICE_SCAN, SPAN_ROUTER_REQUEST, SPAN_ROUTER_ATTEMPT,
                    SPAN_ROUTER_RESHARD, SPAN_PD_PREFILL, SPAN_PD_KV_HANDOFF,
-                   SPAN_KVT_PUSH, SPAN_KVT_COMMIT, SPAN_PD_LAYER_SLICED_STEP})
+                   SPAN_KVT_PUSH, SPAN_KVT_COMMIT, SPAN_PD_LAYER_SLICED_STEP,
+                   SPAN_STRESS_REQUEST})

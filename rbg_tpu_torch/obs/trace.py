@@ -385,6 +385,10 @@ def _record(trace_id: str, spans: List[Span], dropped: int,
     }
 
 
+def complete(record: dict) -> bool:
+    return bool(record.get("complete"))
+
+
 def waterfall(record: dict) -> List[str]:
     """One trace as indented lines: span, start offset, duration, attrs."""
     spans = record.get("spans") or []
@@ -410,6 +414,30 @@ def waterfall(record: dict) -> List[str]:
 
     emit(None, 1)
     return lines
+
+
+def hop_coverage(record: dict) -> Optional[float]:
+    """Share of the root span's duration covered by the union of its
+    direct children's intervals (overlaps count once, so a retried hop
+    does not count twice). None when the record has no timed root."""
+    spans = record.get("spans") or []
+    if not spans or record.get("duration_ms") in (None, 0):
+        return None
+    root = spans[0]
+    kids = [s for s in spans
+            if s["parent_id"] == root["span_id"] and s["duration_ms"] is not None]
+    if not kids:
+        return 0.0
+    iv = sorted((s["start_ms"], s["start_ms"] + s["duration_ms"]) for s in kids)
+    covered, lo, hi = 0.0, iv[0][0], iv[0][1]
+    for a, b in iv[1:]:
+        if a > hi:
+            covered += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    covered += hi - lo
+    return covered / record["duration_ms"]
 
 
 def traces_response(n) -> dict:

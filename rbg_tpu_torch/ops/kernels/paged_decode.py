@@ -6,10 +6,13 @@ Its plain PyTorch version is ``ops/paged_attention.py::paged_attention_plain``.
 Each work item of A (and of C, ``paged_decode_q.py``) is a row, a kv head
 and one of ``ns`` contiguous parts of the row's walk in ``KV_BLOCK``-slot
 blocks, ``ns = min(cap, ceil(blocks / 2))`` from the row's own kv_len and
-``cap = split_cap(B, KV)`` (``csrc/paged_decode.cuh``); the split that
-finishes last merges the others' partials on the card. The kernel takes hd
-in ``HEAD_DIMS``, G <= 16 and any page size (each slot's page is looked up
-as the walk goes, so a block may span parts of pages or lie inside one);
+``cap = split_cap(B, KV)`` (``csrc/paged_decode.cuh``), or MAX_SPLITS
+whatever the batch with ``invariant`` (batch-invariant serving,
+``ops/rows.py``: a row's bits then never depend on the batch it decodes
+in); the split that finishes last merges the others' partials on the
+card. The kernel takes hd in ``HEAD_DIMS``, G <= 16 and any page size
+(each slot's page is looked up as the walk goes, so a block may span parts
+of pages or lie inside one);
 ``check_decode`` refuses anything else with a ``ValueError`` before any
 launch. Kernel I (``ragged_paged_tokengrid.py``) runs the same body with a
 packed token in the row's place."""
@@ -98,17 +101,18 @@ def decode_scratch(q: torch.Tensor, stream: int, B: int, KV: int, G: int, hd: in
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, page_table: torch.Tensor,
-                           kv_lens: torch.Tensor) -> torch.Tensor:
+                           kv_lens: torch.Tensor, invariant: bool = False) -> torch.Tensor:
     """q [B, 1, H, hd]; pools [NP, page, KV, hd] in q's dtype; page_table
     [B, P] int32; kv_lens [B] int32. Returns [B, 1, H, hd] in q's dtype.
-    Shape limits: ``check_decode``."""
+    Shape limits: ``check_decode``. ``invariant``: the split cap is
+    MAX_SPLITS whatever B."""
     B, KV, G, hd, page = check_decode("paged_decode", q, k_pages, v_pages,
                                       page_table, kv_lens)
     code = dtype_code(q, k_pages, v_pages)
     out = torch.empty_like(q)
     dev = q.get_device()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    cap = split_cap(B, KV)
+    cap = MAX_SPLITS if invariant else split_cap(B, KV)
     part, counts = decode_scratch(q, stream, B, KV, G, hd, cap)
     rc = load_function("paged_decode", _ARGTYPES)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),

@@ -14,8 +14,8 @@ import torch
 from rbg_tpu_torch.ops.kernels import (LAUNCHES, check_scales, check_tensors,
                                        dtype_code)
 from rbg_tpu_torch.ops.kernels.build import check, load_function
-from rbg_tpu_torch.ops.kernels.paged_decode import (check_decode, decode_scratch,
-                                                    split_cap)
+from rbg_tpu_torch.ops.kernels.paged_decode import (MAX_SPLITS, check_decode,
+                                                    decode_scratch, split_cap)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -25,10 +25,10 @@ _ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
 def paged_decode_attention_q(q: torch.Tensor, k_pages: torch.Tensor,
                              v_pages: torch.Tensor, k_scales: torch.Tensor,
                              v_scales: torch.Tensor, page_table: torch.Tensor,
-                             kv_lens: torch.Tensor) -> torch.Tensor:
+                             kv_lens: torch.Tensor, invariant: bool = False) -> torch.Tensor:
     """q [B, 1, H, hd] float32 or bfloat16; pools [NP, page, KV, hd] int8;
     scales [NP, page, KV, 1] float32; page_table [B, P] int32; kv_lens [B]
-    int32. Returns [B, 1, H, hd] in q's dtype."""
+    int32. Returns [B, 1, H, hd] in q's dtype. ``invariant``: as A's."""
     B, KV, G, hd, page = check_decode("paged_decode_q", q, k_pages, v_pages,
                                       page_table, kv_lens)
     check_scales(k_pages, k_scales, v_scales)
@@ -37,7 +37,7 @@ def paged_decode_attention_q(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty_like(q)
     dev = q.get_device()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    cap = split_cap(B, KV)
+    cap = MAX_SPLITS if invariant else split_cap(B, KV)
     part, counts = decode_scratch(q, stream, B, KV, G, hd, cap)
     rc = load_function("paged_decode_q", _ARGTYPES)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), k_scales.data_ptr(),

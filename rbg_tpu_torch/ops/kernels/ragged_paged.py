@@ -34,7 +34,7 @@ _HEAD, _TILES = 0, 3
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-             ctypes.c_float, _I, _P)
+             ctypes.c_float, _I, _I, _P)
 
 
 def check_pack(q, page_table, q_positions, kv_lens, row_ids):
@@ -81,11 +81,14 @@ def scratch(q: torch.Tensor, stream: int, R: int, KV: int, G: int, hd: int):
 def ragged_paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                                 v_pages: torch.Tensor, page_table: torch.Tensor,
                                 q_positions: torch.Tensor, kv_lens: torch.Tensor,
-                                row_ids: torch.Tensor) -> torch.Tensor:
+                                row_ids: torch.Tensor,
+                                invariant: bool = False) -> torch.Tensor:
     """q [1, T, H, hd] packed; pools [NP, page, KV, hd] in q's dtype;
     page_table [R, P], q_positions [1, T], kv_lens [R], row_ids [T], all
     int32. Returns [1, T, H, hd] in q's dtype. Shape limits:
-    ``check_ragged_shapes``."""
+    ``check_ragged_shapes``. ``invariant``: a group's KV block splits
+    between two warps whatever the tile's fill (batch-invariant serving,
+    ``ops/rows.py``)."""
     KV, G, hd, page = check_ragged_shapes("ragged_paged", q, k_pages, v_pages,
                                           page_table)
     T, R = check_pack(q, page_table, q_positions, kv_lens, row_ids)
@@ -101,7 +104,7 @@ def ragged_paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                 page_table.data_ptr(), kv_lens.data_ptr(), row_ids.data_ptr(),
                 q_positions.data_ptr(), out.data_ptr(), part.data_ptr(),
                 counts.data_ptr(), T, R, KV, G, hd, page, page_table.shape[1],
-                hd ** -0.5, code, stream)
+                hd ** -0.5, code, int(invariant), stream)
     check("ragged_paged", rc)
     if T:
         LAUNCHES["ragged_paged"] += 1

@@ -19,18 +19,20 @@ from rbg_tpu_torch.ops.kernels.ragged_paged import (check_pack, check_ragged_sha
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-             _I, _I, _I, ctypes.c_float, _I, _P)
+             _I, _I, _I, ctypes.c_float, _I, _I, _P)
 
 
 def ragged_paged_attention_q_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                                   v_pages: torch.Tensor, k_scales: torch.Tensor,
                                   v_scales: torch.Tensor, page_table: torch.Tensor,
                                   q_positions: torch.Tensor, kv_lens: torch.Tensor,
-                                  row_ids: torch.Tensor) -> torch.Tensor:
+                                  row_ids: torch.Tensor,
+                                  invariant: bool = False) -> torch.Tensor:
     """q [1, T, H, hd] packed, float32 or bfloat16; pools [NP, page, KV, hd]
     int8; scales [NP, page, KV, 1] float32; page_table [R, P], q_positions
     [1, T], kv_lens [R], row_ids [T], all int32. Returns [1, T, H, hd] in
-    q's dtype. Shape limits: ``ragged_paged.check_ragged_shapes``."""
+    q's dtype. Shape limits: ``ragged_paged.check_ragged_shapes``.
+    ``invariant``: as B's."""
     KV, G, hd, page = check_ragged_shapes("ragged_paged_q", q, k_pages, v_pages,
                                           page_table)
     T, R = check_pack(q, page_table, q_positions, kv_lens, row_ids)
@@ -48,7 +50,7 @@ def ragged_paged_attention_q_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                 k_scales.data_ptr(), v_scales.data_ptr(), page_table.data_ptr(),
                 kv_lens.data_ptr(), row_ids.data_ptr(), q_positions.data_ptr(),
                 out.data_ptr(), part.data_ptr(), counts.data_ptr(), T, R, KV, G, hd,
-                page, page_table.shape[1], hd ** -0.5, code, stream)
+                page, page_table.shape[1], hd ** -0.5, code, int(invariant), stream)
     check("ragged_paged_q", rc)
     if T:
         LAUNCHES["ragged_paged_q"] += 1

@@ -167,11 +167,13 @@ def as_pack(q: torch.Tensor, q_positions: torch.Tensor):
 
 
 def paged_attention(q, k_pages, v_pages, page_table, q_positions, kv_lens,
-                    *, use_kernels: str = "auto", k_scales=None, v_scales=None):
+                    *, use_kernels: str = "auto", k_scales=None, v_scales=None,
+                    invariant: bool = False):
     """Paged attention through a CUDA kernel for CUDA tensors, or the plain
     version (see ``dispatch``). T == 1: kernel C for an int8 pool with
     scales, else kernel A. T > 1: the block as a pack (``as_pack``)
-    through kernel D, else B; pads must come at position -1."""
+    through kernel D, else B; pads must come at position -1.
+    ``invariant``: the kernels' batch-invariant switch (``ops/rows.py``)."""
     def kernel():
         if q.shape[1] > 1:
             from rbg_tpu_torch.ops.ragged_paged_attention import ragged_paged_attention
@@ -179,15 +181,15 @@ def paged_attention(q, k_pages, v_pages, page_table, q_positions, kv_lens,
             return ragged_paged_attention(
                 qp, k_pages, v_pages, page_table, pos, kv_lens, rows,
                 use_kernels=use_kernels, k_scales=k_scales,
-                v_scales=v_scales).reshape(q.shape)
+                v_scales=v_scales, invariant=invariant).reshape(q.shape)
         if k_scales is not None:
             from rbg_tpu_torch.ops.kernels.paged_decode_q import (
                 paged_decode_attention_q)
             return paged_decode_attention_q(q, k_pages, v_pages, k_scales,
-                                            v_scales, page_table, kv_lens)
+                                            v_scales, page_table, kv_lens, invariant)
         from rbg_tpu_torch.ops.kernels.paged_decode import paged_decode_attention
         return paged_decode_attention(q, k_pages, v_pages, page_table,
-                                      kv_lens)
+                                      kv_lens, invariant)
 
     return dispatch(use_kernels, q, kernel, lambda: paged_attention_plain(
         q, k_pages, v_pages, page_table, q_positions, kv_lens, k_scales,

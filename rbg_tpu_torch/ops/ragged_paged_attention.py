@@ -22,7 +22,11 @@ Token ``t`` attends slots ``< min(kv_lens[row_ids[t]], q_positions[t] + 1)``.
   and ``ops/kernels/ragged_paged_q.py`` (int8 pools with scales) — per-row
   query tiles (up to 64 // G of one row's live tokens, pads never in a
   tile), each walking its row's pages once, a long walk split across
-  blocks and merged;
+  blocks and merged. In batch-invariant serving (``invariant``,
+  ``ops/rows.py``) a pack's one-token rows (``one_token``: decode steps, a
+  one-token prompt tail) go through the decode kernel (A, C for int8
+  pools) instead, as they do in a decode step, so a row's bits do not
+  depend on whether its step also prefilled another row;
 * the token-grid CUDA kernel ``ops/kernels/ragged_paged_tokengrid.py`` —
   the same function with one block per packed token, each walking its
   row's pages alone: the baseline the block-ragged kernel is measured
@@ -116,24 +120,60 @@ def write_kv_pages_ragged(k_pages, v_pages, k_new, v_new, page_table,
                 token_mask[0], k_scales, v_scales)
 
 
+def one_token_rows(positions, row_ids, rows, device) -> tuple:
+    """``ragged_paged_attention``'s ``one_token`` for a pack built on the
+    host: ``positions`` [1, T] and ``row_ids`` [T] (numpy), ``rows`` the
+    pack's rows that hold one live token. Returns (their tokens' indices,
+    their rows, the positions with those tokens at -1), on ``device``."""
+    import numpy as np
+
+    one = np.isin(row_ids, rows) & (positions[0] >= 0)
+    tok = np.nonzero(one)[0]
+    rest = np.where(one[None], -1, positions).astype(np.int32)
+    return (torch.from_numpy(tok).to(device), torch.from_numpy(row_ids[tok]).long().to(device),
+            torch.from_numpy(rest).to(device))
+
+
 def ragged_paged_attention(q, k_pages, v_pages, page_table, q_positions,
                            kv_lens, row_ids, *, use_kernels: str = "auto",
                            max_q_len: Optional[int] = None, k_scales=None,
-                           v_scales=None):
+                           v_scales=None, invariant: bool = False, one_token=None):
     """A ragged CUDA kernel for CUDA tensors (kernel D for an int8 pool with
     scales, else kernel B), or the plain version (see ``dispatch``).
     ``max_q_len`` only shapes the plain version's padded batch; the kernels
-    need no padding."""
+    need no padding. ``invariant``: the kernels' batch-invariant switch.
+    ``one_token`` (``one_token_rows``): on the card those tokens skip the
+    ragged kernel and take the decode kernel (C, else A) as one decode
+    batch; the plain version needs no such split."""
     def kernel():
+        pos = q_positions if one_token is None else one_token[2]
         if k_scales is not None:
             from rbg_tpu_torch.ops.kernels.ragged_paged_q import (
                 ragged_paged_attention_q_cuda)
-            return ragged_paged_attention_q_cuda(q, k_pages, v_pages, k_scales,
-                                                 v_scales, page_table,
-                                                 q_positions, kv_lens, row_ids)
-        from rbg_tpu_torch.ops.kernels.ragged_paged import ragged_paged_attention_cuda
-        return ragged_paged_attention_cuda(q, k_pages, v_pages, page_table,
-                                           q_positions, kv_lens, row_ids)
+            out = ragged_paged_attention_q_cuda(q, k_pages, v_pages, k_scales,
+                                                v_scales, page_table, pos,
+                                                kv_lens, row_ids, invariant)
+        else:
+            from rbg_tpu_torch.ops.kernels.ragged_paged import (
+                ragged_paged_attention_cuda)
+            out = ragged_paged_attention_cuda(q, k_pages, v_pages, page_table,
+                                              pos, kv_lens, row_ids, invariant)
+        if one_token is not None and one_token[0].numel():
+            tok, rows = one_token[0], one_token[1]
+            qd, table = q[0, tok][:, None], page_table[rows]
+            lens = torch.minimum(kv_lens[rows], q_positions[0, tok] + 1)
+            if k_scales is not None:
+                from rbg_tpu_torch.ops.kernels.paged_decode_q import (
+                    paged_decode_attention_q)
+                dec = paged_decode_attention_q(qd, k_pages, v_pages, k_scales,
+                                               v_scales, table, lens, invariant)
+            else:
+                from rbg_tpu_torch.ops.kernels.paged_decode import (
+                    paged_decode_attention)
+                dec = paged_decode_attention(qd, k_pages, v_pages, table, lens,
+                                             invariant)
+            out[0].index_copy_(0, tok, dec[:, 0])
+        return out
 
     return dispatch(use_kernels, q, kernel, lambda: ragged_paged_attention_plain(
         q, k_pages, v_pages, page_table, q_positions, kv_lens, row_ids,

@@ -4,7 +4,9 @@ rbg_tpu_torch module, chip_smoke.py, the scripts the gloo tests spawn
 as ranks and every module the GPU check's stage payloads import loads
 neither JAX nor any rbg_tpu module, and the entry points (the engine, the PD pairs, the train step
 and the mesh) refuse to run without a card unless asked for the CPU (the
-router and the kv pool server, which run no model, start without one)."""
+router and the kv pool server, which run no model, start without one; the
+stress drills' command line refuses to start without one unless given
+``--device cpu``)."""
 
 import os
 import subprocess
@@ -37,7 +39,9 @@ assert {"rbg_tpu_torch.engine.grammar", "rbg_tpu_torch.engine.http_frontend",
         "rbg_tpu_torch.parallel.mesh", "rbg_tpu_torch.parallel.sharding",
         "rbg_tpu_torch.parallel.ring", "rbg_tpu_torch.parallel.pipeline",
         "rbg_tpu_torch.engine.rendezvous_check",
-        "rbg_tpu_torch.engine.lockstep", "rbg_tpu_torch.cli.gpucheck"} <= set(names)
+        "rbg_tpu_torch.engine.lockstep", "rbg_tpu_torch.cli.gpucheck",
+        "rbg_tpu_torch.stress.harness", "rbg_tpu_torch.chaos.schedule",
+        "rbg_tpu_torch.chaos.inject", "rbg_tpu_torch.ops.rows"} <= set(names)
 assert not bad, bad
 print("ok", len(names))
 """
@@ -151,3 +155,14 @@ print("ok")
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-3000:]
     r = _run(None, "-m", "rbg_tpu_torch.engine.kvpool", "--help")
     assert r.returncode == 0 and "--page-size" in r.stdout, r.stderr[-3000:]
+
+
+def test_stress_cli_needs_a_card_unless_asked_for_cpu():
+    """Without ``--device`` the drills' command line exits 2 before building
+    anything on a machine without a card; ``--help`` runs anywhere (the
+    drills at ``--device cpu``: tests/test_torch_stress.py)."""
+    r = _run(None, "-m", "rbg_tpu_torch.stress.harness", "--scenario", "partition")
+    assert r.returncode == 2 and "no CUDA device" in r.stderr, r.stderr[-3000:]
+    assert r.stdout == ""
+    r = _run(None, "-m", "rbg_tpu_torch.stress.harness", "--help")
+    assert r.returncode == 0 and "--kv-admit-layers" in r.stdout, r.stderr[-3000:]
