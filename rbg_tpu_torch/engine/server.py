@@ -242,7 +242,12 @@ class Handler(socketserver.BaseRequestHandler):
                 stats["device_tier_pages"] = (
                     eng.radix.cached_pages if eng.radix is not None else 0)
             stats["draining"] = srv.draining
-            send_msg(self.request, {"metrics": stats, "mode": srv.mode})
+            # Each hand-written kernel's launches in this process, so a
+            # caller across processes (the control plane's card check) can
+            # see the served path went through them.
+            from rbg_tpu_torch.ops.kernels import LAUNCHES
+            send_msg(self.request, {"metrics": stats, "mode": srv.mode,
+                                    "kernel_launches": dict(LAUNCHES)})
             return
         if op == "generate_text" and service is not None:
             self._generate_text(srv, service, obj)
@@ -746,6 +751,14 @@ def build_prefill(cfg: EngineConfig, args, addr: str, auth_token=None):
     return prefill
 
 
+def serve_port(args) -> int:
+    """The port to bind: the control plane's (``RBG_SERVE_PORT``, else
+    ``RBG_PORT_SERVE``) before ``--port``, as the reference's serve() reads
+    it, so an executor's pod answers on the port it was given."""
+    return int(os.environ.get("RBG_SERVE_PORT")
+               or os.environ.get("RBG_PORT_SERVE") or args.port)
+
+
 def serve(args) -> None:
     from rbg_tpu_torch.engine.service import EngineService
     from rbg_tpu_torch.engine.tokenizer import load_tokenizer
@@ -771,7 +784,7 @@ def serve(args) -> None:
         else os.environ.get("RBG_DRAIN_DEADLINE_S", DEFAULT_DRAIN_DEADLINE_S))
     auth_token = args.auth_token or os.environ.get("RBG_DATA_TOKEN") or None
     server = EngineServer(
-        ("127.0.0.1", args.port), auth_token=auth_token,
+        ("127.0.0.1", serve_port(args)), auth_token=auth_token,
         drain_deadline_s=drain_deadline_s, mode=cfg.mode)
     # serve() runs on the main thread, where signal() is allowed.
     signal.signal(signal.SIGTERM,
@@ -818,7 +831,7 @@ def serve(args) -> None:
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(prog="rbg-tpu-torch-engine")
-    ap.add_argument("--model", default="tiny")
+    ap.add_argument("--model", default=os.environ.get("RBG_MODEL", "tiny"))
     ap.add_argument("--mode", default="unified",
                     choices=["unified", "prefill", "decode"],
                     help="PD role: unified serves generate; prefill answers "
@@ -826,7 +839,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "imports KV and decodes")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; fails without a card)")
-    ap.add_argument("--port", type=int, default=9000, help="0 = any free port")
+    ap.add_argument("--port", type=int, default=9000,
+                    help="0 = any free port ($RBG_SERVE_PORT or $RBG_PORT_SERVE, "
+                         "when set, win)")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--num-pages", type=int, default=512)
     ap.add_argument("--max-batch", type=int, default=8)

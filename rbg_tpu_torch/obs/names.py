@@ -1,6 +1,8 @@
 """The ``rbg_*`` metric and span names the serving path emits, with the
 values of ``rbg_tpu/obs/names.py`` so the port's series carry the same
-names on the wire. Only the names the port's modules use are here."""
+names on the wire. Only the names the port's modules use are here (the
+serving path's and, under "control plane", the store's, the controllers'
+and the scheduler's)."""
 
 from __future__ import annotations
 
@@ -41,6 +43,24 @@ KVT_DIR_BREAKER_OPEN_TOTAL = "rbg_kvtransfer_dir_breaker_open_total"
 KVT_CHUNKS_DUPLICATE_TOTAL = "rbg_kvtransfer_chunks_duplicate_total"
 KVT_CHUNKS_REORDERED_TOTAL = "rbg_kvtransfer_chunks_reordered_total"
 CHAOS_FAULTS_INJECTED_TOTAL = "rbg_chaos_faults_injected_total"
+# control plane
+RECONCILE_TOTAL = "rbg_reconcile_total"
+RECONCILE_REQUEUES_TOTAL = "rbg_reconcile_requeues_total"
+RECONCILE_DEDUPED_TOTAL = "rbg_reconcile_deduped_total"
+WORKQUEUE_ADDS_TOTAL = "rbg_workqueue_adds_total"
+RESYNC_BACKSTOP_ENQUEUED_TOTAL = "rbg_resync_backstop_enqueued_total"
+RESYNC_BACKSTOP_SKIPPED_TOTAL = "rbg_resync_backstop_skipped_total"
+SCHED_SHARD_SCANS_TOTAL = "rbg_sched_shard_scans_total"
+SCHED_SHARD_SKIPS_TOTAL = "rbg_sched_shard_skips_total"
+SCHED_BINDS_TOTAL = "rbg_sched_binds_total"
+WATCH_REPLAYS_TOTAL = "rbg_watch_replays_total"
+WATCH_EVENTS_TOTAL = "rbg_watch_events_total"
+WATCH_DELIVERIES_TOTAL = "rbg_watch_deliveries_total"
+EVENTS_RECORDED_TOTAL = "rbg_events_recorded_total"
+EVENTS_DEDUPED_TOTAL = "rbg_events_deduped_total"
+EVENTS_EVICTED_TOTAL = "rbg_events_evicted_total"
+PLANE_FENCED_WRITES_TOTAL = "rbg_plane_fenced_writes_total"
+DISRUPTION_SPARES_CONSUMED_TOTAL = "rbg_disruption_spares_consumed_total"
 
 # ---- gauges ----
 
@@ -57,6 +77,11 @@ ROUTER_RING_MEMBERS = "rbg_router_ring_members"
 SERVING_RETRY_BUDGET_TOKENS = "rbg_serving_retry_budget_tokens"
 DEGRADED_MODE = "rbg_degraded_mode"
 KVT_DIR_ENTRIES = "rbg_kvtransfer_dir_entries"
+# control plane
+WORKQUEUE_DEPTH = "rbg_workqueue_depth"
+WORKQUEUE_RETRIES_PENDING = "rbg_workqueue_retries_pending"
+EVENTS_OBJECTS = "rbg_events_objects"
+DISRUPTION_SPARE_POOL_DEPTH = "rbg_disruption_spare_pool_depth"
 
 # ---- histograms ----
 
@@ -74,6 +99,11 @@ KVT_ADMIT_LEAD_SECONDS = "rbg_kvtransfer_admit_lead_seconds"
 KVT_LAYER_ADMIT_LEAD_SECONDS = "rbg_kvtransfer_layer_admit_lead_seconds"
 KVT_LAYER_ADMIT_COVERAGE_LAYERS = (
     "rbg_kvtransfer_layer_admit_coverage_layers")
+# control plane
+RECONCILE_DURATION_SECONDS = "rbg_reconcile_duration_seconds"
+WORKQUEUE_QUEUE_AGE_SECONDS = "rbg_workqueue_queue_age_seconds"
+WATCH_DISPATCH_SECONDS = "rbg_watch_dispatch_seconds"
+SCHED_FEASIBILITY_SCAN_SECONDS = "rbg_sched_feasibility_scan_seconds"
 
 COUNTERS = frozenset({
     SERVING_SHED_TOTAL, SERVING_DEADLINE_EXCEEDED_TOTAL, SERVING_DRAINS_TOTAL,
@@ -90,12 +120,21 @@ COUNTERS = frozenset({
     KVT_DIR_LOOKUPS_TOTAL, KVT_DIR_INVALIDATIONS_TOTAL,
     KVT_DIR_BREAKER_OPEN_TOTAL, KVT_CHUNKS_DUPLICATE_TOTAL,
     KVT_CHUNKS_REORDERED_TOTAL, CHAOS_FAULTS_INJECTED_TOTAL,
+    RECONCILE_TOTAL, RECONCILE_REQUEUES_TOTAL, RECONCILE_DEDUPED_TOTAL,
+    WORKQUEUE_ADDS_TOTAL, RESYNC_BACKSTOP_ENQUEUED_TOTAL,
+    RESYNC_BACKSTOP_SKIPPED_TOTAL, SCHED_SHARD_SCANS_TOTAL,
+    SCHED_SHARD_SKIPS_TOTAL, SCHED_BINDS_TOTAL, WATCH_REPLAYS_TOTAL,
+    WATCH_EVENTS_TOTAL, WATCH_DELIVERIES_TOTAL, EVENTS_RECORDED_TOTAL,
+    EVENTS_DEDUPED_TOTAL, EVENTS_EVICTED_TOTAL, PLANE_FENCED_WRITES_TOTAL,
+    DISRUPTION_SPARES_CONSUMED_TOTAL,
 })
 GAUGES = frozenset({
     SERVING_DRAINING, SLO_TTFT_ATTAINMENT, SLO_TPOT_ATTAINMENT, SLO_GOODPUT_RPS,
     ROUTER_BACKEND_OUTSTANDING, ROUTER_BACKEND_DRAINING, KVT_LINK_RATE,
     KVC_TIER_PAGES, KVC_TIER_BYTES, ROUTER_RING_MEMBERS,
     SERVING_RETRY_BUDGET_TOKENS, DEGRADED_MODE, KVT_DIR_ENTRIES,
+    WORKQUEUE_DEPTH, WORKQUEUE_RETRIES_PENDING, EVENTS_OBJECTS,
+    DISRUPTION_SPARE_POOL_DEPTH,
 })
 HISTOGRAMS = frozenset({
     SERVING_QUEUE_DEPTH, SERVING_REQUEST_DURATION_SECONDS,
@@ -103,7 +142,9 @@ HISTOGRAMS = frozenset({
     SERVING_PREDICTED_TTFT_SECONDS, SLO_TTFT_SECONDS, SLO_TPOT_SECONDS,
     KVC_TIER_SPILL_SECONDS, KVC_TIER_PROMOTE_SECONDS, PD_LOCK_HOLD_SECONDS,
     KVT_ADMIT_LEAD_SECONDS, KVT_LAYER_ADMIT_LEAD_SECONDS,
-    KVT_LAYER_ADMIT_COVERAGE_LAYERS,
+    KVT_LAYER_ADMIT_COVERAGE_LAYERS, RECONCILE_DURATION_SECONDS,
+    WORKQUEUE_QUEUE_AGE_SECONDS, WATCH_DISPATCH_SECONDS,
+    SCHED_FEASIBILITY_SCAN_SECONDS,
 })
 ALL_NAMES = COUNTERS | GAUGES | HISTOGRAMS
 
@@ -122,9 +163,11 @@ SPAN_KVT_PUSH = "kvtransfer.push"
 SPAN_KVT_COMMIT = "kvtransfer.commit"
 SPAN_PD_LAYER_SLICED_STEP = "pd.layer_sliced_step"
 SPAN_STRESS_REQUEST = "stress.request"
+SPAN_CTRL_EVENT = "controller.event"
+SPAN_CTRL_RECONCILE = "controller.reconcile"
 
 SPANS = frozenset({SPAN_HTTP_REQUEST, SPAN_ENGINE_OP, SPAN_SERVICE_QUEUE_WAIT,
                    SPAN_SERVICE_SCAN, SPAN_ROUTER_REQUEST, SPAN_ROUTER_ATTEMPT,
                    SPAN_ROUTER_RESHARD, SPAN_PD_PREFILL, SPAN_PD_KV_HANDOFF,
                    SPAN_KVT_PUSH, SPAN_KVT_COMMIT, SPAN_PD_LAYER_SLICED_STEP,
-                   SPAN_STRESS_REQUEST})
+                   SPAN_STRESS_REQUEST, SPAN_CTRL_EVENT, SPAN_CTRL_RECONCILE})

@@ -61,6 +61,10 @@ def configure(enabled: Optional[bool] = None,
         _CFG.sample = float(sample)
 
 
+def enabled() -> bool:
+    return _CFG.enabled
+
+
 class _NullSpan:
     """Falsy no-op span: the disabled or unsampled path."""
 

@@ -18,7 +18,7 @@ prints, as JSON lines (random weights from seed 0, bf16 pools, page 16):
   kernels' self time summed);
 - ``decode``: ``forward_paged``'s decode step at B = 8 (kv_len 2048 ..
   65) and B = 64 (kv_len 64 + 10 i), the same readings;
-- ``bench``: ``bench_serving`` in process with the smoke's ``BENCH_ARGS``
+- ``bench``: ``bench_serving`` in process with ``BENCH_ARGS``
   (16 Poisson requests at 4/s of 512-token prompts, 64 new tokens):
   TTFT, ITL and output tokens/s.
 

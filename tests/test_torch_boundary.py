@@ -1,8 +1,9 @@
 """The port's package boundary, checked in fresh interpreters (this test
 process has JAX loaded by tests/conftest.py): importing every
-rbg_tpu_torch module, chip_smoke.py, the scripts the gloo tests spawn
-as ranks and every module the GPU check's stage payloads import loads
-neither JAX nor any rbg_tpu module, and the entry points (the engine, the PD pairs, the train step
+rbg_tpu_torch module (the control plane's api, runtime, sched, discovery,
+coordination, portalloc and cli.main among them), chip_smoke.py, the
+scripts the gloo tests spawn as ranks and every module the GPU check's
+stage payloads import loads neither JAX nor any rbg_tpu module, and the entry points (the engine, the PD pairs, the train step
 and the mesh) refuse to run without a card unless asked for the CPU (the
 router and the kv pool server, which run no model, start without one; the
 stress drills' command line refuses to start without one unless given
@@ -42,6 +43,20 @@ assert {"rbg_tpu_torch.engine.grammar", "rbg_tpu_torch.engine.http_frontend",
         "rbg_tpu_torch.engine.lockstep", "rbg_tpu_torch.cli.gpucheck",
         "rbg_tpu_torch.stress.harness", "rbg_tpu_torch.chaos.schedule",
         "rbg_tpu_torch.chaos.inject", "rbg_tpu_torch.ops.rows"} <= set(names)
+control_plane = {"rbg_tpu_torch." + m for m in (
+    "api.constants", "api.meta", "api.intstr", "api.pod", "api.group",
+    "api.instance", "api.policy", "api.serde", "api.validation",
+    "api.conversions", "runtime.store", "runtime.queue", "runtime.controller",
+    "runtime.workload", "runtime.kubelet", "runtime.executor", "runtime.plane",
+    "runtime.controllers.stateful_update", "runtime.controllers.instanceset",
+    "runtime.controllers.instance", "runtime.controllers.scalingadapter",
+    "runtime.controllers.group", "sched.binding", "sched.capacity",
+    "sched.scheduler", "discovery.env_builder", "discovery.config_builder",
+    "discovery.component_discovery", "discovery.sidecar_builder",
+    "coordination.dependency", "coordination.rollout", "coordination.scaling",
+    "portalloc.allocator", "portalloc.manager", "inplace.update",
+    "utils.hashing", "cli.main", "testutil")}
+assert control_plane <= set(names), sorted(control_plane - set(names))
 assert not bad, bad
 print("ok", len(names))
 """
@@ -115,6 +130,21 @@ def test_gpucheck_payloads_import_no_jax_and_no_rbg_tpu():
 import sys
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "rbg_tpu" or m.startswith("rbg_tpu."))
+assert not bad, bad
+print("ok")
+""")
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-3000:]
+
+
+def test_control_plane_imports_no_torch_and_no_yaml():
+    """The plane, its executor (and the wire it probes pods over) and the
+    CLI load neither torch nor PyYAML (the card's machine has no PyYAML):
+    a manifest's YAML is read only when the CLI reads one."""
+    r = _run(r"""
+import sys
+import rbg_tpu_torch.runtime.plane, rbg_tpu_torch.runtime.executor
+import rbg_tpu_torch.engine.protocol, rbg_tpu_torch.cli.main
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("torch", "yaml", "jax", "rbg_tpu"))
 assert not bad, bad
 print("ok")
 """)

@@ -38,6 +38,7 @@ from rbg_tpu_torch.models.config import get_config
 from rbg_tpu_torch.models.convert import params_from_numpy
 from rbg_tpu_torch.obs import names
 from rbg_tpu_torch.obs.metrics import REGISTRY
+from torch_pd_links import HeldTailLink, hold_tail
 
 BASE = dict(page_size=8, num_pages=64, max_batch=4, max_seq_len=128,
             prefill_chunk=16)
@@ -292,8 +293,9 @@ def test_layer_sliced_admission_gives_the_tokens_without_it(weights, sp):
     expect = full.generate_one(prompt, SamplingParams(**sp))
     assert expect["layers_at_admit"] is None
     admits0 = REGISTRY.counter(names.KVT_LAYER_ADMIT_TOTAL)
-    sliced = PDStreamPair(ecfg(num_pages=128), params=tp, transport=paced(),
-                          layer_split=1, admit_layers=1)
+    link = HeldTailLink(admit_layers=1)
+    sliced = hold_tail(PDStreamPair(ecfg(num_pages=128), params=tp, transport=link,
+                                    layer_split=1, admit_layers=1), link)
     got = sliced.generate_one(prompt, SamplingParams(**sp))
     assert got["tokens"] == expect["tokens"]
     assert got["layers_at_admit"] is not None
@@ -317,11 +319,11 @@ def test_layer_sliced_admission_over_lossy_links(weights):
                           layer_split=1).generate_one(prompt, sp)["tokens"]
     engaged = 0
     for seed in range(3):
-        lossy = SlowLossyTransport(
-            FakeICITransport(bytes_per_s=2e5, latency_s=0.0005),
-            delay_s=0.001, reorder_window=2, dup_rate=0.5, seed=seed)
-        pair = PDStreamPair(ecfg(num_pages=128), params=tp, transport=lossy,
-                            layer_split=1, admit_layers=1)
+        link = HeldTailLink(admit_layers=1)
+        lossy = SlowLossyTransport(link, delay_s=0.001, reorder_window=2,
+                                   dup_rate=0.5, seed=seed)
+        pair = hold_tail(PDStreamPair(ecfg(num_pages=128), params=tp, transport=lossy,
+                                      layer_split=1, admit_layers=1), link)
         r = pair.generate_one(prompt, sp)
         assert r["tokens"] == expect, f"fault seed {seed} diverged"
         engaged += r["layers_at_admit"] is not None

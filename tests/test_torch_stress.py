@@ -232,22 +232,33 @@ def test_trace_complete_and_hop_coverage_equal_reference(name):
     assert t_trace.complete(rec) == j_trace.complete(rec)
 
 
-def test_hop_coverage_of_a_served_trace_equals_reference():
+def test_hop_coverage_of_a_served_trace_equals_reference(monkeypatch):
     """A real trace of the port's sink (a root, two overlapping hops, one
-    nested): the reference's functions read the same record alike."""
-    import time
+    nested): the reference's functions read the same record alike. The
+    sink's clock is stepped here (the record is 0.0-0.006 s and 0.005-0.009
+    s of hops in an 0.011 s root): with real sleeps a loaded host's
+    scheduler moved the spans' ends enough to take the coverage out of
+    its range."""
+    import types
+
+    now = [100.0]
+    monkeypatch.setattr(t_trace, "time", types.SimpleNamespace(monotonic=lambda: now[0]))
+
+    def sleep(s):
+        now[0] += s
 
     t_trace.configure(enabled=True, sample=1.0)
     try:
         root = t_trace.start_trace(names.SPAN_STRESS_REQUEST, sample=True)
         a = root.child(names.SPAN_SERVICE_QUEUE_WAIT)
-        time.sleep(0.005)
+        sleep(0.005)
         b = root.child(names.SPAN_SERVICE_SCAN)
         b.child(names.SPAN_ENGINE_OP).end()
+        sleep(0.001)
         a.end()
-        time.sleep(0.003)
+        sleep(0.003)
         b.end()
-        time.sleep(0.002)
+        sleep(0.002)
         root.end()
         rec = next(r for r in t_trace.SINK.recent(64)
                    if r["trace_id"] == root.trace_id)

@@ -30,10 +30,10 @@ from rbg_tpu_torch.engine.pd import KVBundle, PDStreamPair  # noqa: E402
 from rbg_tpu_torch.engine.protocol import DeadlineExceeded  # noqa: E402
 from rbg_tpu_torch.engine.service import DecodeService, EngineService  # noqa: E402
 from rbg_tpu_torch.kvtransfer.chunks import StreamMeta, bundle_to_frames  # noqa: E402
-from rbg_tpu_torch.kvtransfer.transport import FakeICITransport  # noqa: E402
 from rbg_tpu_torch.models.config import get_config  # noqa: E402
 from rbg_tpu_torch.models.convert import params_from_numpy  # noqa: E402
 from rbg_tpu_torch.parallel import make_mesh  # noqa: E402
+from torch_pd_links import HeldTailLink, hold_tail  # noqa: E402
 
 BASE = dict(page_size=8, num_pages=64, max_batch=4, max_seq_len=128,
             prefill_chunk=16, enable_radix_cache=False, device="cpu")
@@ -161,11 +161,12 @@ def decode_case(inp, trees, mesh, rank):
 
 def pd_case(trees, mesh, prompts):
     """PDStreamPair(admit_layers=1) at tp 2, every rank on its own paced
-    link: rank 0 decides each admission's coverage."""
-    pair = PDStreamPair(EngineConfig(model="tiny", **BASE), params=trees["tiny"],
-                        mesh=mesh, transport=FakeICITransport(bytes_per_s=2e5,
-                                                              latency_s=0.0005),
-                        layer_split=1, admit_layers=1)
+    link that holds each stream's tail until the pair admits it
+    (tests/torch_pd_links.py): rank 0 decides each admission's coverage."""
+    link = HeldTailLink(admit_layers=1)
+    pair = hold_tail(PDStreamPair(EngineConfig(model="tiny", **BASE), params=trees["tiny"],
+                                  mesh=mesh, transport=link, layer_split=1,
+                                  admit_layers=1), link)
     runs = [pair.generate_one(p, s) for p, s in zip(prompts, [GREEDY, SEEDED, GREEDY])]
     RESULTS["pd_layers"] = [r["tokens"] for r in runs]
     RESULTS["pd_layers/at_admit"] = [r["layers_at_admit"] for r in runs]
